@@ -1,0 +1,19 @@
+"""torchpruner_tpu_torch — the PyTorch/CUDA port of torchpruner_tpu.
+
+The JAX package (``torchpruner_tpu``) is the reference; this package
+mirrors its module layout and parameter-tree names so each counterpart
+is easy to find.  It imports ``torch`` and never ``jax`` or
+``torchpruner_tpu``.
+
+This slice ports the serving path: the Llama model family, int4/int8
+weight-only quantization, KV-cache decoding (``generate``) and the
+continuous-batching engine (``serve``), with the two TPU kernels on that
+path rewritten by hand for Hopper (``ops/fused_matmul.py``,
+``ops/decode_attention.py``; CUDA sources under ``csrc/``).
+
+Importing the package builds nothing and touches no device: kernels are
+compiled at their first launch, and every entry point runs on ``cuda``
+unless the caller asks for the CPU.
+"""
+
+__all__: list = []
