@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 1. Environment: the card's name and power limit (``nvidia-smi``); build
    both CUDA kernels from ``torchpruner_tpu_torch/csrc`` (one ``nvcc``
    per source, in parallel) and print the build time.
-2. Kernel vs plain: the dequant matmul (int4 and int8, M in {1, 4, 64},
-   the Llama-3-8B projection shapes) and decode attention (B=4, T=512,
+2. Kernel vs plain: the dequant matmul (int4 and int8, M in {1, 4, 64}
+   and the prefill buckets {16, 48, 104} of phase 3's prompts, at the
+   Llama-3-8B projection shapes) and decode attention (B=4, T=512,
    H=32, Dh=128, f32 and bf16 cache, ragged positions incl. 0 and T-1,
    stale rows poisoned) against their plain PyTorch versions; CUDA-event
    times of kernel, plain version, one PyTorch library call, and the
@@ -49,6 +50,10 @@ FP32_FLOPS = 67e12
 DQ_SHAPES = {(4096, 4096): 32, (4096, 1024): 64, (4096, 14336): 64,
              (14336, 4096): 32, (4096, 128256): 1}
 DEPTH = 32
+#: rows of a dequant call: decode at 1 and 4 slots, a 64-row case,
+#: and the prefill buckets of phase 3's prompts (16, 40, 100 tokens)
+DQ_ROWS = (1, 4, 16, 48, 64, 104)
+PREFILL_BUCKETS = (16, 48, 104)
 
 
 def fail(msg: str) -> None:
@@ -123,7 +128,7 @@ def dequant_cases(dev):
             qs = [q] + [q.clone() for _ in range(n - 1)]
             n_lib = copies_for(w_lib.numel() * 2)
             libs = [w_lib] + [w_lib.clone() for _ in range(n_lib - 1)]
-            for M in (1, 4, 64):
+            for M in DQ_ROWS:
                 x = torch.randn((M, D), generator=gen, device=dev,
                                 dtype=torch.bfloat16)
                 got = FM.dequant_matmul(x, q, scale, bits=bits)
@@ -317,6 +322,20 @@ def per_step(cases, key, weight):
     return sum(c[key] * weight(c) for c in cases)
 
 
+def prefill_sums(dq) -> dict:
+    """The dequant kernel's time, bound and library time per full-depth
+    int4 prefill at each bucket of phase 3 (sum over that forward's
+    calls; the lm_head runs on every bucket row)."""
+    out = {}
+    for key in ("ms", "bound_ms", "library_ms", "plain_ms"):
+        out[f"prefill_{key}_by_bucket"] = {
+            str(M): per_step([c for c in dq if c["bits"] == 4
+                              and c["M"] == M], key,
+                             lambda c: DQ_SHAPES[(c["D"], c["F"])])
+            for M in PREFILL_BUCKETS}
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     try:
@@ -391,6 +410,7 @@ def main() -> int:
             "per": "one full-depth Llama-3-8B int4 decode step at 4 slots "
                    "(sum over its calls)",
             "launches_int8_phase": s8["launches"][name],
+            **(prefill_sums(dq) if name == "dequant_matmul" else {}),
             "cases": cases,
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")

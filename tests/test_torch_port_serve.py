@@ -115,6 +115,7 @@ def test_entry_points_without_device_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is usable")
     from torchpruner_tpu_torch.convert import params_from_numpy
+    from torchpruner_tpu_torch.core.layers import init_layer
     from torchpruner_tpu_torch.generate import generate, init_cache
     from torchpruner_tpu_torch.serve.frontend import serve_main
 
@@ -122,6 +123,8 @@ def test_entry_points_without_device_raise_without_cuda():
     params, _ = init_model(model, seed=0, device="cpu")
     calls = [
         lambda: init_model(model),
+        lambda: model.init(torch.Generator().manual_seed(0)),
+        lambda: init_layer(model.layers[0], torch.Generator(), (8,)),
         lambda: init_cache(model, 1, 8),
         lambda: generate(model, params, np.zeros((1, 3), np.int64), 2),
         lambda: ServeEngine(model, params),
@@ -196,3 +199,63 @@ def test_host_copies_keep_the_reference_behaviour(module):
             second = [r.slot for r in s.admit()]
             traces.append((first, second, s.queue_depth))
         assert traces[0] == traces[1]
+
+
+def test_scheduler_qos_matches_reference():
+    """Priority admission, preemption of the youngest batch request and
+    a tenant's token-bucket shed follow the JAX package's scheduler step
+    for step."""
+    from torchpruner_tpu.serve import qos as RQ
+    from torchpruner_tpu.serve import scheduler as RS
+    from torchpruner_tpu.serve.allocator import KVCacheAllocator as RA
+    from torchpruner_tpu.serve.request import Request as RR
+    from torchpruner_tpu_torch.serve import qos as PQ
+    from torchpruner_tpu_torch.serve import scheduler as PS
+    from torchpruner_tpu_torch.serve.allocator import KVCacheAllocator as PA
+    from torchpruner_tpu_torch.serve.request import Request as PR
+
+    table = {"chat": {"priority": "interactive", "rate": 1.0, "burst": 1},
+             "bulk": {"priority": "batch"}}
+    traces = []
+    for S, Q, A, R in ((RS, RQ, RA, RR), (PS, PQ, PA, PR)):
+        s = S.Scheduler(A(2, 32), qos=Q.QoS.from_dict(table, now=0.0))
+        bulk = [R(prompt_ids=np.arange(4) + 1, max_new=4, tenant="bulk")
+                for _ in range(3)]
+        for r in bulk:
+            s.submit(r)
+        trace = [[r.slot for r in s.admit()]]
+        chat = [R(prompt_ids=np.arange(3) + 1, max_new=4, tenant="chat")
+                for _ in range(2)]
+        for r in chat:  # the second is throttled: one token, no refill
+            s.submit(r)
+        trace.append([(r.tenant, r.slot) for r in s.admit()])
+        trace.append([r.state for r in bulk + chat])
+        trace.append([r.preemptions for r in bulk])
+        s.evict(chat[0])
+        trace.append([(r.tenant, r.slot) for r in s.admit()])
+        trace.append((s.preempted_total, s.shed_total, s.queue_depth))
+        traces.append(trace)
+    assert traces[0] == traces[1]
+    assert traces[1][-1][:2] == (1, 1)
+
+
+def test_engine_preemption_keeps_tokens_equal_solo_generate():
+    """Interactive requests preempt running batch requests at a step
+    boundary; the preempted requests restart and still emit their solo
+    tokens."""
+    from torchpruner_tpu_torch.serve.qos import QoS
+
+    model = llama_tiny()
+    params, _ = init_model(model, seed=0, device="cpu")
+    eng = ServeEngine(model, params, n_slots=2, max_len=64, device="cpu",
+                      qos=QoS.from_dict({"chat": {"priority": "interactive"},
+                                         "bulk": {"priority": "batch"}}))
+    reqs = synthetic_requests(5, vocab=256, prompt_lens=[6, 11],
+                              max_new=[12], seed=5)
+    for i, r in enumerate(reqs):
+        r.tenant = "bulk" if i < 3 else "chat"
+    summary = eng.run(open_loop(reqs, stagger_steps=1))
+    assert summary["requests_completed"] == 5
+    assert summary["preemptions"] >= 1
+    assert any(r.preemptions for r in reqs[:3])
+    assert verify_against_solo(eng) == 0

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from torchpruner_tpu_torch.ops.fixed_order import per_rows
 from torchpruner_tpu_torch.ops.quant import oscale, qdot
+from torchpruner_tpu_torch.utils.device import resolve_device
 
 # ---------------------------------------------------------------------------
 # Layer specs
@@ -223,11 +224,13 @@ def param_shapes(spec: LayerSpec, in_shape: Tuple[int, ...]
 
 def init_layer(spec: LayerSpec, gen: torch.Generator,
                in_shape: Tuple[int, ...], dtype=torch.float32,
-               device="cpu"):
+               device=None):
     """Initialize one layer: ``(params, out_shape)``.  The JAX package's
     scales (Kaiming normal for Dense/GatedDense, ``0.02`` normal
     embeddings, ``1/sqrt(fan)`` attention), drawn from ``gen`` on the
-    generator's device and moved to ``device``."""
+    generator's device and moved to ``device`` (``None`` = ``cuda``;
+    raises without a GPU unless ``device="cpu"``)."""
+    device = resolve_device(device)
 
     def normal(shape, std):
         t = torch.randn(shape, generator=gen, dtype=torch.float32,

@@ -50,8 +50,10 @@ class SegmentedModel:
         return out
 
     def init(self, gen: torch.Generator, dtype=torch.float32,
-             device="cpu") -> Dict[str, Any]:
-        """Params drawn from ``gen``, placed on ``device``."""
+             device=None) -> Dict[str, Any]:
+        """Params drawn from ``gen``, placed on ``device`` (``None`` =
+        ``cuda``; raises without a GPU unless ``device="cpu"``)."""
+        device = resolve_device(device)
         params: Dict[str, Any] = {}
         shape = tuple(self.input_shape)
         for spec in self.layers:

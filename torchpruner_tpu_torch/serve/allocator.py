@@ -1,8 +1,9 @@
 """Bucketed KV-cache allocation for the serving slot array.
 
-Counterpart of ``torchpruner_tpu/serve/allocator.py``, copied as is: the
-port keeps the JAX package's bucket ladder, so both engines prefill at
-the same lengths.
+Counterpart of ``torchpruner_tpu/serve/allocator.py``: the buckets,
+slot leases and pages, copied with the same bucket ladder so both
+engines prefill at the same lengths.  The prefix-page pool and its
+radix trie are not ported yet.
 
 The physical cache is one static ``(n_slots, max_len, H, Dh)`` buffer
 per attention layer (generate.init_cache) — static shapes are the TPU
@@ -17,11 +18,9 @@ reallocation.  This module owns that bookkeeping:
   argument made for prune schedules.
 - **Pages** — each slot's ``max_len`` positions are divided into pages
   of ``page_len`` tokens.  A request is admitted only when a free slot
-  has enough pages for ``prompt + max_new``; the engine draws down a
-  shared page budget so obs can report KV residency
-  (``serve_kv_pages_in_use``) and an operator can cap it below
-  ``n_slots * pages_per_slot`` (over-subscription guard for mixed
-  long/short traffic).
+  has enough pages for ``prompt + max_new``, drawn from a shared page
+  budget that an operator can cap below ``n_slots * pages_per_slot``
+  (over-subscription guard for mixed long/short traffic).
 - **Recycling without retrace** — freeing a slot is a host-side list
   append; the device buffer is NOT zeroed.  Stale K/V from the previous
   occupant is harmless by construction: a position ``t`` of a slot's
@@ -30,28 +29,12 @@ reallocation.  This module owns that bookkeeping:
   reading it (generate._decode_attention masks ``t > pos``).  The
   ragged-parity tests pin this by poisoning the cache and checking
   bit-identical logits.
-- **Prefix sharing** (``prefix_pages > 0``) — a radix trie over
-  page-sized token chunks (:class:`PrefixTrie`) indexes a pool of
-  published K/V pages.  At admission the prompt's leading WHOLE pages
-  are matched against the trie and mapped (copied) into the slot's
-  rows instead of re-prefilled; matched trie nodes are PINNED
-  (refcounted) for the request's lifetime, and eviction is LRU over
-  unpinned leaf nodes only — a pinned node refuses eviction.  The map
-  is a copy, never an alias: decode writes land in the slot's private
-  rows, so the pool page stays canonical (the "copy-on-write" page is
-  materialized at admission time, which is what keeps sharing inside
-  the static-shape contract — no page-indirect addressing in the
-  compiled programs).  Published K/V are canonical because every
-  producer computes them with the SAME chunk-aligned prefill programs
-  at the same absolute positions (engine; chunk | page_len), so a
-  mapped page is bit-identical to what a private re-prefill would have
-  written — the sharing-on/off parity contract.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional
 
 #: the TPU tiling ladder shared with core.pruner.bucket_drop: vector
 #: lanes are 128 wide, sublanes 8 deep — multiples tile the MXU/VPU
@@ -95,241 +78,6 @@ def bucket_for(n: int, buckets: List[int]) -> int:
                      f"bucket {buckets[-1]}")
 
 
-class PrefixNode:
-    """One radix-trie node: an edge label of whole page chunks plus the
-    physical pool page holding each chunk's K/V.  ``refcount`` counts
-    active requests whose admission match pinned this node; a pinned
-    node refuses eviction (its pages may be re-mapped any step)."""
-
-    __slots__ = ("label", "pages", "children", "parent", "refcount",
-                 "last_used")
-
-    def __init__(self, label: Tuple[int, ...] = (),
-                 pages: Optional[List[int]] = None,
-                 parent: Optional["PrefixNode"] = None):
-        self.label = tuple(label)
-        self.pages: List[int] = list(pages or [])
-        #: first-page-chunk -> child
-        self.children: Dict[Tuple[int, ...], "PrefixNode"] = {}
-        self.parent = parent
-        self.refcount = 0
-        self.last_used = 0
-
-
-@dataclass
-class PrefixMatch:
-    """A pinned admission match: ``tokens`` leading prompt tokens
-    (a multiple of ``page_len``) are resident in pool ``pages`` (prompt
-    order).  Hold until the request leaves its slot, then release via
-    the allocator (unpins the node path exactly once)."""
-
-    tokens: int
-    pages: List[int]
-    nodes: List[PrefixNode] = field(repr=False)
-    #: uncapped resident whole-page tokens (>= ``tokens``) — the delta
-    #: is the copy-on-write region the engine re-prefills privately
-    available: int = 0
-    released: bool = field(default=False, repr=False)
-
-
-class PrefixTrie:
-    """Radix trie over page-sized token chunks (host bookkeeping only —
-    it never touches device memory; physical pages are just ints the
-    engine's copy programs consume).  Edges are runs of whole page
-    chunks; divergence or partial overlap mid-edge SPLITS the edge at a
-    page boundary, so every match/insert boundary stays page-aligned."""
-
-    def __init__(self, page_len: int):
-        if page_len <= 0:
-            raise ValueError(f"page_len must be > 0, got {page_len}")
-        self.page_len = int(page_len)
-        self.root = PrefixNode()
-        self._clock = 0
-
-    # -- helpers -------------------------------------------------------------
-
-    def _chunks(self, ids: Sequence[int],
-                n_tokens: int) -> List[Tuple[int, ...]]:
-        L = self.page_len
-        ids = [int(t) for t in ids[: (n_tokens // L) * L]]
-        return [tuple(ids[i:i + L]) for i in range(0, len(ids), L)]
-
-    def _tick(self) -> int:
-        self._clock += 1
-        return self._clock
-
-    def nodes(self) -> Iterator[PrefixNode]:
-        stack = [self.root]
-        while stack:
-            n = stack.pop()
-            if n is not self.root:
-                yield n
-            stack.extend(n.children.values())
-
-    @property
-    def total_pages(self) -> int:
-        return sum(len(n.pages) for n in self.nodes())
-
-    @property
-    def shared_pages(self) -> int:
-        """Pages on nodes pinned by at least one active request — the
-        ``serve_kv_pages_shared`` gauge."""
-        return sum(len(n.pages) for n in self.nodes() if n.refcount > 0)
-
-    def _split(self, node: PrefixNode, k_pages: int) -> PrefixNode:
-        """Split ``node``'s edge after its first ``k_pages`` chunks:
-        a new intermediate node takes the prefix (inheriting the pins —
-        every path that pinned the deep node passed through the prefix),
-        ``node`` keeps the remainder and its subtree."""
-        L = self.page_len
-        if not (0 < k_pages < len(node.pages)):
-            raise ValueError(f"split point {k_pages} out of range for an "
-                             f"edge of {len(node.pages)} page(s)")
-        parent = node.parent
-        mid = PrefixNode(label=node.label[:k_pages * L],
-                         pages=node.pages[:k_pages], parent=parent)
-        mid.refcount = node.refcount
-        mid.last_used = node.last_used
-        node.label = node.label[k_pages * L:]
-        node.pages = node.pages[k_pages:]
-        node.parent = mid
-        mid.children[node.label[:L]] = node
-        parent.children[mid.label[:L]] = mid
-        return mid
-
-    # -- the three verbs -----------------------------------------------------
-
-    def match(self, ids: Sequence[int], max_tokens: Optional[int] = None
-              ) -> Tuple[int, List[int], List[PrefixNode]]:
-        """Longest whole-page prefix of ``ids`` (capped at
-        ``max_tokens``) resident in the trie: returns ``(tokens, pool
-        pages in prompt order, node path)``.  Partial overlap with an
-        edge splits it at the last matched page so the path can be
-        pinned exactly.  Bumps LRU recency; does NOT pin — callers pin
-        via :meth:`pin` once they commit to the mapping."""
-        n = len(ids) if max_tokens is None else min(len(ids), max_tokens)
-        chunks = self._chunks(ids, n)
-        node, i = self.root, 0
-        pages: List[int] = []
-        path: List[PrefixNode] = []
-        now = self._tick()
-        while i < len(chunks):
-            child = node.children.get(chunks[i])
-            if child is None:
-                break
-            want = chunks[i:i + len(child.pages)]
-            have = self._chunks(child.label, len(child.label))
-            k = 0
-            while k < len(have) and k < len(want) and have[k] == want[k]:
-                k += 1
-            if k == 0:
-                break
-            if k < len(child.pages):
-                child = self._split(child, k)
-            child.last_used = now
-            pages.extend(child.pages)
-            path.append(child)
-            i += k
-            node = child
-            if k < len(have):
-                break
-        return len(pages) * self.page_len, pages, path
-
-    def pin(self, nodes: Sequence[PrefixNode]) -> None:
-        for n in nodes:
-            n.refcount += 1
-
-    def unpin(self, nodes: Sequence[PrefixNode]) -> None:
-        for n in nodes:
-            if n.refcount <= 0:
-                raise RuntimeError(
-                    "prefix refcount underflow: unpin without a "
-                    "matching pin (double release?)")
-            n.refcount -= 1
-
-    def insert(self, ids: Sequence[int], n_tokens: int,
-               acquire) -> List[Tuple[int, int]]:
-        """Publish the first ``n_tokens`` (rounded DOWN to whole pages)
-        of ``ids``: walk the trie, split at any mid-edge divergence, and
-        append the novel tail as one compressed edge, calling
-        ``acquire(protect_nodes) -> Optional[page_id]`` per new chunk
-        (the allocator's pool free-list / LRU eviction hook — the
-        current path is passed so eviction can never free a node the
-        insert is extending).  Returns ``[(page_index_in_prompt,
-        pool_page_id), ...]`` for the chunks the caller must copy into
-        the pool; an exhausted pool truncates the publication."""
-        chunks = self._chunks(ids, n_tokens)
-        node, i = self.root, 0
-        now = self._tick()
-        while i < len(chunks):
-            child = node.children.get(chunks[i])
-            if child is None:
-                break
-            want = chunks[i:i + len(child.pages)]
-            have = self._chunks(child.label, len(child.label))
-            k = 0
-            while k < len(have) and k < len(want) and have[k] == want[k]:
-                k += 1
-            if k == 0:
-                break
-            if k < len(child.pages):
-                child = self._split(child, k)
-            child.last_used = now
-            i += k
-            node = child
-            if k < len(have):
-                break
-        out: List[Tuple[int, int]] = []
-        if i >= len(chunks):
-            return out
-        L = self.page_len
-        fresh = PrefixNode(parent=node)
-        protect = [fresh, node] + [a for a in _ancestors(node)]
-        for j in range(i, len(chunks)):
-            pg = acquire(protect)
-            if pg is None:
-                break
-            fresh.label += chunks[j]
-            fresh.pages.append(pg)
-            out.append((j, pg))
-        if not fresh.pages:
-            return out
-        fresh.last_used = now
-        node.children[fresh.label[:L]] = fresh
-        return out
-
-    def evict_lru(self, protect: Sequence[PrefixNode] = ()
-                  ) -> List[int]:
-        """Free the least-recently-used UNPINNED leaf edge's pages.
-        Returns the freed pool page ids — empty when every leaf is
-        pinned (the evict-while-shared refusal) or the trie is empty."""
-        protect_ids = {id(p) for p in protect}
-        victim: Optional[PrefixNode] = None
-        for n in self.nodes():
-            if n.children or n.refcount > 0 or id(n) in protect_ids:
-                continue
-            if victim is None or n.last_used < victim.last_used:
-                victim = n
-        if victim is None:
-            return []
-        del victim.parent.children[victim.label[:self.page_len]]
-        pages, victim.pages = victim.pages, []
-        return pages
-
-    def reset(self) -> List[int]:
-        """Drop every node (checkpoint hot-swap: pooled K/V computed
-        under the old weights is invalid) and return all pages."""
-        pages = [p for n in self.nodes() for p in n.pages]
-        self.root = PrefixNode()
-        return pages
-
-
-def _ancestors(node: PrefixNode) -> Iterator[PrefixNode]:
-    while node is not None and node.parent is not None:
-        yield node
-        node = node.parent
-
-
 @dataclass
 class SlotLease:
     """One admitted request's residency: which slot, how many pages."""
@@ -337,9 +85,6 @@ class SlotLease:
     slot: int
     pages: int
     request_id: int
-    #: pinned prefix-pool mapping (sharing enabled + admission hit) —
-    #: released with the slot
-    prefix_match: Optional[PrefixMatch] = None
     #: QoS tenant charged for these pages (per-tenant quota accounting)
     tenant: Optional[str] = None
 
@@ -357,22 +102,10 @@ class KVCacheAllocator:
     #: optional global page budget (< n_slots * pages_per_slot caps
     #: total KV residency below the physical buffer)
     page_budget: int = 0
-    #: prefix-sharing pool size in pages (0 = sharing off); the engine
-    #: sizes its device pool buffers from this
-    prefix_pages: int = 0
     _free_slots: List[int] = field(default_factory=list)
     _leases: Dict[int, SlotLease] = field(default_factory=dict)
     pages_in_use: int = 0
     total_evictions: int = 0
-    # -- prefix-sharing counters (host truth; the engine mirrors them
-    # into obs so sharing-off runs emit NO serve_prefix_* scalars) ----
-    prefix_hits: int = 0
-    prefix_misses: int = 0
-    prefix_hit_tokens: int = 0
-    prefix_published_pages: int = 0
-    prefix_evictions: int = 0
-    #: publications truncated because every pool page was pinned/full
-    prefix_pool_exhausted: int = 0
 
     def __post_init__(self):
         if self.page_len <= 0:
@@ -383,8 +116,6 @@ class KVCacheAllocator:
         self._free_slots = list(range(self.n_slots))[::-1]  # pop() -> 0 first
         if self.page_budget <= 0:
             self.page_budget = self.n_slots * self.pages_per_slot
-        self._trie = PrefixTrie(self.page_len)
-        self._free_prefix = list(range(self.prefix_pages))[::-1]
         #: tenant -> pages currently leased (QoS quota accounting)
         self._tenant_pages: Dict[str, int] = {}
 
@@ -443,14 +174,10 @@ class KVCacheAllocator:
         """Return a slot's pages to the pool (eviction / completion) —
         no retrace, no device write; the next occupant's prefill and
         the overwrite-before-read decode order make stale K/V
-        unobservable.  A pinned prefix match is unpinned here, so the
-        trie's refcounts track slot residency exactly."""
+        unobservable."""
         lease = self._leases.pop(slot, None)
         if lease is None:
             return
-        if lease.prefix_match is not None:
-            self.release_prefix(lease.prefix_match)
-            lease.prefix_match = None
         self.pages_in_use -= lease.pages
         if lease.tenant is not None:
             left = self._tenant_pages.get(lease.tenant, 0) - lease.pages
@@ -467,88 +194,3 @@ class KVCacheAllocator:
     @property
     def active_slots(self) -> int:
         return self.n_slots - len(self._free_slots)
-
-    # -- prefix sharing ------------------------------------------------------
-
-    @property
-    def prefix_enabled(self) -> bool:
-        return self.prefix_pages > 0
-
-    @property
-    def shared_pages(self) -> int:
-        """Pool pages pinned by at least one resident request."""
-        return self._trie.shared_pages if self.prefix_enabled else 0
-
-    @property
-    def prefix_pool_used(self) -> int:
-        return self.prefix_pages - len(self._free_prefix)
-
-    def match_prefix(self, prompt_ids,
-                     max_tokens: Optional[int] = None
-                     ) -> Optional[PrefixMatch]:
-        """Match (and PIN) the prompt's longest resident whole-page
-        prefix.  ``max_tokens`` caps the match — the engine passes
-        ``len(prompt) - 1`` so at least one real position is always
-        prefilled (the first token's logits must be computed).  Returns
-        ``None`` on a miss; a hit must be released exactly once via
-        :meth:`release_prefix` (or implicitly by :meth:`release`)."""
-        if not self.prefix_enabled:
-            return None
-        # uncapped probe first: the capped match below may refuse
-        # resident pages at the write boundary — that delta is the COW
-        # region the engine accounts for
-        available, _, _ = self._trie.match(prompt_ids, None)
-        tokens, pages, nodes = self._trie.match(prompt_ids, max_tokens)
-        if tokens <= 0:
-            self.prefix_misses += 1
-            return None
-        self._trie.pin(nodes)
-        self.prefix_hits += 1
-        self.prefix_hit_tokens += tokens
-        return PrefixMatch(tokens=tokens, pages=pages, nodes=nodes,
-                           available=max(available, tokens))
-
-    def release_prefix(self, match: PrefixMatch) -> None:
-        """Unpin a match's node chain (idempotent per match object —
-        the refcount-never-negative property).  The chain is walked via
-        CURRENT parent pointers, not the match-time path: a later
-        match/insert may have split a pinned edge, and the split's mid
-        node inherited this pin (``PrefixTrie._split``) — releasing the
-        stale path would leak that pin and leave the mid's pages
-        permanently unevictable."""
-        if match.released:
-            return
-        match.released = True
-        self._trie.unpin(list(_ancestors(match.nodes[-1])))
-
-    def publish_prefix(self, prompt_ids,
-                       n_tokens: int) -> List[Tuple[int, int]]:
-        """Index the first ``n_tokens`` (whole pages) of a freshly
-        prefilled prompt, acquiring pool pages from the free list or by
-        LRU-evicting unpinned edges.  Returns the ``(page_index,
-        pool_page)`` copies the engine must perform."""
-        if not self.prefix_enabled:
-            return []
-        plan = self._trie.insert(prompt_ids, n_tokens, self._acquire_page)
-        self.prefix_published_pages += len(plan)
-        return plan
-
-    def _acquire_page(self, protect) -> Optional[int]:
-        if self._free_prefix:
-            return self._free_prefix.pop()
-        freed = self._trie.evict_lru(protect)
-        if not freed:
-            self.prefix_pool_exhausted += 1
-            return None
-        self.prefix_evictions += len(freed)
-        self._free_prefix.extend(freed)
-        return self._free_prefix.pop()
-
-    def reset_prefix(self) -> None:
-        """Invalidate the whole pool (checkpoint hot-swap: pooled K/V
-        belongs to the old weights).  Pins survive on the MATCH objects
-        of in-flight requests, but the swap only lands on an empty slot
-        array, so by construction nothing is pinned here."""
-        if not self.prefix_enabled:
-            return
-        self._free_prefix.extend(self._trie.reset())

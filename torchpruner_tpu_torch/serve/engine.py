@@ -153,10 +153,12 @@ class _Programs:
 class ServeEngine:
     """Continuous-batching serving over one model/params bundle on
     ``device`` (``None`` = ``cuda``; ``params`` must already live there).
-    See the module docstring."""
+    ``qos`` is the scheduler's multi-tenant table (serve.qos; ``None`` =
+    one FIFO).  See the module docstring."""
 
     def __init__(self, model, params, *, n_slots: int = 4,
-                 max_len: int = 256, cache_dtype=None, device=None):
+                 max_len: int = 256, cache_dtype=None, device=None,
+                 qos=None):
         if getattr(model, "input_dtype", None) != "int32":
             raise ValueError(
                 "ServeEngine serves token-sequence (LM) models; "
@@ -176,7 +178,7 @@ class ServeEngine:
         #: whether decode steps launch the decode-attention kernel
         self.decode_kernel = bool(head_dim and _da.kernel_active(
             max_len, head_dim, cache_dtype, self.device))
-        self.scheduler = Scheduler(allocator)
+        self.scheduler = Scheduler(allocator, qos=qos)
         self.n_slots, self.max_len = n_slots, max_len
         # host slot tables (the continuous-batching state each decode
         # step is parameterized by)
@@ -238,7 +240,6 @@ class ServeEngine:
         now = time.perf_counter()
         req.first_token_s = now
         req.prefill_s = now - t_adm
-        req.served_by = P
         req.tokens.append(tok)
         self.gen_tokens += 1
         req.prefilled_tokens = n
@@ -353,6 +354,7 @@ class ServeEngine:
             "token_p99_ms": pct(gaps, 99),
             "admits": self.scheduler.admitted_total,
             "evictions": self.scheduler.allocator.total_evictions,
+            "preemptions": self.scheduler.preempted_total,
             "decode_kernel": self.decode_kernel,
             "prefilled_tokens": self.prefill_tokens_total,
             "device": str(self.device),

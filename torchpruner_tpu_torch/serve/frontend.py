@@ -120,7 +120,7 @@ def verify_against_solo(engine) -> int:
     mismatches = 0
     for r in engine.results():
         s = r.sampling
-        P = r.served_by or engine.programs
+        P = engine.programs
         want = generate(
             P.model, P.params, r.prompt_ids[None], r.max_new,
             temperature=s.temperature, top_k=s.top_k, top_p=s.top_p,

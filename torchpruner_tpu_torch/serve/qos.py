@@ -1,6 +1,7 @@
 """Multi-tenant QoS primitives for the serving plane.
 
-Counterpart of ``torchpruner_tpu/serve/qos.py``, copied as is.
+Counterpart of ``torchpruner_tpu/serve/qos.py``, copied without the
+HTTP Retry-After hint and the telemetry counters.
 
 A **tenant** is a traffic class sharing one engine/fleet: "interactive"
 chat traffic, "batch" offline jobs, a named customer — anything whose
@@ -15,12 +16,11 @@ per tenant (:class:`TenantPolicy`):
   boundaries" is structural, not a timing promise).
 - **token bucket** — submission-rate throttling (:class:`TokenBucket`):
   ``rate`` requests/s sustained with ``burst`` headroom.  An empty
-  bucket SHEDS at submit (``serve_rejected_throttle_total``) with the
-  same 503 + Retry-After contract as the queue bound, so one tenant's
-  flood never occupies queue slots the others need.
+  bucket SHEDS at submit, so one tenant's flood never occupies queue
+  slots the others need.
 - **KV-page quota** — a ceiling on the tenant's simultaneous KV-cache
   pages (enforced in the allocator): an over-quota admission is shed
-  (``serve_rejected_quota_total``) instead of blocking the FIFO head,
+  instead of blocking the FIFO head,
   so a long-context tenant cannot squat the whole page budget.
 
 Buckets use an injected monotonic clock (``now``) so refill/burst math
@@ -101,8 +101,8 @@ class TenantPolicy:
 class TokenBucket:
     """Classic leaky-bucket admission meter.  ``level`` refills at
     ``rate`` tokens/s up to ``burst``; :meth:`take` spends one token or
-    answers how long until one is available.  Thread-safe: frontends
-    submit from handler threads while the engine loop runs."""
+    refuses.  Thread-safe: requests may be submitted from other threads
+    while the engine loop runs."""
 
     def __init__(self, rate: float, burst: float = 1.0,
                  now: Optional[float] = None):
@@ -128,23 +128,6 @@ class TokenBucket:
                 self._level -= 1.0
                 return True
             return False
-
-    def retry_after_s(self, now: Optional[float] = None) -> float:
-        """Seconds until one token will be available — the Retry-After
-        hint for a throttled submission."""
-        if self.rate <= 0:
-            return 0.0
-        now = time.monotonic() if now is None else float(now)
-        with self._lock:
-            self._refill_locked(now)
-            if self._level >= 1.0:
-                return 0.0
-            return (1.0 - self._level) / self.rate
-
-    @property
-    def level(self) -> float:
-        with self._lock:
-            return self._level
 
 
 class QoS:
@@ -180,11 +163,3 @@ class QoS:
         """Token-bucket gate for one submission (True = pass)."""
         b = self.bucket(tenant)
         return True if b is None else b.take(now=now)
-
-    @property
-    def priorities(self):
-        """Sorted distinct priority classes in the table (always
-        includes the default class)."""
-        out = {self.default.priority}
-        out.update(p.priority for p in self.policies.values())
-        return sorted(out)

@@ -1,6 +1,7 @@
 """Synthetic open-loop traffic for the serving engine.
 
-Counterpart of ``torchpruner_tpu/serve/traffic.py``, copied as is.
+Counterpart of ``torchpruner_tpu/serve/traffic.py``, copied without the
+shared-prefix workload (prefix pages are not ported yet).
 
 Open-loop means arrivals follow their OWN schedule regardless of how
 fast the engine drains them — the regime where queueing delay, TTFT
@@ -9,11 +10,11 @@ for each response can never overload the server).  Two schedules:
 
 - **Poisson** (``poisson_arrivals``) — exponential inter-arrival gaps
   at a target rate, the classic serving-bench workload; wall-clock
-  driven (bench ``serve`` leg).
+  driven.
 - **Step-staggered** (``staggered_arrivals``) — arrivals pinned to
   ENGINE STEP indices, fully deterministic regardless of host speed;
-  what CI uses to force mid-run admissions and slot reuse
-  reproducibly.
+  what the tests and ``--synthetic`` use to force mid-run admissions
+  and slot reuse reproducibly.
 
 Requests are seeded synthetics: prompt ids uniform over the model's
 vocab, lengths/budgets drawn from ranges, per-request sampling seeds —
@@ -66,45 +67,12 @@ def synthetic_requests(n: int, *, vocab: int, prompt_lens: Sequence[int],
     return out
 
 
-def shared_prefix_requests(n: int, *, vocab: int, n_prefixes: int,
-                           prefix_len: int, suffix_lens: Sequence[int],
-                           max_new: Sequence[int], seed: int = 0,
-                           sessions: int = 0,
-                           temperature: float = 0.0,
-                           eos_id: Optional[int] = None
-                           ) -> List[Request]:
-    """The prefix-heavy workload every serving PR is judged on: a
-    seeded pool of ``n_prefixes`` shared "system prompts" of
-    ``prefix_len`` tokens, assigned round-robin (so reuse is
-    deterministic, not a sampling accident), each followed by a
-    per-request random suffix (``suffix_lens`` cycled).  With
-    ``sessions > 0`` requests also carry round-robin session ids —
-    the fleet router's session-affinity signal.  Same determinism
-    contract as :func:`synthetic_requests`: one rng seeded by ``seed``,
-    per-request sampling seeds ``seed + i``, replay-identical."""
-    rng = np.random.default_rng(seed)
-    prefixes = [rng.integers(0, vocab, size=int(prefix_len))
-                .astype(np.int32) for _ in range(max(1, n_prefixes))]
-    out = []
-    for i in range(n):
-        prefix = prefixes[i % len(prefixes)]
-        slen = int(suffix_lens[i % len(suffix_lens)])
-        suffix = rng.integers(0, vocab, size=slen).astype(np.int32)
-        out.append(Request(
-            prompt_ids=np.concatenate([prefix, suffix]),
-            max_new=int(max_new[i % len(max_new)]), eos_id=eos_id,
-            session_id=(f"session-{i % sessions}" if sessions else None),
-            sampling=Sampling(temperature=temperature, seed=seed + i)))
-    return out
-
-
 def open_loop(requests: Sequence[Request], *, rate: float = 0.0,
               stagger_steps: int = 2, seed: int = 0
               ) -> "OpenLoopTraffic":
-    """THE open-loop schedule selector, shared by the serve frontend's
-    ``--synthetic`` mode, the bench serve legs and the fleet workload
-    replayer (one copy of the rate>0 → Poisson, else step-staggered
-    choice): ``rate > 0`` drives wall-clock Poisson arrivals at that
+    """THE open-loop schedule selector of the serve frontend's
+    ``--synthetic`` mode (one copy of the rate>0 → Poisson, else
+    step-staggered choice): ``rate > 0`` drives wall-clock Poisson arrivals at that
     rate; ``rate == 0`` pins arrivals to engine ticks every
     ``stagger_steps`` steps (fully deterministic)."""
     if rate > 0:
@@ -141,14 +109,6 @@ class OpenLoopTraffic:
     @property
     def exhausted(self) -> bool:
         return not self._pending
-
-    def drain(self) -> List[Request]:
-        """Hand back every not-yet-submitted request (preemption: the
-        engine snapshots them next to the drained queue so a resubmit
-        covers the WHOLE planned workload)."""
-        out = [r for _, r in self._pending]
-        self._pending.clear()
-        return out
 
     def pump(self, engine) -> int:
         """Submit every request whose arrival is due; returns how many."""
