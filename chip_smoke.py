@@ -23,6 +23,23 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 4. The same at int8 with 4 blocks (the int8 mode of the dequant kernel).
 5. The CLI: ``python -m torchpruner_tpu_torch serve llama3_ffn_taylor
    --smoke --synthetic 8 --verify``.
+6. Flash attention (forward, dQ, dK/dV kernels) against autograd of the
+   plain version at the prune loop's shapes: f32 B 128 S 128 H 12 Dh 64
+   (scoring), bf16 B 32 (retraining), bf16 causal B 8 S 1024 H 8 Dh 128
+   (mfu_llama training) and a causal f32 case whose S is not a multiple
+   of the 64-row tile; CUDA-event times of each kernel, the plain
+   version and ``scaled_dot_product_attention`` (timed only), and the
+   bound.
+7. The paper's loop at full width:
+   ``python -m torchpruner_tpu_torch --preset bert_glue_sensitivity``
+   (BERT-base, Sensitivity on all 12 ``_mlp/fc1`` targets, f32
+   scoring), in process; 12 records at the fraction policy's widths,
+   finite losses, launches of the three flash kernels > 0, and no
+   fixed-order chunk call on the full-sequence path.
+8. Retraining: the same preset through ``--config`` with one fine-tune
+   epoch on ``block12_mlp/`` in bf16; finite step losses, step time.
+9. Causal training: 3 ``Trainer`` steps on mfu_llama (B 8, S 1024, bf16,
+   Adam, lm_mfu); finite losses, step time.
 
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -318,6 +335,289 @@ def cli_phase() -> dict:
     return summary
 
 
+# -- phase 6 ----------------------------------------------------------------
+
+#: (label, B, S, H, Dh, dtype, causal): the attention shapes of the prune
+#: loop — BERT-base scoring (f32) and retraining (bf16), mfu_llama
+#: causal training, and a causal S that is not a multiple of the tile
+FLASH_CASES = (
+    ("scoring", 128, 128, 12, 64, "float32", False),
+    ("retrain", 32, 128, 12, 64, "bfloat16", False),
+    ("causal_train", 8, 1024, 8, 128, "bfloat16", True),
+    ("ragged_causal", 4, 333, 12, 64, "float32", True),
+)
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def flash_launches():
+    from torchpruner_tpu_torch.ops import flash_attention as FA
+
+    return {n: getattr(FA, n).launches for n in FLASH_KERNELS}
+
+
+def reset_launches():
+    from torchpruner_tpu_torch.ops import decode_attention as DA
+    from torchpruner_tpu_torch.ops import flash_attention as FA
+    from torchpruner_tpu_torch.ops import fused_matmul as FM
+    from torchpruner_tpu_torch.ops.fixed_order import per_rows
+
+    for n in FLASH_KERNELS:
+        getattr(FA, n).launches = 0
+    FM.dequant_matmul.launches = 0
+    DA.decode_attention.launches = 0
+    per_rows.calls = 0
+
+
+def flash_case(dev, label, B, S, H, Dh, dtn, causal) -> dict:
+    import torch
+    import torch.nn.functional as Fn
+
+    from torchpruner_tpu_torch.ops import flash_attention as FA
+
+    dtype = getattr(torch, dtn)
+    f32 = dtype == torch.float32
+    gen = torch.Generator(device=dev).manual_seed(S + Dh)
+    q, k, v, g = (torch.randn((B, S, H, Dh), generator=gen,
+                              device=dev).to(dtype) for _ in range(4))
+    # the reference: autograd of the plain version, in f32, on the same
+    # (for bf16: bf16-rounded) inputs
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    r_out, r_lse = FA.flash_attention_plain(*ref, causal=causal,
+                                            with_lse=True)
+    r_grads = torch.autograd.grad(r_out, ref, g.float())
+    r_out, r_lse = r_out.detach(), r_lse.detach()
+    o, lse = FA.flash_fwd(q, k, v, causal=causal, with_lse=True)
+    dq, delta = FA.flash_dq(q, k, v, o, g, lse, causal=causal)
+    dk, dv = FA.flash_dkv(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    rel, grel = (1e-5, 1e-4) if f32 else (2 ** -7, 2 ** -7)
+    errs = {}
+    for name, got, want, r in (("out", o, r_out, rel),
+                               ("lse", lse, r_lse, 1e-5),
+                               ("dq", dq, r_grads[0], grel),
+                               ("dk", dk, r_grads[1], grel),
+                               ("dv", dv, r_grads[2], grel)):
+        err = float((got.float() - want.float()).abs().max())
+        tol = r * float(want.float().abs().max())
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            fail(f"flash {label} {name}: max abs err {err} > tol {tol}")
+        errs[name] = {"max_abs_err": err, "tol": tol}
+    del ref, r_out, r_lse, r_grads
+    torch.cuda.empty_cache()
+    case = {"label": label, "B": B, "S": S, "H": H, "Dh": Dh, "dtype": dtn,
+            "causal": causal, "errors": errs}
+    case["ms"] = {
+        "flash_fwd": event_ms(lambda i: FA.flash_fwd(
+            q, k, v, causal=causal, with_lse=True), 10),
+        "flash_dq": event_ms(lambda i: FA.flash_dq(
+            q, k, v, o, g, lse, causal=causal), 10),
+        "flash_dkv": event_ms(lambda i: FA.flash_dkv(
+            q, k, v, g, lse, delta, causal=causal), 10)}
+    pq = [t.detach().requires_grad_() for t in (q, k, v)]
+    case["plain_fwd_ms"] = event_ms(lambda i: FA.flash_attention_plain(
+        *pq, causal=causal), 3)
+    p_out = FA.flash_attention_plain(*pq, causal=causal)
+    case["plain_bwd_ms"] = event_ms(lambda i: torch.autograd.grad(
+        p_out, pq, g, retain_graph=True), 3)
+    del p_out
+    torch.cuda.empty_cache()
+    # the library yardstick, timed only: SDPA on (B, H, S, Dh) views
+    lq = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    gl = g.transpose(1, 2)
+    case["library_fwd_ms"] = event_ms(
+        lambda i: Fn.scaled_dot_product_attention(*lq, is_causal=causal), 10)
+    l_out = Fn.scaled_dot_product_attention(*lq, is_causal=causal)
+    case["library_bwd_ms"] = event_ms(lambda i: torch.autograd.grad(
+        l_out, lq, gl, retain_graph=True), 10)
+    case["library_fwd_bwd_ms"] = event_ms(lambda i: torch.autograd.grad(
+        Fn.scaled_dot_product_attention(*lq, is_causal=causal), lq, gl), 10)
+    # bounds: each input read once, each output written once; the
+    # operations this run's mask needs (causal: the visible pairs)
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    n, rows, es = B * S * H * Dh, B * H * S, q.element_size()
+    peak = FP32_FLOPS if f32 else BF16_FLOPS
+    case["bound"] = {
+        "flash_fwd": bound_ms(4 * n * es + 4 * rows, 4.0 * pairs * Dh, peak),
+        "flash_dq": bound_ms(6 * n * es + 8 * rows,
+                             6.0 * pairs * Dh + 2.0 * n, peak),
+        "flash_dkv": bound_ms(6 * n * es + 8 * rows, 8.0 * pairs * Dh,
+                              peak)}
+    ms = case["ms"]
+    log(f"  flash {label} {dtn} B{B} S{S} H{H} Dh{Dh} causal={causal}: "
+        f"fwd {ms['flash_fwd']:.4f} / dq {ms['flash_dq']:.4f} / dkv "
+        f"{ms['flash_dkv']:.4f} ms  bounds "
+        + "/".join(f"{case['bound'][k][0]:.4f}" for k in FLASH_KERNELS)
+        + f" ms  plain fwd {case['plain_fwd_ms']:.3f} bwd "
+        f"{case['plain_bwd_ms']:.3f} ms  sdpa fwd "
+        f"{case['library_fwd_ms']:.4f} bwd {case['library_bwd_ms']:.4f} "
+        f"fwd+bwd {case['library_fwd_bwd_ms']:.4f} ms  errs "
+        + " ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in errs.items()))
+    del q, k, v, g, o, lse, dq, dk, dv, delta, pq, lq, l_out
+    torch.cuda.empty_cache()
+    return case
+
+
+# -- phases 7-9 -------------------------------------------------------------
+
+
+def _csv_rows(path: str) -> list:
+    import csv
+
+    if not os.path.exists(path):
+        return []
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _cli(argv) -> str:
+    """Run the port's CLI in process; its stdout, echoed."""
+    import contextlib
+    import io
+
+    from torchpruner_tpu_torch import __main__ as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue()
+    log(text.rstrip())
+    if rc != 0:
+        fail(f"CLI {argv} exited {rc}")
+    return text
+
+
+def preset_phase(dev) -> dict:
+    import torch
+
+    from torchpruner_tpu_torch.experiments.presets import get_preset
+    from torchpruner_tpu_torch.ops.fixed_order import per_rows
+
+    cfg = get_preset("bert_glue_sensitivity")
+    n_before = len(_csv_rows(cfg.log_path))
+    reset_launches()
+    t0 = time.perf_counter()
+    text = _cli(["--preset", "bert_glue_sensitivity"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fixed = flash_launches(), per_rows.calls
+    summary = json.loads(text.strip().splitlines()[-1])
+    rows = _csv_rows(cfg.log_path)[n_before:]
+    kept = 3072 - int(3072 * cfg.fraction)
+    for i, r in enumerate(rows):
+        fc1 = [int(w) for w in r["widths"].split("-")][1:36:3]
+        if sorted(fc1) != [kept] * (i + 1) + [3072] * (11 - i):
+            fail(f"preset record {i} ({r['layer']}): fc1 widths {fc1}")
+        losses = [float(r[k]) for k in ("test_loss", "test_loss_pp")]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"preset record {i}: losses {losses}")
+    if summary.get("steps") != 12 or len(rows) != 12:
+        fail(f"preset: {len(rows)} records, summary {summary}")
+    if min(launches.values()) <= 0:
+        fail(f"preset never launched a flash kernel: {launches}")
+    if fixed:
+        fail(f"the full-sequence path made {fixed} fixed-order chunk calls")
+    out = {"records": len(rows), "fc1_kept": kept, "wall_s": wall,
+           "launches": launches, "fixed_order_calls": fixed,
+           "final_acc": summary["final_acc"],
+           "final_params": summary["final_params"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"preset: {json.dumps(out)}")
+    return out
+
+
+def _timed_steps():
+    """Record every ``Trainer.step`` (loss, seconds to the card's end)
+    while the context is open."""
+    import contextlib
+
+    import torch
+
+    from torchpruner_tpu_torch.train.loop import Trainer
+
+    steps = []
+    orig = Trainer.step
+
+    def step(self, x, y):
+        t0 = time.perf_counter()
+        loss = orig(self, x, y)
+        torch.cuda.synchronize()
+        steps.append((float(loss), time.perf_counter() - t0))
+        return loss
+
+    @contextlib.contextmanager
+    def ctx():
+        Trainer.step = step
+        try:
+            yield steps
+        finally:
+            Trainer.step = orig
+
+    return ctx()
+
+
+def _step_stats(steps, what) -> dict:
+    import statistics
+
+    if not steps or not all(math.isfinite(l) for l, _ in steps):
+        fail(f"{what}: step losses {[l for l, _ in steps][:8]}...")
+    times = [t * 1e3 for _, t in steps[1:]] or [steps[0][1] * 1e3]
+    return {"steps": len(steps), "first_loss": steps[0][0],
+            "last_loss": steps[-1][0], "first_step_ms": steps[0][1] * 1e3,
+            "step_ms_median": statistics.median(times)}
+
+
+def retrain_phase(dev) -> dict:
+    import dataclasses
+
+    from torchpruner_tpu_torch.experiments.presets import get_preset
+
+    cfg = dataclasses.replace(
+        get_preset("bert_glue_sensitivity"), finetune_epochs=1,
+        target_filter=("block12_mlp/",),
+        log_path="logs/chip_smoke_retrain.csv")
+    os.makedirs("logs", exist_ok=True)
+    path = os.path.join("logs", "chip_smoke_retrain.json")
+    cfg.to_json(path)
+    reset_launches()
+    t0 = time.perf_counter()
+    with _timed_steps() as steps:
+        _cli(["--config", path])
+    out = {"wall_s": time.perf_counter() - t0, "launches": flash_launches(),
+           **_step_stats(steps, "retrain")}
+    if min(out["launches"].values()) <= 0:
+        fail(f"retrain never launched a flash kernel: {out['launches']}")
+    log(f"retrain: {json.dumps(out)}")
+    return out
+
+
+def causal_phase(dev) -> dict:
+    import torch
+
+    from torchpruner_tpu_torch.data import load_dataset
+    from torchpruner_tpu_torch.models import mfu_llama
+    from torchpruner_tpu_torch.train import optim
+    from torchpruner_tpu_torch.train.loop import Trainer
+    from torchpruner_tpu_torch.utils.losses import lm_cross_entropy_loss
+
+    ds = load_dataset("lm_mfu", "train", n=24, seed=0)
+    trainer = Trainer.create(mfu_llama(), optim.adam(1e-4),
+                             lm_cross_entropy_loss, seed=0,
+                             compute_dtype=torch.bfloat16, device=dev)
+    reset_launches()
+    with _timed_steps() as steps:
+        for x, y in ds.batches(8):
+            trainer.step(x, y)
+    out = {"model": "mfu_llama", "batch": 8, "seq": 1024,
+           "launches": flash_launches(), **_step_stats(steps, "causal")}
+    if min(out["launches"].values()) <= 0:
+        fail(f"causal training never launched a flash kernel: "
+             f"{out['launches']}")
+    log(f"causal: {json.dumps(out)}")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
 def per_step(cases, key, weight):
     return sum(c[key] * weight(c) for c in cases)
 
@@ -353,6 +653,7 @@ def main() -> int:
     from torchpruner_tpu_torch.utils.device import strict_fp32_matmul
 
     t_start = time.perf_counter()
+    os.chdir(HERE)  # the runs' logs land inside the checkout
     dev = torch.device("cuda")
     strict_fp32_matmul()  # float32 products in full precision (no TF32)
     smi = smi_line()
@@ -378,6 +679,14 @@ def main() -> int:
     s8 = serve_phase(dev, bits=8, depth=4)
     log("phase 5: CLI serve --smoke --verify")
     cli_phase()
+    log("phase 6: flash attention kernels vs plain versions")
+    fl = [flash_case(dev, *c) for c in FLASH_CASES]
+    log("phase 7: --preset bert_glue_sensitivity, BERT-base full width")
+    pr = preset_phase(dev)
+    log("phase 8: retrain block12_mlp one epoch, bf16, through --config")
+    rt = retrain_phase(dev)
+    log("phase 9: mfu_llama causal training, 3 steps, bf16")
+    ca = causal_phase(dev)
 
     # per-kernel line: the work of one full-depth 8B int4 decode step at
     # 4 slots (sum over that step's calls), every case beside it
@@ -412,6 +721,34 @@ def main() -> int:
             "launches_int8_phase": s8["launches"][name],
             **(prefill_sums(dq) if name == "dequant_matmul" else {}),
             "cases": cases,
+        })
+    score = next(c for c in fl if c["label"] == "scoring")
+    outputs = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",),
+               "flash_dkv": ("dk", "dv")}
+    for name, src_line in zip(FLASH_KERNELS, (104, 223, 279)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "torchpruner_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"torchpruner_tpu/ops/flash_attention.py:{src_line}",
+            "launches": pr["launches"][name],
+            "max_abs_err": max(c["errors"][e]["max_abs_err"] for c in fl
+                               for e in outputs[name]),
+            "tolerance": "f32: 1e-5 (out, lse) / 1e-4 (grads) x max|plain|;"
+                         " bf16: 2**-7 x max|plain| (plain in f32 on the "
+                         "same inputs)",
+            "ms": score["ms"][name],
+            "plain_ms": score["plain_fwd_ms"] if name == "flash_fwd"
+            else score["plain_bwd_ms"],
+            "bound_ms": score["bound"][name][0],
+            "bound_by": score["bound"][name][1],
+            "library_ms": score["library_fwd_ms"] if name == "flash_fwd"
+            else score["library_bwd_ms"],
+            "per": "one call at the scoring shape (f32, B 128, S 128, H 12, "
+                   "Dh 64); backward rows: plain_ms and library_ms are the "
+                   "whole backward (dq, dk, dv)",
+            "launches_retrain": rt["launches"][name],
+            "launches_causal": ca["launches"][name],
+            **({"cases": fl} if name == "flash_fwd" else {}),
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

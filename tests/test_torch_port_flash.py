@@ -1,0 +1,239 @@
+"""The port's flash attention against the JAX package's Pallas kernels.
+
+On the CPU: ``flash_attention_plain`` and its autograd against the JAX
+kernels run in interpret mode (``FORCE_PALLAS``, blocks of 8 x 16 so
+several blocks run): the output, the LSE (``_flash_fwd``'s first lane)
+and dq/dk/dv, causal and not, f32 and bf16, and a GQA-expanded case.
+On the card (``cuda`` marker, skipped here): the three CUDA kernels
+against the plain version, and a bert_tiny forward and backward that
+must never reach the plain version.
+
+Tolerances: f32 agrees to rtol 1e-5 of the output scale (the same math,
+sums in other orders); on the card the kernels' gradients agree to 1e-4,
+since their sums run over 64-key tiles in another order than a single
+matrix product.  bf16 agrees to 2**-7 of the scale: both round
+their inputs to bf16 identically, but the Pallas kernel keeps the
+softmax weights in f32 where the plain version (the einsum path's
+semantics) rounds them to bf16 before the value product, and the
+gradients pass through bf16 products in the plain version.
+
+The JAX package is imported inside the CPU tests, so the file collects
+without it; on the GPU machine run only the card's tests, with
+``python -m pytest --noconftest tests/test_torch_port_flash.py -m cuda``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torchpruner_tpu_torch.ops import flash_attention as PF
+
+F32_RTOL = 1e-5
+BF16_REL = 2 ** -7
+
+
+@pytest.fixture
+def jflash(monkeypatch):
+    pytest.importorskip("jax")
+    from torchpruner_tpu.ops import flash_attention as JF
+
+    monkeypatch.setattr(JF, "FORCE_PALLAS", True)
+    return JF
+
+
+def _qkv(B, S, H, Dh, seed=0, kv_heads=None):
+    rng = np.random.default_rng(seed)
+    kv = kv_heads or H
+    q = rng.normal(size=(B, S, H, Dh)).astype(np.float32)
+    k = rng.normal(size=(B, S, kv, Dh)).astype(np.float32)
+    v = rng.normal(size=(B, S, kv, Dh)).astype(np.float32)
+    g = rng.normal(size=(B, S, H, Dh)).astype(np.float32)
+    if kv != H:  # GQA: K/V expanded to the query heads, as the layer does
+        idx = np.arange(H) // (H // kv)
+        k, v = k[:, :, idx], v[:, :, idx]
+    return q, k, v, g
+
+
+def _close(got, want, rel):
+    want = np.asarray(want, np.float32)
+    got = np.asarray(got, np.float32)
+    tol = rel * float(np.abs(want).max())
+    assert float(np.abs(got - want).max()) <= tol, (
+        float(np.abs(got - want).max()), tol)
+
+
+def _jax_ref(JF, q, k, v, g, causal, dtype):
+    import jax
+    import jax.numpy as jnp
+
+    jd = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    qj, kj, vj, gj = (jnp.asarray(a, jd) for a in (q, k, v, g))
+    out = JF.flash_attention(qj, kj, vj, causal=causal, block_q=8,
+                             block_k=16)
+    qt, kt, vt = (jnp.moveaxis(t, 2, 1) for t in (qj, kj, vj))
+    _, lse = JF._flash_fwd(qt, kt, vt, causal, 8, 16, True)
+
+    def loss(a, b, c):
+        o = JF.flash_attention(a, b, c, causal=causal, block_q=8,
+                               block_k=16)
+        return jnp.sum(o.astype(jnp.float32) * gj.astype(jnp.float32))
+
+    grads = jax.grad(loss, argnums=(0, 1, 2))(qj, kj, vj)
+    as_np = lambda t: np.asarray(t.astype(jnp.float32))  # noqa: E731
+    return as_np(out), np.asarray(lse[..., 0]), [as_np(t) for t in grads]
+
+
+def _port(q, k, v, g, causal, dtype):
+    td = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    qt, kt, vt = (torch.tensor(a).to(td).requires_grad_() for a in (q, k, v))
+    out, lse = PF.flash_attention_plain(qt, kt, vt, causal=causal,
+                                        with_lse=True)
+    (out.float() * torch.tensor(g).to(td).float()).sum().backward()
+    return (out.detach().float().numpy(), lse.detach().numpy(),
+            [t.grad.float().numpy() for t in (qt, kt, vt)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_matches_pallas_kernels(jflash, dtype, causal):
+    q, k, v, g = _qkv(2, 64, 3, 16, seed=1)
+    rel = F32_RTOL if dtype == "float32" else BF16_REL
+    j_out, j_lse, j_grads = _jax_ref(jflash, q, k, v, g, causal, dtype)
+    p_out, p_lse, p_grads = _port(q, k, v, g, causal, dtype)
+    _close(p_out, j_out, rel)
+    _close(p_lse, j_lse, F32_RTOL if dtype == "float32" else BF16_REL)
+    for pg, jg in zip(p_grads, j_grads):
+        _close(pg, jg, F32_RTOL if dtype == "float32" else BF16_REL)
+
+
+def test_plain_matches_pallas_kernels_gqa_expanded(jflash):
+    q, k, v, g = _qkv(1, 48, 4, 8, seed=2, kv_heads=2)
+    j_out, j_lse, j_grads = _jax_ref(jflash, q, k, v, g, True, "float32")
+    p_out, p_lse, p_grads = _port(q, k, v, g, True, "float32")
+    _close(p_out, j_out, F32_RTOL)
+    _close(p_lse, j_lse, F32_RTOL)
+    for pg, jg in zip(p_grads, j_grads):
+        _close(pg, jg, F32_RTOL)
+
+
+def test_cpu_dispatch_is_plain_and_cross_attention_plain():
+    q, k, v, _ = _qkv(1, 24, 2, 8, seed=3)
+    qt, kt, vt = (torch.tensor(a) for a in (q, k, v))
+    n = (PF.flash_fwd.launches, PF.flash_dq.launches, PF.flash_dkv.launches)
+    assert torch.equal(PF.flash_attention(qt, kt, vt, causal=True),
+                       PF.flash_attention_plain(qt, kt, vt, causal=True))
+    # a query chunk against a longer KV prefix: bottom-right causal mask
+    out = PF.flash_attention(qt[:, -4:], kt, vt, causal=True)
+    full = PF.flash_attention_plain(qt, kt, vt, causal=True)
+    assert torch.allclose(out, full[:, -4:], rtol=1e-5, atol=1e-6)
+    assert (PF.flash_fwd.launches, PF.flash_dq.launches,
+            PF.flash_dkv.launches) == n
+    assert not PF.kernel_active(64, torch.float32, "cpu")
+    assert PF.kernel_active(64, torch.bfloat16, "cuda")
+    assert not PF.kernel_active(136, torch.float32, "cuda")
+    assert not PF.kernel_active(60, torch.float32, "cuda")
+    assert not PF.kernel_active(64, torch.float16, "cuda")
+
+
+# ------------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only on "
+                    "the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _kernel_vs_plain(dev, B, S, H, Dh, dtype, causal, layout="bshd"):
+    q, k, v, g = _qkv(B, S, H, Dh, seed=S + Dh)
+    ts = [torch.tensor(a, device=dev).to(dtype) for a in (q, k, v, g)]
+    if layout == "bhsd":  # strided views: (B, H, S, Dh) storage
+        ts = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in ts]
+    qt, kt, vt, gt = ts
+    # the reference: autograd of the plain version in f32 on the same
+    # (possibly bf16-rounded) inputs
+    ref = [t.detach().float().requires_grad_() for t in (qt, kt, vt)]
+    r_out, r_lse = PF.flash_attention_plain(*ref, causal=causal,
+                                            with_lse=True)
+    (r_out * gt.float()).sum().backward()
+    n0 = (PF.flash_fwd.launches, PF.flash_dq.launches, PF.flash_dkv.launches)
+    got = [t.detach().clone().requires_grad_() for t in (qt, kt, vt)]
+    out = PF.flash_attention(*got, causal=causal)
+    (out.float() * gt.float()).sum().backward()
+    o2, lse = PF.flash_fwd(qt, kt, vt, causal=causal, with_lse=True)
+    torch.cuda.synchronize()
+    assert (PF.flash_fwd.launches, PF.flash_dq.launches,
+            PF.flash_dkv.launches) == (n0[0] + 2, n0[1] + 1, n0[2] + 1)
+    assert out.dtype == dtype and out.shape == (B, S, H, Dh)
+    assert torch.equal(o2, out.detach())
+    f32 = dtype == torch.float32
+    _close(out.detach().float().cpu(), r_out.detach().cpu(),
+           F32_RTOL if f32 else BF16_REL)
+    _close(lse.cpu(), r_lse.detach().cpu(), F32_RTOL)
+    for a, b in zip(got, ref):
+        _close(a.grad.float().cpu(), b.grad.cpu(), 1e-4 if f32 else BF16_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Dh,dtype,causal", [
+    (4, 128, 12, 64, torch.float32, False),    # BERT-base scoring shape
+    (4, 128, 12, 64, torch.bfloat16, False),   # BERT-base retrain
+    (2, 1024, 8, 128, torch.bfloat16, True),   # mfu_llama training
+    (2, 200, 3, 40, torch.float32, True),      # ragged S, odd Dh / 16
+    (3, 77, 2, 8, torch.bfloat16, False),      # one ragged tile, Dh 8
+    (1, 130, 2, 128, torch.float32, True),     # ragged causal, max Dh
+    (2, 150, 3, 24, torch.bfloat16, True),     # ragged causal bf16, Dh 24
+])
+def test_flash_kernels_match_plain(dev, B, S, H, Dh, dtype, causal):
+    _kernel_vs_plain(dev, B, S, H, Dh, dtype, causal)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_read_strided_layout(dev):
+    _kernel_vs_plain(dev, 2, 96, 4, 32, torch.float32, True, layout="bhsd")
+
+
+@pytest.mark.cuda
+def test_flash_rejects_unsupported_on_card(dev):
+    q = torch.zeros((1, 16, 2, 12), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        PF.flash_attention(q, q, q)
+    h = torch.zeros((1, 16, 2, 16), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        PF.flash_attention(h, h, h)
+
+
+@pytest.mark.cuda
+def test_bert_tiny_forward_backward_never_plain_on_card(dev, monkeypatch):
+    from torchpruner_tpu_torch.core.segment import init_model
+    from torchpruner_tpu_torch.models import bert_tiny
+
+    def boom(*a, **k):
+        raise AssertionError("the plain attention ran on the card")
+
+    monkeypatch.setattr(PF, "flash_attention_plain", boom)
+    model = bert_tiny()
+    params, _ = init_model(model, seed=0, device=dev)
+    for p in _leaves(params):
+        p.requires_grad_()
+    x = torch.randint(0, 128, (4, 16), device=dev)
+    n0 = (PF.flash_fwd.launches, PF.flash_dq.launches, PF.flash_dkv.launches)
+    out, _ = model.apply(params, x)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert out.shape == (4, 2) and bool(torch.isfinite(out).all())
+    assert (PF.flash_fwd.launches - n0[0], PF.flash_dq.launches - n0[1],
+            PF.flash_dkv.launches - n0[2]) == (2, 2, 2)
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in _leaves(params))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

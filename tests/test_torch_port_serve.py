@@ -94,7 +94,10 @@ def test_port_imports_no_jax():
     ``jax`` and ``torchpruner_tpu`` out of ``sys.modules``."""
     names = [m.name for m in pkgutil.walk_packages(
         torchpruner_tpu_torch.__path__, "torchpruner_tpu_torch.")]
-    assert "torchpruner_tpu_torch.serve.engine" in names
+    for sub in ("serve.engine", "attributions.activation", "train.loop",
+                "train.optim", "data.datasets", "core.pruner",
+                "experiments.prune_retrain", "ops.flash_attention"):
+        assert f"torchpruner_tpu_torch.{sub}" in names
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -117,7 +120,12 @@ def test_entry_points_without_device_raise_without_cuda():
     from torchpruner_tpu_torch.convert import params_from_numpy
     from torchpruner_tpu_torch.core.layers import init_layer
     from torchpruner_tpu_torch.generate import generate, init_cache
+    from torchpruner_tpu_torch.__main__ import main as cli_main
+    from torchpruner_tpu_torch.models import bert_tiny
     from torchpruner_tpu_torch.serve.frontend import serve_main
+    from torchpruner_tpu_torch.train.loop import Trainer
+    from torchpruner_tpu_torch.train.optim import sgd
+    from torchpruner_tpu_torch.utils.losses import cross_entropy_loss
 
     model = llama_tiny()
     params, _ = init_model(model, seed=0, device="cpu")
@@ -132,6 +140,9 @@ def test_entry_points_without_device_raise_without_cuda():
         lambda: params_from_numpy({"w": np.zeros(2, np.float32)}),
         lambda: serve_main(["llama3_ffn_taylor", "--smoke",
                             "--synthetic", "1"]),
+        lambda: init_model(bert_tiny()),
+        lambda: Trainer.create(bert_tiny(), sgd(0.1), cross_entropy_loss),
+        lambda: cli_main(["--preset", "bert_glue_sensitivity", "--smoke"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,20 +1,31 @@
-"""Layer specifications and their init/apply rules — the subset the Llama
-family needs for serving.
+"""Layer specifications and their init/apply rules.
 
 Counterpart of ``torchpruner_tpu/core/layers.py``: the same frozen spec
 dataclasses with the same field names, and the same parameter layouts
 (Dense ``w (in, out)``; attention ``wq (d, H, Dh)``, ``wk``/``wv
 (d, KV, Dh)``, ``wo (H, Dh, d_out)``; GatedDense ``wg``/``wu (in,
-features)``; Embedding ``emb (vocab, features)``; norm ``scale``).
-Parameters are nested dicts of tensors, one level per composite block.
+features)``; Embedding ``emb (vocab, features)``; PosEmbed ``emb
+(max_len, features)``; norm ``scale``/``bias``).  Parameters are nested
+dicts of tensors, one level per composite block.  The port has no layer
+with mutable state (no BatchNorm yet), so ``state`` passes through as
+the JAX signatures carry it.
 
-Activations are channels-last ``(B, S, d)``.  Row reductions (RMSNorm)
-and plain products run on fixed-size row chunks (``ops/fixed_order.py``)
-so a row's result does not depend on the batch it shares.
+Activations are channels-last ``(B, S, d)``.  Two evaluation orders,
+chosen per call by the ``fixed_order`` argument of :func:`apply_layer`:
+
+- ``fixed_order=True`` (the KV-cache path of ``generate`` and
+  ``serve``): plain products and row reductions run on fixed-size row
+  chunks (``ops/fixed_order.py``), so a row's result does not depend on
+  the batch it shares — what the serve ``--verify`` bit identity rests
+  on;
+- ``fixed_order=False`` (the full-sequence path of
+  ``SegmentedModel.apply``: scoring, training, evaluation): plain
+  products and reductions on the whole tensor.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -23,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from torchpruner_tpu_torch.ops.fixed_order import per_rows
-from torchpruner_tpu_torch.ops.quant import oscale, qdot
+from torchpruner_tpu_torch.ops.quant import QTensor, oscale, qdot, wval
 from torchpruner_tpu_torch.utils.device import resolve_device
 
 # ---------------------------------------------------------------------------
@@ -33,10 +44,19 @@ from torchpruner_tpu_torch.utils.device import resolve_device
 
 @dataclass(frozen=True)
 class Dense:
-    """Fully-connected layer (out units = features)."""
+    """Fully-connected layer. Prunable (out units = features)."""
 
     name: str
     features: int
+    use_bias: bool = True
+
+
+@dataclass(frozen=True)
+class LayerNorm:
+    """Layer normalization over the last axis (transformer blocks)."""
+
+    name: str
+    eps: float = 1e-5
     use_bias: bool = True
 
 
@@ -74,6 +94,25 @@ class Activation:
 
 
 @dataclass(frozen=True)
+class GlobalPool:
+    """Global pooling / token selection: ``"avg"`` (NHWC -> (B, C)),
+    ``"seq_mean"`` ((B, S, D) -> (B, D) mean over the sequence) or
+    ``"cls"`` ((B, S, D) -> (B, D) first-token select)."""
+
+    name: str
+    kind: str = "avg"
+
+
+@dataclass(frozen=True)
+class Dropout:
+    """Dropout. ``rate`` is the drop probability; rescaled on pruning so
+    the expected number of active units is preserved."""
+
+    name: str
+    rate: float = 0.5
+
+
+@dataclass(frozen=True)
 class Embedding:
     """Token embedding lookup: int tokens ``(..., S)`` -> ``(..., S, d)``."""
 
@@ -83,10 +122,22 @@ class Embedding:
 
 
 @dataclass(frozen=True)
+class PosEmbed:
+    """Learned positional embedding added to a ``(B, S, d)`` sequence."""
+
+    name: str
+    max_len: int
+
+
+@dataclass(frozen=True)
 class MultiHeadAttention:
-    """Multi-head (optionally grouped-query) self-attention on ``(B, S, d)``;
-    the same fields as the JAX spec.  In the port it runs through the
-    KV-cache path (``generate._decode_attention``)."""
+    """Multi-head (optionally grouped-query) self-attention on ``(B, S, d)``.
+
+    Prunable: the unit is the query head; its unit site is the
+    pre-output-projection head context, exposed to taps in ``(B, S, Dh,
+    H)`` layout (head axis last).  ``impl``: ``"auto"``/``"flash"`` (the
+    flash kernels on CUDA, their plain version on the CPU) or ``"xla"``
+    (the plain einsum core)."""
 
     name: str
     num_heads: int
@@ -118,7 +169,7 @@ class MultiHeadAttention:
 @dataclass(frozen=True)
 class GatedDense:
     """Gated linear unit ``act(x @ wg) * (x @ wu)`` (SwiGLU with
-    ``fn="silu"``)."""
+    ``fn="silu"``).  Prunable (out units = features)."""
 
     name: str
     features: int
@@ -146,6 +197,10 @@ class Residual:
 
 
 LayerSpec = Any
+#: can be out-pruned (the JAX package's set, restricted to the port's specs)
+PRUNABLE_TYPES = (Dense, GatedDense, MultiHeadAttention)
+#: in-pruned alongside a producer
+ATTACHABLE_TYPES = (Dropout, LayerNorm, RMSNorm)
 COMPOSITE_TYPES = (Residual,)
 
 # ---------------------------------------------------------------------------
@@ -159,6 +214,8 @@ def out_shape(spec: LayerSpec, in_shape: Tuple[int, ...]) -> Tuple[int, ...]:
         return tuple(in_shape[:-1]) + (spec.features,)
     if isinstance(spec, Embedding):
         return tuple(in_shape) + (spec.features,)
+    if isinstance(spec, GlobalPool):
+        return (in_shape[-1],)
     if isinstance(spec, MultiHeadAttention):
         d_out = spec.out_features if spec.out_features is not None \
             else in_shape[-1]
@@ -175,6 +232,27 @@ def seq_out_shape(layers, in_shape: Tuple[int, ...]) -> Tuple[int, ...]:
     return shape
 
 
+def seq_shapes(layers, in_shape: Tuple[int, ...]):
+    """Per-layer ``(in_shape, out_shape)`` for a sequential pipeline."""
+    out = []
+    shape = tuple(in_shape)
+    for spec in layers:
+        o = out_shape(spec, shape)
+        out.append((shape, o))
+        shape = o
+    return tuple(out)
+
+
+def unit_site_shape(spec: LayerSpec, in_shape: Tuple[int, ...]
+                    ) -> Tuple[int, ...]:
+    """Per-example shape of the activation at a layer's unit site — the
+    tensor taps act on, unit axis last: the output, except attention's
+    head context ``(S, Dh, H)``."""
+    if isinstance(spec, MultiHeadAttention):
+        return (in_shape[0], spec.head_dim, spec.num_heads)
+    return out_shape(spec, in_shape)
+
+
 def param_shapes(spec: LayerSpec, in_shape: Tuple[int, ...]
                  ) -> Dict[str, Any]:
     """``{param name: shape}`` for one layer (nested for composites) —
@@ -185,10 +263,21 @@ def param_shapes(spec: LayerSpec, in_shape: Tuple[int, ...]
         if spec.use_bias:
             out["b"] = (spec.features,)
         return out
+    if isinstance(spec, LayerNorm):
+        out = {"scale": (in_shape[-1],)}
+        if spec.use_bias:
+            out["bias"] = (in_shape[-1],)
+        return out
     if isinstance(spec, RMSNorm):
         return {"scale": (in_shape[-1],)}
     if isinstance(spec, Embedding):
         return {"emb": (spec.vocab_size, spec.features)}
+    if isinstance(spec, PosEmbed):
+        if in_shape[0] > spec.max_len:
+            raise ValueError(
+                f"PosEmbed {spec.name!r}: sequence {in_shape[0]} exceeds "
+                f"max_len {spec.max_len}")
+        return {"emb": (spec.max_len, in_shape[-1])}
     if isinstance(spec, MultiHeadAttention):
         d = in_shape[-1]
         H, KV, Dh = spec.num_heads, spec.kv_heads, spec.head_dim
@@ -217,7 +306,7 @@ def param_shapes(spec: LayerSpec, in_shape: Tuple[int, ...]
                     out[child.name] = p
                 shape = out_shape(child, shape)
         return out
-    if isinstance(spec, Activation):
+    if isinstance(spec, (Activation, GlobalPool, Dropout)):
         return {}
     raise TypeError(f"unknown layer spec {type(spec)}")
 
@@ -256,7 +345,7 @@ def init_layer(spec: LayerSpec, gen: torch.Generator,
             params[pname] = torch.ones(shp, dtype=dtype, device=device)
         elif pname.startswith("b"):
             params[pname] = zeros(shp)
-        elif isinstance(spec, Embedding):
+        elif isinstance(spec, (Embedding, PosEmbed)):
             params[pname] = normal(shp, 0.02)
         elif isinstance(spec, MultiHeadAttention):
             fan = shp[0] if pname != "wo" else shp[0] * shp[1]
@@ -267,8 +356,77 @@ def init_layer(spec: LayerSpec, gen: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
-# apply rules (eval mode)
+# Taps — attribution instrumentation addressed by site path
 # ---------------------------------------------------------------------------
+
+
+def parse_path(name) -> Tuple[str, ...]:
+    """``"block/child"`` -> ``("block", "child")``; tuples pass through."""
+    if isinstance(name, tuple):
+        return name
+    return tuple(name.split("/"))
+
+
+class Taps:
+    """Per-call instrumentation: unit masking, additive perturbation and
+    activation capture at named sites (paths).  ``multi_capture``
+    records every listed site into ``captures`` in one forward."""
+
+    __slots__ = ("unit_mask", "perturb", "capture", "captured",
+                 "multi_capture", "captures")
+
+    def __init__(self, unit_mask=None, perturb=None, capture=None,
+                 multi_capture=()):
+        self.unit_mask = (None if unit_mask is None
+                          else (parse_path(unit_mask[0]), unit_mask[1]))
+        self.perturb = (None if perturb is None
+                        else (parse_path(perturb[0]), perturb[1]))
+        self.capture = None if capture is None else parse_path(capture)
+        self.captured = None
+        self.multi_capture = frozenset(parse_path(p) for p in multi_capture)
+        self.captures: Dict[str, torch.Tensor] = {}
+
+    def empty(self) -> bool:
+        return (self.unit_mask is None and self.perturb is None
+                and self.capture is None and not self.multi_capture)
+
+    def at_site(self, path: Tuple[str, ...], y: torch.Tensor):
+        """Apply mask/perturb and record capture if ``path`` is a tap
+        site.  ``y`` must have the unit axis last."""
+        if self.unit_mask is not None and self.unit_mask[0] == path:
+            y = y * self.unit_mask[1]
+        if self.perturb is not None and self.perturb[0] == path:
+            y = y + self.perturb[1]
+        if self.capture == path:
+            self.captured = y
+        if path in self.multi_capture:
+            self.captures["/".join(path)] = y
+        return y
+
+
+# ---------------------------------------------------------------------------
+# apply rules: (spec, params, state, x, train, rng, taps, path) -> (y, state)
+# ---------------------------------------------------------------------------
+
+
+def apply_seq(layers, params, state, x, *, train: bool = False,
+              rng: Optional[torch.Generator] = None,
+              taps: Optional[Taps] = None, prefix: Tuple[str, ...] = (),
+              fixed_order: bool = False):
+    """Run a sequential pipeline of layers, applying output-site taps
+    after every non-attention layer (attention taps its own head site).
+    ``rng`` feeds every train-mode Dropout in order."""
+    state = state if state is not None else {}
+    for spec in layers:
+        p = params.get(spec.name, {}) if params else {}
+        path = prefix + (spec.name,)
+        x, _ = apply_layer(spec, p, state.get(spec.name, {}), x,
+                           train=train, rng=rng, taps=taps, path=path,
+                           fixed_order=fixed_order)
+        if (taps is not None and not taps.empty()
+                and not isinstance(spec, MultiHeadAttention)):
+            x = taps.at_site(path, x)
+    return x, state
 
 
 def _rope(x: torch.Tensor, theta: float, offset=0) -> torch.Tensor:
@@ -296,36 +454,207 @@ def _rope(x: torch.Tensor, theta: float, offset=0) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def apply_layer(spec: LayerSpec, params, x: torch.Tensor) -> torch.Tensor:
-    """Apply one position-independent layer in eval mode.  Matmul weights
-    may be :class:`~torchpruner_tpu_torch.ops.quant.QTensor` leaves: the
-    product consumes the integer payload and the per-output-channel
-    scale is applied to the output."""
+#: The JAX package's ``impl="auto"`` takes its flash kernel only at
+#: S >= 4096 (``FLASH_AUTO_MIN_S``), a crossover measured on a TPU v5e.
+#: It is not carried over: on CUDA ``"auto"`` always takes the flash
+#: kernels.  Where the H100's own crossover against a plain core lies is
+#: open (ROADMAP).
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, impl: str = "auto") -> torch.Tensor:
+    """Scaled-dot-product attention on ``(B, S, H, Dh)`` tensors (K/V
+    already expanded to H heads).  ``"auto"``/``"flash"``:
+    :func:`~torchpruner_tpu_torch.ops.flash_attention.flash_attention`
+    (the CUDA kernels on the card, the plain version on the CPU);
+    ``"xla"``: the JAX package's plain einsum core."""
+    if impl in ("auto", "flash"):
+        from torchpruner_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal)
+    if impl != "xla":
+        raise ValueError(f"attention impl {impl!r} is not ported "
+                         f"(use 'auto', 'flash' or 'xla')")
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bshk,bthk->bhst", q, k) * scale
+    if causal:
+        S = q.shape[1]
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(mask, logits,
+                             torch.finfo(logits.dtype).min)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bthk->bshk", w, v)
+
+
+def _dot(x: torch.Tensor, w, fixed_order: bool) -> torch.Tensor:
+    """``x ·₀ w`` (x's trailing axis against w's leading one): through
+    :func:`~torchpruner_tpu_torch.ops.quant.qdot` on the fixed-order path
+    or for a quantized weight, else one plain product on the whole
+    tensor (operand dtypes promote as in ``jnp.matmul``)."""
+    if fixed_order or isinstance(w, QTensor):
+        return qdot(x, w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = x.to(dt) @ w.to(dt).reshape(w.shape[0], -1)
+    return y.reshape(tuple(x.shape[:-1]) + tuple(w.shape[1:]))
+
+
+def _row_mean(v: torch.Tensor, fixed_order: bool) -> torch.Tensor:
+    if fixed_order:
+        return per_rows(lambda c: c.mean(dim=-1, keepdim=True), v)
+    return v.mean(dim=-1, keepdim=True)
+
+
+def apply_layer(spec: LayerSpec, params, state, x: torch.Tensor, *,
+                train: bool = False, rng: Optional[torch.Generator] = None,
+                taps: Optional[Taps] = None, path: Tuple[str, ...] = (),
+                fixed_order: bool = False):
+    """Apply one layer; returns ``(y, state)``.  ``fixed_order`` selects
+    the batch-invariant evaluation order (module docstring).  Matmul
+    weights may be :class:`~torchpruner_tpu_torch.ops.quant.QTensor`
+    leaves: the product consumes the integer payload and the
+    per-output-channel scale is applied to the output."""
     if isinstance(spec, Dense):
-        y = oscale(qdot(x, params["w"]), params["w"])
+        y = oscale(_dot(x, params["w"], fixed_order), params["w"])
         if "b" in params:
             y = y + params["b"]
-        return y
-    if isinstance(spec, RMSNorm):
-        # f32 internally whatever the activation dtype, cast back — the
-        # JAX package's mixed-precision policy
+        return y, state
+    # norms compute in f32 whatever the activation dtype and cast back —
+    # the JAX package's mixed-precision policy
+    if isinstance(spec, LayerNorm):
         xf = x.float()
-        ms = per_rows(lambda c: c.square().mean(dim=-1, keepdim=True), xf)
+        mean = _row_mean(xf, fixed_order)
+        var = _row_mean((xf - mean).square(), fixed_order)  # population
+        y = (xf - mean) * torch.rsqrt(var + spec.eps) \
+            * params["scale"].float()
+        if "bias" in params:
+            y = y + params["bias"].float()
+        return y.to(x.dtype), state
+    if isinstance(spec, RMSNorm):
+        xf = x.float()
+        ms = _row_mean(xf.square(), fixed_order)
         y = xf * torch.rsqrt(ms + spec.eps) * params["scale"].float()
-        return y.to(x.dtype)
+        return y.to(x.dtype), state
     if isinstance(spec, Activation):
-        return ACTIVATION_FNS[spec.fn](x)
+        return ACTIVATION_FNS[spec.fn](x), state
+    if isinstance(spec, GlobalPool):
+        if spec.kind == "avg":
+            return x.mean(dim=tuple(range(1, x.ndim - 1))), state
+        if spec.kind == "seq_mean":
+            return x.mean(dim=1), state
+        if spec.kind == "cls":
+            return x[:, 0], state
+        raise ValueError(f"unknown global pool kind {spec.kind!r}")
+    if isinstance(spec, Dropout):
+        if not train or spec.rate == 0.0:
+            return x, state
+        if rng is None:
+            raise ValueError(f"Dropout {spec.name!r} needs an rng in "
+                             f"train mode")
+        keep = 1.0 - spec.rate
+        mask = torch.rand(x.shape, generator=rng, device=rng.device
+                          ).to(x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x)), state
     if isinstance(spec, Embedding):
-        return params["emb"][x]
+        return params["emb"][x.long()], state
+    if isinstance(spec, PosEmbed):
+        return x + params["emb"][:x.shape[-2]], state
+    if isinstance(spec, MultiHeadAttention):
+        return _attention(spec, params, x, taps, path, fixed_order), state
     if isinstance(spec, GatedDense):
-        g = oscale(qdot(x, params["wg"]), params["wg"])
-        u = oscale(qdot(x, params["wu"]), params["wu"])
+        g = oscale(_dot(x, params["wg"], fixed_order), params["wg"])
+        u = oscale(_dot(x, params["wu"], fixed_order), params["wu"])
         if "bg" in params:
             g = g + params["bg"]
             u = u + params["bu"]
-        return ACTIVATION_FNS[spec.fn](g) * u
-    if isinstance(spec, MultiHeadAttention):
-        raise NotImplementedError(
-            "attention runs through the KV-cache path "
-            "(generate._decode_attention) in the port")
+        return ACTIVATION_FNS[spec.fn](g) * u, state
+    if isinstance(spec, Residual):
+        y, _ = apply_seq(spec.body, params, state, x, train=train, rng=rng,
+                         taps=taps, prefix=path, fixed_order=fixed_order)
+        if spec.shortcut:
+            sc, _ = apply_seq(spec.shortcut, params, state, x, train=train,
+                              rng=rng, taps=taps, prefix=path,
+                              fixed_order=fixed_order)
+        else:
+            sc = x
+        return y + sc, state
     raise TypeError(f"unknown layer spec {type(spec)}")
+
+
+def _attention(spec: MultiHeadAttention, params, x, taps, path,
+               fixed_order):
+    """The full-sequence attention rule: projections, RoPE, the GQA
+    expansion, the attention core, the head-site taps, the output
+    projection."""
+    q = oscale(_dot(x, params["wq"], fixed_order), params["wq"])
+    k = oscale(_dot(x, params["wk"], fixed_order), params["wk"])
+    v = oscale(_dot(x, params["wv"], fixed_order), params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if spec.rope:
+        q = _rope(q, spec.rope_theta)
+        k = _rope(k, spec.rope_theta)
+    if spec.kv_heads != spec.num_heads or spec.kv_group is not None:
+        idx = torch.tensor(spec.head_kv_index(), device=k.device)
+        k = k.index_select(2, idx)
+        v = v.index_select(2, idx)
+    ctx = attention_core(q, k, v, causal=spec.causal, impl=spec.impl)
+    if taps is not None and not taps.empty():
+        # head unit site: (B, S, Dh, H) — head axis last
+        ctx = taps.at_site(path, ctx.movedim(2, 3)).movedim(3, 2)
+    # the output projection contracts two axes (H, Dh): it consumes the
+    # widened weight, as the JAX einsum does
+    B, S, H, Dh = ctx.shape
+    wo = wval(params["wo"], ctx.dtype)
+    y = oscale(_dot(ctx.reshape(B, S, H * Dh), wo.reshape(H * Dh, -1),
+                    fixed_order), params["wo"])
+    if "bo" in params:
+        y = y + params["bo"]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Prunable-unit helpers
+# ---------------------------------------------------------------------------
+
+
+def n_units(spec: LayerSpec) -> int:
+    """Number of prunable output units of a prunable layer."""
+    if isinstance(spec, (Dense, GatedDense)):
+        return spec.features
+    if isinstance(spec, MultiHeadAttention):
+        return spec.num_heads
+    raise TypeError(f"{type(spec).__name__} has no prunable units")
+
+
+def with_features(spec: LayerSpec, features: int) -> LayerSpec:
+    """Return a copy of a prunable spec with a new unit count."""
+    if isinstance(spec, (Dense, GatedDense)):
+        return dataclasses.replace(spec, features=features)
+    if isinstance(spec, MultiHeadAttention):
+        if spec.kv_group is not None:
+            raise ValueError(
+                f"MHA {spec.name!r} has an irregular kv_group; resize it "
+                "with pruned_spec(spec, keep) so the grouping stays valid")
+        kv = features if spec.kv_heads == spec.num_heads \
+            else spec.num_kv_heads
+        return dataclasses.replace(spec, num_heads=features, num_kv_heads=kv)
+    raise TypeError(f"{type(spec).__name__} has no feature count")
+
+
+def pruned_spec(spec: LayerSpec, keep) -> LayerSpec:
+    """The spec after keeping exactly the units ``keep`` (sorted
+    indices); for GQA attention the surviving heads' KV groups are
+    recorded in ``kv_group``."""
+    keep = list(keep)
+    if isinstance(spec, MultiHeadAttention):
+        if spec.kv_heads == spec.num_heads and spec.kv_group is None:
+            return dataclasses.replace(
+                spec, num_heads=len(keep),
+                num_kv_heads=len(keep) if spec.num_kv_heads is not None
+                else None)
+        group = spec.head_kv_index()
+        return dataclasses.replace(spec, num_heads=len(keep),
+                                   kv_group=tuple(group[h] for h in keep))
+    return with_features(spec, len(keep))

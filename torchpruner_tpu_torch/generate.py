@@ -129,7 +129,7 @@ def _decode_seq(layers, params, cache, x, pos: Pos, prefix=()):
                 sc = x
             x = y + sc
         else:
-            x = L.apply_layer(spec, p, x)
+            x, _ = L.apply_layer(spec, p, {}, x, fixed_order=True)
     return x, cache
 
 

@@ -26,7 +26,7 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 
 #: every kernel source of the port, by library name
-KERNELS = ("dequant_matmul", "decode_attention")
+KERNELS = ("dequant_matmul", "decode_attention", "flash_attention")
 
 #: Hopper with its architecture-specific features (wgmma, setmaxnreg)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

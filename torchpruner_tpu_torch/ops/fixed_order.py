@@ -31,6 +31,7 @@ def per_rows(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
     """``fn`` applied to ``x (..., K)`` flattened to rows, in fixed-size
     chunks of ``rows`` rows.  ``fn`` maps ``(rows, K) -> (rows, ...)``
     row-wise; the result keeps ``x``'s leading axes."""
+    per_rows.calls += 1
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     m = x2.shape[0]
@@ -40,6 +41,11 @@ def per_rows(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
     y = torch.cat([fn(x2[i:i + rows]) for i in range(0, m + pad, rows)])
     y = y[:m]
     return y.reshape(tuple(lead) + tuple(y.shape[1:]))
+
+
+#: calls of :func:`per_rows` (products and row reductions of the
+#: fixed-order path) — the full-sequence path must make none
+per_rows.calls = 0
 
 
 def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

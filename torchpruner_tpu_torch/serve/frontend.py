@@ -76,7 +76,7 @@ def serve_main(argv=None) -> int:
         model_name = preset_model(args.preset, smoke=args.smoke)
     except KeyError as e:
         p.error(str(e))
-    model = MODEL_REGISTRY[model_name]()
+    model = MODEL_REGISTRY[model_name][0]()
     params, _state = init_model(model, seed=args.seed, device=device)
     engine = ServeEngine(
         model, params, n_slots=args.slots, max_len=args.max_len,
