@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases (any failure exits non-zero; nothing is caught and swallowed):
 
 1. Environment: the card's name and power limit (``nvidia-smi``); build
-   both CUDA kernels from ``torchpruner_tpu_torch/csrc`` (one ``nvcc``
-   per source, in parallel) and print the build time.
+   the four CUDA sources of ``torchpruner_tpu_torch/csrc`` (one ``nvcc``
+   per source, all started together) and print the build time.
 2. Kernel vs plain: the dequant matmul (int4 and int8, M in {1, 4, 64}
    and the prefill buckets {16, 48, 104} of phase 3's prompts, at the
    Llama-3-8B projection shapes) and decode attention (B=4, T=512,
@@ -40,6 +40,31 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    epoch on ``block12_mlp/`` in bf16; finite step losses, step time.
 9. Causal training: 3 ``Trainer`` steps on mfu_llama (B 8, S 1024, bf16,
    Adam, lm_mfu); finite losses, step time.
+10. Block-sparse matmul (forward, dx, dW kernels) against autograd of the
+    plain version, f32 and bf16, at BERT-base's ``fc1`` (R 4096, D 768,
+    F 3072, half the output blocks kept) and ``fc2`` (D 3072, F 768, half
+    the input blocks kept), at R 1024, D 4096, F 4096 with both axes half
+    kept, at a ragged R (4099) and at block 32; dropped columns and
+    blocks exactly 0; CUDA-event times of each kernel, of the same kernel
+    with every block kept, of the plain version and of ``torch.matmul``
+    on the dense masked weight (timed only), and the bound.
+11. Masked block-sparse retraining at full width: BERT-base, Sensitivity
+    on every ``block{i}_mlp/fc1``, ``score_drop_indices(fraction=0.5,
+    granularity=128)``, ``drop_masks`` / ``apply_masks``, Adam chained
+    with ``masked_update``, 30 bf16 ``Trainer`` steps (B 32) with
+    ``param_transform=blocksparse_transform(...)`` and the same 30 steps
+    masked dense; finite losses that agree, 24 forward / 24 dx / 24 dW
+    launches per step (every wrapped site; a CUDA tensor launches or
+    raises), masked entries exactly 0 after training, NaN written into a
+    dropped block leaves the block-sparse loss bit-equal and turns the
+    masked-dense loss NaN, then ``prune`` with the same indices
+    (3072 -> 1536) whose forward equals the masked forward.
+12. ``simulate`` through the CLI: ``--config`` of the phase 7 preset with
+    ``simulate=true``; 12 records, the units dropped and the post-prune
+    losses of phase 7, widths unchanged.
+13. GatedDense: 3 masked block-sparse mfu_llama steps (phase 9's set-up,
+    every ``block{i}_ffn/gate`` half dropped at granularity 128), so
+    ``wg`` / ``wu`` and the down projection go through the kernels.
 
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -347,6 +372,7 @@ FLASH_CASES = (
     ("ragged_causal", 4, 333, 12, 64, "float32", True),
 )
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+BS_KERNELS = ("blocksparse_fwd", "blocksparse_dx", "blocksparse_dw")
 
 
 def flash_launches():
@@ -356,6 +382,7 @@ def flash_launches():
 
 
 def reset_launches():
+    from torchpruner_tpu_torch.ops import blocksparse as BS
     from torchpruner_tpu_torch.ops import decode_attention as DA
     from torchpruner_tpu_torch.ops import flash_attention as FA
     from torchpruner_tpu_torch.ops import fused_matmul as FM
@@ -363,6 +390,8 @@ def reset_launches():
 
     for n in FLASH_KERNELS:
         getattr(FA, n).launches = 0
+    for n in BS_KERNELS:
+        getattr(BS, n).launches = 0
     FM.dequant_matmul.launches = 0
     DA.decode_attention.launches = 0
     per_rows.calls = 0
@@ -486,6 +515,13 @@ def _cli(argv) -> str:
     return text
 
 
+def _dropped_counts(text: str) -> list:
+    """The unit counts of the loop's "pruned N units from ..." lines."""
+    import re
+
+    return [int(n) for n in re.findall(r"pruned (\d+) units from", text)]
+
+
 def preset_phase(dev) -> dict:
     import torch
 
@@ -517,6 +553,8 @@ def preset_phase(dev) -> dict:
     if fixed:
         fail(f"the full-sequence path made {fixed} fixed-order chunk calls")
     out = {"records": len(rows), "fc1_kept": kept, "wall_s": wall,
+           "n_dropped": _dropped_counts(text),
+           "post_losses": [float(r["test_loss_pp"]) for r in rows],
            "launches": launches, "fixed_order_calls": fixed,
            "final_acc": summary["final_acc"],
            "final_params": summary["final_params"],
@@ -618,6 +656,401 @@ def causal_phase(dev) -> dict:
     return out
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+#: (label, R, D, F, block, input axis half kept, output axis half kept):
+#: BERT-base's two MLP products at B 32 x S 128 rows, the JAX package's
+#: bench shape, a ragged row count and a block-32 case
+BS_CASES = (
+    ("fc1", 4096, 768, 3072, 128, False, True),
+    ("fc2", 4096, 3072, 768, 128, True, False),
+    ("both_axes", 1024, 4096, 4096, 128, True, True),
+    ("ragged", 4099, 768, 3072, 128, False, True),
+    ("block32", 1000, 256, 384, 32, True, True),
+)
+
+
+def blocksparse_case(dev, label, R, D, F, block, half_in, half_out,
+                     dtn) -> dict:
+    import torch
+
+    from torchpruner_tpu_torch.ops import blocksparse as BS
+
+    dtype = getattr(torch, dtn)
+    f32 = dtype == torch.float32
+    gen = torch.Generator(device=dev).manual_seed(R + D + F + block)
+    # every second block dropped on a half-kept axis
+    ik = tuple(i for i in range(D // block) if not (half_in and i % 2))
+    ok = tuple(j for j in range(F // block) if not (half_out and j % 2 == 0))
+    in_m = BS._unit_mask(D, ik, block, dev)
+    out_m = BS._unit_mask(F, ok, block, dev)
+    x = torch.randn((R, D), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((D, F), generator=gen, device=dev) * 0.02
+         * in_m[:, None] * out_m[None, :]).to(dtype)  # the masked weight
+    g = torch.randn((R, F), generator=gen, device=dev).to(dtype)
+    # the reference: autograd of the plain version, in f32, on the same
+    # (for bf16: bf16-rounded) inputs
+    xr, wr = x.float().requires_grad_(), w.float().requires_grad_()
+    yr = BS.blocksparse_matmul_plain(xr, wr, in_keep=ik, out_keep=ok,
+                                     block=block)
+    dxr, dwr = torch.autograd.grad(yr, (xr, wr), g.float())
+    y = BS.blocksparse_fwd(x, w, ik, ok, block)
+    dx = BS.blocksparse_dx(g, w, ik, ok, block)
+    dw = BS.blocksparse_dw(x, g, ik, ok, block)
+    torch.cuda.synchronize()
+    rel = 1e-5 if f32 else 2 ** -7
+    errs = {}
+    for name, got, want in (("blocksparse_fwd", y, yr.detach()),
+                            ("blocksparse_dx", dx, dxr),
+                            ("blocksparse_dw", dw, dwr)):
+        err = float((got.float() - want).abs().max())
+        tol = rel * float(want.abs().max())
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            fail(f"blocksparse {label} {dtn} {name}: max abs err {err} > "
+                 f"tol {tol}")
+        errs[name] = {"max_abs_err": err, "tol": tol}
+    if not (bool((y[:, ~out_m] == 0).all()) and bool((dx[:, ~in_m] == 0).all())
+            and bool((dw[~in_m] == 0).all())
+            and bool((dw[:, ~out_m] == 0).all())):
+        fail(f"blocksparse {label} {dtn}: a dropped column or block is not "
+             f"exactly 0")
+    del xr, wr, yr, dxr, dwr
+    torch.cuda.empty_cache()
+    all_in, all_out = tuple(range(D // block)), tuple(range(F // block))
+    case = {"label": label, "R": R, "D": D, "F": F, "block": block,
+            "dtype": dtn, "in_kept": len(ik), "in_blocks": D // block,
+            "out_kept": len(ok), "out_blocks": F // block, "errors": errs}
+    case["ms"] = {
+        "blocksparse_fwd": event_ms(lambda i: BS.blocksparse_fwd(
+            x, w, ik, ok, block), 20),
+        "blocksparse_dx": event_ms(lambda i: BS.blocksparse_dx(
+            g, w, ik, ok, block), 20),
+        "blocksparse_dw": event_ms(lambda i: BS.blocksparse_dw(
+            x, g, ik, ok, block), 20)}
+    # the same kernels with every block kept (a dense blocked product)
+    case["all_kept_ms"] = {
+        "blocksparse_fwd": event_ms(lambda i: BS.blocksparse_fwd(
+            x, w, all_in, all_out, block), 10),
+        "blocksparse_dx": event_ms(lambda i: BS.blocksparse_dx(
+            g, w, all_in, all_out, block), 10),
+        "blocksparse_dw": event_ms(lambda i: BS.blocksparse_dw(
+            x, g, all_in, all_out, block), 10)}
+    # the plain version (it masks the weight, then one dense product)
+    # and its autograd, one gradient at a time
+    xp, wp = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yp = BS.blocksparse_matmul_plain(xp, wp, in_keep=ik, out_keep=ok,
+                                     block=block)
+    case["plain_ms"] = {
+        "blocksparse_fwd": event_ms(lambda i: BS.blocksparse_matmul_plain(
+            x, w, in_keep=ik, out_keep=ok, block=block), 10),
+        "blocksparse_dx": event_ms(lambda i: torch.autograd.grad(
+            yp, xp, g, retain_graph=True), 10),
+        "blocksparse_dw": event_ms(lambda i: torch.autograd.grad(
+            yp, wp, g, retain_graph=True), 10)}
+    del xp, wp, yp
+    # the library yardstick, timed only: torch.matmul on the dense masked
+    # weight (all of D and F)
+    case["library_ms"] = {
+        "blocksparse_fwd": event_ms(lambda i: torch.matmul(x, w), 20),
+        "blocksparse_dx": event_ms(lambda i: torch.matmul(g, w.t()), 20),
+        "blocksparse_dw": event_ms(lambda i: torch.matmul(x.t(), g), 20)}
+    # bounds: the kept columns of the inputs and the kept blocks of the
+    # weight read once, the whole output (its zeros too) written once;
+    # the operations of the kept blocks
+    es = x.element_size()
+    kd, kf = len(ik) * block, len(ok) * block
+    ops = 2.0 * R * kd * kf
+    peak = FP32_FLOPS if f32 else BF16_FLOPS
+    case["bound"] = {
+        "blocksparse_fwd": bound_ms((R * kd + kd * kf + R * F) * es, ops,
+                                    peak),
+        "blocksparse_dx": bound_ms((R * kf + kd * kf + R * D) * es, ops,
+                                   peak),
+        "blocksparse_dw": bound_ms((R * kd + R * kf + D * F) * es, ops,
+                                   peak)}
+    log(f"  blocksparse {label} {dtn} R{R} D{D} F{F} block {block} kept "
+        f"{len(ik)}/{D // block} x {len(ok)}/{F // block}: "
+        + "  ".join(
+            f"{k[12:]} {case['ms'][k]:.4f} ms (all kept "
+            f"{case['all_kept_ms'][k]:.4f}, plain {case['plain_ms'][k]:.4f}, "
+            f"matmul {case['library_ms'][k]:.4f}, bound "
+            f"{case['bound'][k][0]:.4f} {case['bound'][k][1]}, err "
+            f"{errs[k]['max_abs_err']:.3g})" for k in BS_KERNELS))
+    del x, w, g, y, dx, dw
+    torch.cuda.empty_cache()
+    return case
+
+
+# -- phases 11-13 -----------------------------------------------------------
+
+
+def bs_launches() -> dict:
+    from torchpruner_tpu_torch.ops import blocksparse as BS
+
+    return {n: getattr(BS, n).launches for n in BS_KERNELS}
+
+
+def masked_retrain_phase(dev, n_steps: int = 30) -> dict:
+    """The masked-retrain recipe on BERT-base: block-granular Sensitivity
+    drops, masks, Adam + masked_update, block-sparse steps against the
+    same steps masked dense, then one structural prune."""
+    import numpy as np
+    import torch
+
+    from torchpruner_tpu_torch.attributions import (
+        SensitivityAttributionMetric,
+    )
+    from torchpruner_tpu_torch.core import masking, segment
+    from torchpruner_tpu_torch.core.pruner import prune, score_drop_indices
+    from torchpruner_tpu_torch.data import load_dataset
+    from torchpruner_tpu_torch.models import bert_base
+    from torchpruner_tpu_torch.train import optim
+    from torchpruner_tpu_torch.ops import blocksparse as BS
+    from torchpruner_tpu_torch.train.loop import (
+        Trainer,
+        make_loss_closure,
+        to_device,
+    )
+    from torchpruner_tpu_torch.utils.losses import cross_entropy_loss
+    from torchpruner_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    model = bert_base()
+    params, state = segment.init_model(model, 0, device=dev)
+    val = load_dataset("glue_sst2", "val", n=256, seed=0)
+    train = load_dataset("glue_sst2", "train", n=32 * n_steps, seed=0)
+    targets = [f"block{i}_mlp/fc1" for i in range(1, 13)]
+    t0 = time.perf_counter()
+    metric = SensitivityAttributionMetric(
+        model, params, val.batches(128), cross_entropy_loss, state=state,
+        seed=0)
+    drops = {t: score_drop_indices(metric.run(t), policy="fraction",
+                                   fraction=0.5, granularity=128)
+             for t in targets}
+    score_s = time.perf_counter() - t0
+    if any(len(d) != 1536 or (np.diff(d.reshape(-1, 128), axis=1) != 1).any()
+           for d in drops.values()):
+        fail("masked retrain: drops are not 12 whole 128-blocks per layer")
+    masks, _ = masking.drop_masks(model, params, drops, state=state)
+    start = masking.apply_masks(params, masks)
+    tx = optim.chain(optim.adam(1e-4), masking.masked_update(masks))
+    batches = list(train.batches(32))[:n_steps]
+
+    def run(transform):
+        trainer = Trainer.create(model, tx, cross_entropy_loss, seed=0,
+                                 params=start, state=state,
+                                 compute_dtype=torch.bfloat16, device=dev,
+                                 param_transform=transform)
+        reset_launches()
+        with _timed_steps() as steps:
+            for x, y in batches:
+                trainer.step(x, y)
+        return trainer, steps, bs_launches()
+
+    sparse, s_steps, s_launch = run(
+        masking.blocksparse_transform(model, drops))
+    dense, d_steps, d_launch = run(None)
+    out = {"model": "bert_base", "batch": 32, "seq": 128, "steps": n_steps,
+           "score_s": score_s, "launches": s_launch,
+           "launches_masked_dense": d_launch,
+           "blocksparse": _step_stats(s_steps, "block-sparse retrain"),
+           "masked_dense": _step_stats(d_steps, "masked dense retrain")}
+    want = {n: 24 * n_steps for n in BS_KERNELS}
+    if s_launch != want:
+        fail(f"masked retrain: launches {s_launch}, expected {want} "
+             f"(24 forward, 24 dx, 24 dW per step: every wrapped site)")
+    if any(d_launch.values()):
+        fail(f"masked dense steps reached the block-sparse wrappers: "
+             f"{d_launch}")
+    # bf16 products round in another order in the kernels than in the
+    # library's, and Adam carries the difference on: the two loss
+    # sequences agree to 2**-5 of the largest loss
+    s_loss = [l for l, _ in s_steps]
+    d_loss = [l for l, _ in d_steps]
+    tol = 2 ** -5 * max(abs(l) for l in d_loss)
+    out["loss_max_abs_diff"] = max(abs(a - b) for a, b in zip(s_loss, d_loss))
+    out["params_max_abs_diff"] = max(
+        float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(sparse.params), tree_leaves(dense.params)))
+    out["loss_tol"] = tol
+    if not out["loss_max_abs_diff"] <= tol:
+        fail(f"masked retrain: block-sparse and masked-dense losses differ "
+             f"by {out['loss_max_abs_diff']} > {tol}")
+    for name, t in (("block-sparse", sparse), ("masked dense", dense)):
+        for target, drop in drops.items():
+            mlp = t.params[target.split("/")[0]]
+            idx = torch.as_tensor(drop, device=dev)
+            if not (bool((mlp["fc1"]["w"][:, idx] == 0).all())
+                    and bool((mlp["fc1"]["b"][idx] == 0).all())
+                    and bool((mlp["fc2"]["w"][idx] == 0).all())):
+                fail(f"{name}: a masked entry of {target} moved off 0")
+    if not any(bool((sparse.params[t.split("/")[0]]["fc1"]["w"]
+                     != start[t.split("/")[0]]["fc1"]["w"]).any())
+               for t in targets):
+        fail("masked retrain: no kept weight trained")
+    # the discriminator: both runs could agree by computing the same
+    # thing through one route, so hold the routes apart directly.  NaN in
+    # the dropped columns of one trained fc1 weight: the block-sparse
+    # step's loss must not move by a bit (its kernels never read a
+    # dropped block, forward or in fc2's contraction), the masked-dense
+    # loss must turn NaN (the library's product reads them)
+    x, y = (to_device(a, dev) for a in batches[0])
+    t1 = targets[0].split("/")[0]
+    idx = torch.as_tensor(drops[targets[0]], device=dev)
+    poisoned = tree_map(lambda t: t, sparse.params)
+    poisoned[t1]["fc1"]["w"] = poisoned[t1]["fc1"]["w"].clone()
+    poisoned[t1]["fc1"]["w"][:, idx] = float("nan")
+
+    def loss_of(params, transform):
+        closure = make_loss_closure(model, cross_entropy_loss,
+                                    torch.bfloat16, transform)
+        gen = torch.Generator(device=dev).manual_seed(0)  # same dropout
+        with torch.no_grad():
+            return float(closure(params, sparse.state, x, y, gen)[0])
+
+    tf = masking.blocksparse_transform(model, drops)
+    probe = {"blocksparse": loss_of(sparse.params, tf),
+             "blocksparse_poisoned": loss_of(poisoned, tf),
+             "masked_dense": loss_of(sparse.params, None),
+             "masked_dense_poisoned": loss_of(poisoned, None)}
+    # and one product: the fc1 kernel against the library's on the same
+    # bf16 tensors (how far apart the two routes' roundings are)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    xb = torch.randn((4096, 768), generator=gen, device=dev).bfloat16()
+    wb = sparse.params[t1]["fc1"]["w"].bfloat16()
+    keep = BS.keep_blocks_from_drop(3072, drops[targets[0]])
+    y_k = BS.BlockSparseWeight(wb, None, keep).matmul(xb)
+    y_l = xb @ wb
+    probe["fc1_kernel_vs_library_max_abs_diff"] = float(
+        (y_k.float() - y_l.float()).abs().max())
+    probe["fc1_output_scale"] = float(y_l.float().abs().max())
+    out["probe"] = probe
+    if not (math.isfinite(probe["blocksparse"])
+            and probe["blocksparse_poisoned"] == probe["blocksparse"]):
+        fail(f"masked retrain: NaN in a dropped block moved the "
+             f"block-sparse loss: {probe}")
+    if not (math.isfinite(probe["masked_dense"])
+            and math.isnan(probe["masked_dense_poisoned"])):
+        fail(f"masked retrain: NaN in a dropped block did not reach the "
+             f"masked-dense loss: {probe}")
+    # materialize: one structural prune with the same indices
+    with torch.no_grad():
+        y_masked, _ = model.apply(sparse.params, x, state=sparse.state)
+        pm, pp, ps = model, sparse.params, sparse.state
+        for target, drop in drops.items():
+            res = prune(pm, pp, target, drop, state=ps)
+            pm, pp, ps = res.model, res.params, res.state
+        y_pruned, _ = pm.apply(pp, x, state=ps)
+    widths = [pm.widths()[t] for t in targets]
+    err = float((y_masked - y_pruned).abs().max())
+    ptol = 1e-4 * float(y_masked.abs().max())
+    out.update(pruned_fc1_widths=widths, pruned_max_abs_err=err,
+               pruned_tol=ptol)
+    if widths != [1536] * 12:
+        fail(f"masked retrain: pruned fc1 widths {widths}")
+    if not (err <= ptol and bool(torch.isfinite(y_pruned).all())):
+        fail(f"masked retrain: pruned forward differs from the masked "
+             f"forward by {err} > {ptol}")
+    log(f"masked retrain: {json.dumps(out)}")
+    del sparse, dense, metric, params, start, masks
+    torch.cuda.empty_cache()
+    return out
+
+
+def simulate_phase(dev, pr: dict) -> dict:
+    """Phase 7's preset with ``simulate=true`` through ``--config``,
+    held against phase 7's structural records ``pr``."""
+    import dataclasses
+
+    from torchpruner_tpu_torch.experiments.presets import get_preset
+
+    cfg = dataclasses.replace(
+        get_preset("bert_glue_sensitivity"), simulate=True,
+        log_path="logs/chip_smoke_simulate.csv")
+    os.makedirs("logs", exist_ok=True)
+    path = os.path.join("logs", "chip_smoke_simulate.json")
+    cfg.to_json(path)
+    n_before = len(_csv_rows(cfg.log_path))
+    t0 = time.perf_counter()
+    text = _cli(["--config", path])
+    wall = time.perf_counter() - t0
+    rows = _csv_rows(cfg.log_path)[n_before:]
+    dropped = _dropped_counts(text)
+    losses = [float(r["test_loss_pp"]) for r in rows]
+    if len(rows) != 12 or json.loads(
+            text.strip().splitlines()[-1]).get("steps") != 12:
+        fail(f"simulate: {len(rows)} records")
+    if dropped != pr["n_dropped"] or len(dropped) != 12:
+        fail(f"simulate dropped {dropped}, the structural run "
+             f"{pr['n_dropped']}")
+    for i, r in enumerate(rows):
+        fc1 = [int(w) for w in r["widths"].split("-")][1:36:3]
+        if fc1 != [3072] * 12:
+            fail(f"simulate record {i}: fc1 widths changed: {fc1}")
+    # the masked model computes what the pruned one does, f32, in sums
+    # of another length and order: losses agree to 1e-3
+    diff = max(abs(a - b) for a, b in zip(losses, pr["post_losses"]))
+    if not (diff <= 1e-3 and all(math.isfinite(l) for l in losses)):
+        fail(f"simulate: post-prune losses {losses} differ from the "
+             f"structural run's {pr['post_losses']} by {diff} > 1e-3")
+    out = {"records": len(rows), "n_dropped": dropped, "wall_s": wall,
+           "post_loss_max_abs_diff": diff, "post_loss_tol": 1e-3}
+    log(f"simulate: {json.dumps(out)}")
+    return out
+
+
+def gated_phase(dev) -> dict:
+    """Phase 9's mfu_llama steps with every ``block{i}_ffn/gate`` half
+    dropped at granularity 128 and the block-sparse transform."""
+    import numpy as np
+    import torch
+
+    from torchpruner_tpu_torch.core import masking, segment
+    from torchpruner_tpu_torch.core.pruner import score_drop_indices
+    from torchpruner_tpu_torch.data import load_dataset
+    from torchpruner_tpu_torch.models import mfu_llama
+    from torchpruner_tpu_torch.train import optim
+    from torchpruner_tpu_torch.train.loop import Trainer
+    from torchpruner_tpu_torch.utils.losses import lm_cross_entropy_loss
+
+    model = mfu_llama()
+    params, state = segment.init_model(model, 0, device=dev)
+    rng = np.random.default_rng(0)
+    targets = [t for t in model.widths() if t.endswith("_ffn/gate")]
+    drops = {t: score_drop_indices(rng.normal(size=model.widths()[t]),
+                                   policy="fraction", fraction=0.5,
+                                   granularity=128) for t in targets}
+    masks, _ = masking.drop_masks(model, params, drops, state=state)
+    tx = optim.chain(optim.adam(1e-4), masking.masked_update(masks))
+    trainer = Trainer.create(
+        model, tx, lm_cross_entropy_loss, seed=0,
+        params=masking.apply_masks(params, masks), state=state,
+        compute_dtype=torch.bfloat16, device=dev,
+        param_transform=masking.blocksparse_transform(model, drops))
+    ds = load_dataset("lm_mfu", "train", n=24, seed=0)
+    reset_launches()
+    with _timed_steps() as steps:
+        for x, y in ds.batches(8):
+            trainer.step(x, y)
+    launches = bs_launches()
+    out = {"model": "mfu_llama", "batch": 8, "seq": 1024,
+           "ffn_width": model.widths()[targets[0]], "sites": 3 * len(targets),
+           "launches": launches, **_step_stats(steps, "gated")}
+    want = {n: 3 * len(targets) * len(steps) for n in BS_KERNELS}
+    if launches != want or not targets:
+        fail(f"gated: launches {launches}, expected {want}")
+    for t, drop in drops.items():
+        ffn = trainer.params[t.split("/")[0]]
+        idx = torch.as_tensor(drop, device=dev)
+        if not (bool((ffn["gate"]["wg"][:, idx] == 0).all())
+                and bool((ffn["gate"]["wu"][:, idx] == 0).all())
+                and bool((ffn["down"]["w"][idx] == 0).all())):
+            fail(f"gated: a masked entry of {t} moved off 0")
+    log(f"gated: {json.dumps(out)}")
+    del trainer, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def per_step(cases, key, weight):
     return sum(c[key] * weight(c) for c in cases)
 
@@ -687,6 +1120,15 @@ def main() -> int:
     rt = retrain_phase(dev)
     log("phase 9: mfu_llama causal training, 3 steps, bf16")
     ca = causal_phase(dev)
+    log("phase 10: block-sparse matmul kernels vs plain versions")
+    bs = [blocksparse_case(dev, *c, dtn) for c in BS_CASES
+          for dtn in ("float32", "bfloat16")]
+    log("phase 11: masked block-sparse retraining, BERT-base full width")
+    mr = masked_retrain_phase(dev)
+    log("phase 12: --config with simulate=true, BERT-base full width")
+    sim = simulate_phase(dev, pr)
+    log("phase 13: mfu_llama GatedDense through the block-sparse kernels")
+    gd = gated_phase(dev)
 
     # per-kernel line: the work of one full-depth 8B int4 decode step at
     # 4 slots (sum over that step's calls), every case beside it
@@ -749,6 +1191,30 @@ def main() -> int:
             "launches_retrain": rt["launches"][name],
             "launches_causal": ca["launches"][name],
             **({"cases": fl} if name == "flash_fwd" else {}),
+        })
+    path = next(c for c in bs if c["label"] == "fc1"
+                and c["dtype"] == "bfloat16")
+    for name in BS_KERNELS:
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "torchpruner_tpu_torch/csrc/blocksparse_matmul.cu",
+            "replaces": "torchpruner_tpu/ops/blocksparse.py:140",
+            "launches": mr["launches"][name],
+            "max_abs_err": max(c["errors"][name]["max_abs_err"] for c in bs),
+            "tolerance": "f32: 1e-5 x max|plain|; bf16: 2**-7 x max|plain| "
+                         "(plain in f32 on the same inputs)",
+            "ms": path["ms"][name],
+            "plain_ms": path["plain_ms"][name],
+            "bound_ms": path["bound"][name][0],
+            "bound_by": path["bound"][name][1],
+            "library_ms": path["library_ms"][name],
+            "all_kept_ms": path["all_kept_ms"][name],
+            "per": "one call at BERT-base fc1 in training (bf16, R 4096, "
+                   "D 768, F 3072, 12 of 24 output blocks kept); "
+                   "library_ms: torch.matmul on the dense masked weight",
+            "launches_gated": gd["launches"][name],
+            **({"cases": bs, "masked_retrain": mr, "simulate": sim,
+                "gated": gd} if name == "blocksparse_fwd" else {}),
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -130,3 +130,123 @@ def test_serve_int4_verify_on_card(dev):
     assert FM.dequant_matmul.launches > d0
     assert DA.decode_attention.launches > a0
     assert verify_against_solo(eng) == 0
+
+
+# -- block-sparse matmul ------------------------------------------------------
+
+
+def _bs_case(R, D, F, block, in_frac, out_frac, dtype, dev, seed=3):
+    """x, w (dropped blocks zeroed), g and the keep lists; every other
+    block dropped on an axis whose fraction is 0.5, none where it is 0."""
+    rng = np.random.default_rng(seed)
+    ik = tuple(i for i in range(D // block)
+               if not (in_frac and i % 2 == 1))
+    ok = tuple(j for j in range(F // block)
+               if not (out_frac and j % 2 == 0))
+    x = torch.from_numpy(rng.normal(size=(R, D)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(D, F)).astype(np.float32)) * 0.05
+    w = w * torch.from_numpy(np.kron(
+        np.isin(np.arange(D // block), ik)[:, None]
+        & np.isin(np.arange(F // block), ok)[None, :],
+        np.ones((block, block), bool)))
+    g = torch.from_numpy(rng.normal(size=(R, F)).astype(np.float32))
+    return (x.to(dev, dtype), w.to(dev, dtype), g.to(dev, dtype), ik, ok)
+
+
+def _bs_check(x, w, g, ik, ok, block):
+    from torchpruner_tpu_torch.ops import blocksparse as BS
+
+    dtype = x.dtype
+    n0 = (BS.blocksparse_fwd.launches, BS.blocksparse_dx.launches,
+          BS.blocksparse_dw.launches)
+    xk, wk = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = BS.blocksparse_matmul(xk, wk, in_keep=ik, out_keep=ok, block=block)
+    dx, dw = torch.autograd.grad(y, (xk, wk), g)
+    # the reference: autograd of the plain version in f32 on the same
+    # (for bf16: bf16-rounded) inputs
+    xp, wp = x.float().requires_grad_(), w.float().requires_grad_()
+    yp = BS.blocksparse_matmul_plain(xp, wp, in_keep=ik, out_keep=ok,
+                                     block=block)
+    dxp, dwp = torch.autograd.grad(yp, (xp, wp), g.float())
+    yp = yp.detach()
+    torch.cuda.synchronize()
+    assert (BS.blocksparse_fwd.launches, BS.blocksparse_dx.launches,
+            BS.blocksparse_dw.launches) == tuple(n + 1 for n in n0)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for got, want in ((y, yp), (dx, dxp), (dw, dwp)):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert bool(torch.isfinite(got).all())
+        tol = rel * float(want.abs().max())
+        assert float((got.float() - want).abs().max()) <= tol
+    D, F = w.shape
+    in_m = BS._unit_mask(D, ik, block, x.device)
+    out_m = BS._unit_mask(F, ok, block, x.device)
+    assert bool((y[:, ~out_m] == 0).all())
+    assert bool((dx[:, ~in_m] == 0).all())
+    assert bool((dw[~in_m] == 0).all()) and bool((dw[:, ~out_m] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D,F,block,in_frac,out_frac", [
+    (512, 256, 512, 128, 0, 0.5),     # fc1-like: output blocks dropped
+    (512, 512, 256, 128, 0.5, 0),     # fc2-like: input blocks dropped
+    (300, 256, 256, 128, 0.5, 0.5),   # both axes, ragged rows
+    (1, 128, 128, 128, 0, 0),         # one row, all kept
+    (131, 192, 320, 64, 0.5, 0.5),    # block 64, ragged rows
+    (77, 96, 160, 32, 0.5, 0.5),      # block 32, ragged rows
+    (64, 192, 96, 96, 0.5, 0),        # a block that is 3 x 32
+])
+def test_blocksparse_kernels_match_plain(dev, dtype, R, D, F, block,
+                                         in_frac, out_frac):
+    x, w, g, ik, ok = _bs_case(R, D, F, block, in_frac, out_frac, dtype, dev)
+    _bs_check(x, w, g, ik, ok, block)
+
+
+def test_blocksparse_unsorted_keep_lists_and_leading_axes(dev):
+    from torchpruner_tpu_torch.ops import blocksparse as BS
+
+    x, w, _, _, _ = _bs_case(48, 256, 256, 64, 0, 0, torch.float32, dev)
+    ik, ok = (3, 0), (2, 3, 1)
+    got = BS.blocksparse_matmul(x.reshape(4, 12, 256), w, in_keep=ik,
+                                out_keep=ok, block=64)
+    want = BS.blocksparse_matmul_plain(x, w, in_keep=ik, out_keep=ok,
+                                       block=64).reshape(4, 12, 256)
+    assert got.shape == (4, 12, 256)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_blocksparse_empty_keep_list_and_refusals(dev):
+    from torchpruner_tpu_torch.ops import blocksparse as BS
+
+    x, w, _, _, _ = _bs_case(8, 128, 128, 32, 0, 0, torch.float32, dev)
+    n0 = BS.blocksparse_fwd.launches
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = BS.blocksparse_matmul(xg, wg, in_keep=(), out_keep=(0, 1), block=32)
+    assert y.shape == (8, 128) and bool((y == 0).all())
+    gx, gw = torch.autograd.grad(y.sum(), (xg, wg))
+    assert bool((gx == 0).all()) and bool((gw == 0).all())
+    assert BS.blocksparse_fwd.launches == n0  # zeros without a launch
+    with pytest.raises(ValueError, match="must divide"):
+        BS.blocksparse_matmul(x, w, block=48)  # 48 does not divide 128
+    with pytest.raises(ValueError, match="multiples of 32"):
+        BS.blocksparse_matmul(x, w, block=16)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        BS.blocksparse_matmul(x.half(), w.half(), block=32)
+    with pytest.raises(ValueError, match="distinct block indices"):
+        BS.blocksparse_matmul(x, w, in_keep=(0, 9), block=32)
+
+
+def test_blocksparse_weight_through_a_dense_layer(dev):
+    from torchpruner_tpu_torch.core import layers as L
+    from torchpruner_tpu_torch.ops import blocksparse as BS
+
+    x, w, _, ik, ok = _bs_case(40, 128, 256, 64, 0, 0.5, torch.bfloat16, dev)
+    b = torch.zeros(256, dtype=torch.bfloat16, device=dev)
+    n0 = BS.blocksparse_fwd.launches
+    bsw = BS.BlockSparseWeight(w, None, ok, 64)
+    got, _ = L.apply_layer(L.Dense("fc", 256), {"w": bsw, "b": b}, {}, x)
+    want, _ = L.apply_layer(L.Dense("fc", 256), {"w": bsw.dense(), "b": b},
+                            {}, x)
+    assert BS.blocksparse_fwd.launches == n0 + 1
+    tol = 2 ** -7 * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol

@@ -269,7 +269,7 @@ def test_preset_table_matches_jax():
                               device="cpu")
     smoke = PPS.get_preset("bert_glue_sensitivity", True)
     for field, value in (("remat", True), ("accum_steps", 2),
-                         ("simulate", True), ("run_dir", "x")):
+                         ("run_dir", "x")):
         with pytest.raises(NotImplementedError, match=field):
             PPR.run_prune_retrain(dataclasses.replace(smoke, **{field: value}),
                                   device="cpu")

@@ -1,6 +1,6 @@
 """Attribution metric base — counterpart of
 ``torchpruner_tpu/attributions/base.py`` (without the one-pass
-``ActivationCache``, ROADMAP A3: ``capture_cache`` stays ``None``).
+``ActivationCache``, ROADMAP A2: ``capture_cache`` stays ``None``).
 
 Every metric reduces to a row function ``(params, state, x, y) ->
 (batch, n_units)`` of per-example scores.  The base class iterates the

@@ -3,9 +3,11 @@
 The JAX package's params are nested dicts of arrays with ``QTensor``
 leaves.  A caller holding both packages turns every array into numpy
 (``np.asarray``) and every ``QTensor`` into a plain dict
-``{"q", "scale", "in_axes", "bits", "pack_axis"}``; :func:`params_from_numpy`
-builds the port's tree from that, with the same names and layouts, so
-the port never sees a JAX array.
+``{"q", "scale", "in_axes", "bits", "pack_axis"}`` and every
+``BlockSparseWeight`` into ``{"w", "in_keep", "out_keep", "block"}``;
+:func:`params_from_numpy` builds the port's tree from that, with the
+same names and layouts, so the port never sees a JAX array.  Mask trees
+(``core.masking.drop_masks``) are plain arrays and convert as params do.
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ from typing import Any
 import numpy as np
 import torch
 
+from torchpruner_tpu_torch.ops.blocksparse import BlockSparseWeight
 from torchpruner_tpu_torch.ops.quant import QTensor
 from torchpruner_tpu_torch.utils.device import resolve_device
 
 _QKEYS = {"q", "scale", "in_axes"}
+_BSKEYS = {"w", "in_keep", "out_keep"}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -66,6 +70,12 @@ def _convert(tree, dev):
                            tuple(int(a) for a in tree["in_axes"]),
                            int(tree.get("bits", 8)),
                            int(tree.get("pack_axis", 0)))
+        if _BSKEYS <= set(tree):
+            in_keep, out_keep = (
+                None if tree[k] is None else tuple(int(i) for i in tree[k])
+                for k in ("in_keep", "out_keep"))
+            return BlockSparseWeight(_tensor(tree["w"], dev), in_keep,
+                                     out_keep, int(tree.get("block", 128)))
         return {k: _convert(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_convert(v, dev) for v in tree)

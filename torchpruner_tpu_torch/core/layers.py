@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torchpruner_tpu_torch.ops.blocksparse import BlockSparseWeight
 from torchpruner_tpu_torch.ops.fixed_order import per_rows
 from torchpruner_tpu_torch.ops.quant import QTensor, oscale, qdot, wval
 from torchpruner_tpu_torch.utils.device import resolve_device
@@ -489,9 +490,9 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _dot(x: torch.Tensor, w, fixed_order: bool) -> torch.Tensor:
     """``x ·₀ w`` (x's trailing axis against w's leading one): through
     :func:`~torchpruner_tpu_torch.ops.quant.qdot` on the fixed-order path
-    or for a quantized weight, else one plain product on the whole
-    tensor (operand dtypes promote as in ``jnp.matmul``)."""
-    if fixed_order or isinstance(w, QTensor):
+    or for a quantized or block-sparse weight, else one plain product on
+    the whole tensor (operand dtypes promote as in ``jnp.matmul``)."""
+    if fixed_order or isinstance(w, (QTensor, BlockSparseWeight)):
         return qdot(x, w)
     dt = torch.promote_types(x.dtype, w.dtype)
     y = x.to(dt) @ w.to(dt).reshape(w.shape[0], -1)

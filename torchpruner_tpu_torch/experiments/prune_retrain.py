@@ -1,8 +1,9 @@
 """The prune → fine-tune driver — counterpart of
 ``torchpruner_tpu/experiments/prune_retrain.py`` (without the obs spans,
-the resumable journal, the mesh and ``simulate``): for each prunable
-layer, outermost first: score → turn scores into indices (policy) →
-prune → evaluate (→ optionally fine-tune).
+the resumable journal and the mesh): for each prunable layer, outermost
+first: score → turn scores into indices (policy) → prune (or, with
+``cfg.simulate``, mask the same slices at fixed shapes) → evaluate (→
+optionally fine-tune).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from torchpruner_tpu_torch.attributions import (
 )
 from torchpruner_tpu_torch.core import layers as L
 from torchpruner_tpu_torch.core.graph import pruning_graph
+from torchpruner_tpu_torch.core.masking import apply_masks, drop_masks
 from torchpruner_tpu_torch.core.pruner import prune, score_drop_indices
 from torchpruner_tpu_torch.data import load_dataset
 from torchpruner_tpu_torch.experiments.presets import MODEL_REGISTRY
@@ -61,7 +63,7 @@ def build_metric(name: str, model, params, data, loss_fn, *, state=None,
         reduction = mean_plus_2std
     if name not in METRIC_REGISTRY:
         raise NotImplementedError(
-            f"attribution method {name!r} is not ported yet (ROADMAP A3)")
+            f"attribution method {name!r} is not ported yet (ROADMAP A2)")
     return METRIC_REGISTRY[name](model, params, data, loss_fn, state=state,
                                  reduction=reduction, seed=seed, **kwargs)
 
@@ -72,7 +74,7 @@ def resolve_model_and_data(cfg: ExperimentConfig, model=None, datasets=None):
     if model is None:
         if cfg.model not in MODEL_REGISTRY:
             raise NotImplementedError(
-                f"model {cfg.model!r} is not ported yet (ROADMAP A2); the "
+                f"model {cfg.model!r} is not ported yet (ROADMAP A1); the "
                 f"port has {sorted(MODEL_REGISTRY)}")
         model_fn, default_ds = MODEL_REGISTRY[cfg.model]
         model = model_fn()
@@ -205,13 +207,25 @@ def run_prune_retrain(cfg: ExperimentConfig, *, model=None, datasets=None,
             drop_idx = score_drop_indices(scores, policy=policy,
                                           fraction=fraction,
                                           bucket=cfg.bucket)
-            res = prune(trainer.model, trainer.params, target, drop_idx,
-                        state=trainer.state, opt_state=trainer.opt_state)
-            prune_time = time.perf_counter() - t0
-            n_dropped = L.n_units(trainer.model.layer(target)) \
-                - L.n_units(res.model.layer(target))
-            trainer = trainer.rebuild(res.model, res.params, res.state,
-                                      res.opt_state)
+            if cfg.simulate:
+                # mask the same slices a real prune would remove: shapes
+                # never change across the sweep
+                pm, sm = drop_masks(trainer.model, trainer.params,
+                                    {target: drop_idx}, state=trainer.state)
+                trainer.params = apply_masks(trainer.params, pm)
+                if trainer.state:
+                    trainer.state = apply_masks(trainer.state, sm)
+                prune_time = time.perf_counter() - t0
+                n_dropped = len(drop_idx)
+            else:
+                res = prune(trainer.model, trainer.params, target, drop_idx,
+                            state=trainer.state,
+                            opt_state=trainer.opt_state)
+                prune_time = time.perf_counter() - t0
+                n_dropped = L.n_units(trainer.model.layer(target)) \
+                    - L.n_units(res.model.layer(target))
+                trainer = trainer.rebuild(res.model, res.params, res.state,
+                                          res.opt_state)
             for epoch_i in range(cfg.finetune_epochs):
                 train_epoch(trainer,
                             train.batches(cfg.batch_size, shuffle=True,

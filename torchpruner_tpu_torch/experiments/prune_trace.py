@@ -18,16 +18,28 @@ Builds the preset's model and data at full width (BERT-base, the
   kernels, matrix products, everything else), the kernel count, and the
   device's idle share ``1 - kernel time / wall``.
 
+With ``--masked`` it measures the masked retrain step instead: half the
+128-blocks of every ``block{i}_mlp/fc1`` dropped by seeded random block
+scores, the params masked, ``masked_update`` chained after Adam, bf16 at
+B 32, with the block-sparse kernels
+(``param_transform=blocksparse_transform``) and masked dense (no
+transform): the median wall of ``--masked`` steps, each ended by a
+synchronize, in turns (masked dense, block-sparse, block-sparse, masked
+dense) so that drift shows, and the same profile over ``--steps`` steps
+of each, the three block-sparse kernels in groups of their own.
+
 Prints one JSON line.  Runs on ``cuda``; there is no CPU mode.
 
 Run: ``python -m torchpruner_tpu_torch.experiments.prune_trace
-[--target block6_mlp/fc1] [--steps 3]``.
+[--target block6_mlp/fc1] [--steps 3] [--masked 30]``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
+import statistics
 import sys
 import time
 
@@ -39,9 +51,16 @@ GROUPS = {"flash_fwd": ("fwd_kernel", "fwd_tc"),
           "flash_dq": ("dq_kernel", "dq_tc"),
           "flash_dkv": ("dkv_kernel", "dkv_tc"),
           "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet")}
+#: csrc/blocksparse_matmul.cu: ``bs_kernel<T, MODE, ...>``, MODE 0
+#: forward, 1 dx, 2 dW
+_BS_MODE = re.compile(r"bs_kernel<[^,]*, *(?:\([^)]*\))?(\d)")
+_BS_NAMES = ("blocksparse_fwd", "blocksparse_dx", "blocksparse_dw")
 
 
 def _group(name: str) -> str:
+    m = _BS_MODE.search(name)
+    if m:
+        return _BS_NAMES[int(m.group(1))]
     for group, frags in GROUPS.items():
         if any(f in name for f in frags):
             return group
@@ -147,6 +166,65 @@ def run(target: str = "block6_mlp/fc1", steps: int = 3) -> dict:
             "card": torch.cuda.get_device_name(0)}
 
 
+def run_masked(n_steps: int = 30, steps: int = 3) -> dict:
+    import numpy as np
+    import torch
+
+    from torchpruner_tpu_torch.core import masking, segment
+    from torchpruner_tpu_torch.core.pruner import score_drop_indices
+    from torchpruner_tpu_torch.data import load_dataset
+    from torchpruner_tpu_torch.models import bert_base
+    from torchpruner_tpu_torch.train import optim
+    from torchpruner_tpu_torch.train.loop import Trainer
+    from torchpruner_tpu_torch.utils.device import (
+        resolve_device,
+        strict_fp32_matmul,
+    )
+    from torchpruner_tpu_torch.utils.losses import cross_entropy_loss
+
+    dev = resolve_device(None)
+    strict_fp32_matmul()
+    model = bert_base()
+    params, state = segment.init_model(model, 0, device=dev)
+    rng = np.random.default_rng(0)
+    drops = {f"block{i}_mlp/fc1": score_drop_indices(
+        rng.normal(size=3072), policy="fraction", fraction=0.5,
+        granularity=128) for i in range(1, 13)}
+    masks, _ = masking.drop_masks(model, params, drops, state=state)
+    start = masking.apply_masks(params, masks)
+    tx = optim.chain(optim.adam(1e-4), masking.masked_update(masks))
+    batches = load_dataset("glue_sst2", "train", n=32 * n_steps,
+                           seed=0).batches(32)[:n_steps]
+    trainers = {name: Trainer.create(
+        model, tx, cross_entropy_loss, seed=0, params=start, state=state,
+        compute_dtype=torch.bfloat16, device=dev, param_transform=tf)
+        for name, tf in (
+            ("masked_dense", None),
+            ("blocksparse", masking.blocksparse_transform(model, drops)))}
+
+    def median_step_ms(t: Trainer) -> float:
+        walls = []
+        for x, y in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.step(x, y)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls[1:] or walls)
+
+    for t in trainers.values():  # kernel build and first-call costs
+        t.step(*batches[0])
+    turns = [{"path": name, "step_ms_median": median_step_ms(trainers[name])}
+             for name in ("masked_dense", "blocksparse", "blocksparse",
+                          "masked_dense")]
+    x0, y0 = batches[0]
+    prof = {name: _profile(lambda t=t: t.step(x0, y0), steps)
+            for name, t in trainers.items()}
+    return {"model": "bert_base", "batch": 32, "seq": 128,
+            "dtype": "bfloat16", "steps": turns, "profile": prof,
+            "card": torch.cuda.get_device_name(0)}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="torchpruner_tpu_torch.experiments.prune_trace",
@@ -154,8 +232,13 @@ def main(argv=None) -> int:
                     "bert_glue_sensitivity preset at full width on the GPU")
     p.add_argument("--target", default="block6_mlp/fc1")
     p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--masked", type=int, default=0, metavar="N",
+                   help="time N masked retrain steps, block-sparse against "
+                        "masked dense, instead of the prune round")
     a = p.parse_args(argv)
-    print(json.dumps(run(a.target, a.steps)), flush=True)
+    out = run_masked(a.masked, a.steps) if a.masked \
+        else run(a.target, a.steps)
+    print(json.dumps(out), flush=True)
     return 0
 
 

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
+"""Build and load the port's CUDA kernels (the four sources of
+``csrc/``, listed in :data:`KERNELS`) at first use.
 
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with ``ctypes`` — seconds per file, against
@@ -25,8 +26,11 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 
-#: every kernel source of the port, by library name
-KERNELS = ("dequant_matmul", "decode_attention", "flash_attention")
+#: every kernel source of the port, by library name: four sources holding
+#: nine kernels (dequant matmul; decode attention; flash forward, dQ and
+#: dK/dV; block-sparse forward, dx and dW)
+KERNELS = ("dequant_matmul", "decode_attention", "flash_attention",
+           "blocksparse_matmul")
 
 #: Hopper with its architecture-specific features (wgmma, setmaxnreg)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -21,6 +21,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
+from torchpruner_tpu_torch.ops.blocksparse import BlockSparseWeight
 from torchpruner_tpu_torch.ops.fixed_order import matmul_rows
 from torchpruner_tpu_torch.ops.int4_matmul import pack_int4, unpack_int4
 
@@ -127,10 +128,14 @@ def qdot(x: torch.Tensor, w) -> torch.Tensor:
     attention weights).  Quantized weights with ``in_axes == (0,)`` and
     bf16 activations go to the dequant kernel when the payload layout
     allows (int4 packed along axis 0; int8 when
-    ``fused_matmul.int8_kernel_active``).  The caller applies
+    ``fused_matmul.int8_kernel_active``).  A
+    :class:`~torchpruner_tpu_torch.ops.blocksparse.BlockSparseWeight`
+    goes to its block-sparse product.  The caller applies
     :func:`oscale`."""
     from torchpruner_tpu_torch.ops import fused_matmul as FM
 
+    if isinstance(w, BlockSparseWeight):
+        return w.matmul(x)
     if (isinstance(w, QTensor) and w.in_axes == (0,)
             and x.dtype == torch.bfloat16
             and (w.bits == 4 and w.pack_axis == 0

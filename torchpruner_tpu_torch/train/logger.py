@@ -2,7 +2,7 @@
 ``torchpruner_tpu/train/logger.py``: one CSV row per prune step with
 pre/post-prune metrics, parameter count, FLOPs, layer widths and prune
 time, mirrored to JSONL.  The ``span_id`` column stays in the schema and
-is written empty (the port has no telemetry spans yet, ROADMAP A6).
+is written empty (the port has no telemetry spans yet, ROADMAP A5).
 """
 
 from __future__ import annotations

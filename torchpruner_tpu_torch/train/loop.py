@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -37,19 +37,30 @@ def to_device(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def make_loss_closure(model: SegmentedModel, loss_fn, compute_dtype=None):
+def make_loss_closure(model: SegmentedModel, loss_fn, compute_dtype=None,
+                      param_transform: Optional[Callable] = None):
     """``(params, state, x, y, rng) -> (mean loss, new_state)`` — the
     training forward policy of the JAX package's ``make_loss_closure``:
     with ``compute_dtype`` (``torch.bfloat16``) the forward and backward
     run on params and float inputs cast to it, while master params,
     optimizer state, loss and update math stay f32 (logits are promoted
     back to f32 before the loss; gradients arrive in f32 through the
-    cast)."""
+    cast).
+
+    ``param_transform`` rewrites the params inside the step, after the
+    compute-dtype cast — the kernel-dispatch hook: e.g.
+    ``masking.blocksparse_transform`` wraps masked Dense weights in
+    :class:`~torchpruner_tpu_torch.ops.blocksparse.BlockSparseWeight` so
+    the forward and backward products skip dropped blocks.  Gradients
+    flow to the PLAIN param leaves; the optimizer never sees a
+    wrapper."""
 
     def loss(params, state, x, y, rng):
         if compute_dtype is not None:
             params = cast_floats(params, compute_dtype)
             x = cast_floats(x, compute_dtype)
+        if param_transform is not None:
+            params = param_transform(params)
         out, new_state = model.apply(params, x, state=state, train=True,
                                      rng=rng)
         if compute_dtype is not None:
@@ -109,15 +120,18 @@ class Trainer:
     #: None = full f32; torch.bfloat16 = mixed precision
     compute_dtype: Any = None
     step_count: int = 0
+    #: rewrites the cast params inside the step (``make_loss_closure``)
+    param_transform: Optional[Callable] = None
 
     @classmethod
     def create(cls, model, tx, loss_fn, seed: int = 0, params=None,
-               state=None, compute_dtype=None, device=None):
+               state=None, compute_dtype=None, device=None,
+               param_transform=None):
         """A trainer on ``device`` (``None`` = ``cuda``; raises without a
         GPU unless ``device="cpu"``), initialized from ``seed`` unless
         ``params`` are given.  The JAX trainer's remat, gradient
-        accumulation and MoE aux loss are not ported yet (ROADMAP A2,
-        A4); configs asking for them raise in the driver."""
+        accumulation and MoE aux loss are not ported yet (ROADMAP A1,
+        A3); configs asking for them raise in ``run_prune_retrain``."""
         dev = resolve_device(device)
         if params is None:
             params, state = segment.init_model(model, seed, device=dev)
@@ -125,7 +139,8 @@ class Trainer:
         return cls(model=model, params=params,
                    state=state if state is not None else {}, tx=tx,
                    opt_state=tx.init(params), loss_fn=loss_fn, rng=gen,
-                   compute_dtype=compute_dtype)
+                   compute_dtype=compute_dtype,
+                   param_transform=param_transform)
 
     def step(self, x, y) -> torch.Tensor:
         """One optimizer step on the batch ``(x, y)`` (host arrays or
@@ -133,7 +148,8 @@ class Trainer:
         dev = device_of(self.params)
         x, y = to_device(x, dev), to_device(y, dev)
         loss_c = make_loss_closure(self.model, self.loss_fn,
-                                   self.compute_dtype)
+                                   self.compute_dtype,
+                                   self.param_transform)
         leaves = [t.detach().requires_grad_() for t in
                   tree_leaves(self.params)]
         it = iter(leaves)
@@ -157,7 +173,8 @@ class Trainer:
                        tx=self.tx, opt_state=opt_state,
                        loss_fn=self.loss_fn, rng=self.rng,
                        compute_dtype=self.compute_dtype,
-                       step_count=self.step_count)
+                       step_count=self.step_count,
+                       param_transform=self.param_transform)
 
     def evaluate(self, data):
         return evaluate(self.model, self.params, self.state, data,

@@ -246,15 +246,15 @@ class ExperimentConfig:
                if getattr(self, name) != default]
         if self.accum_steps > 1:
             out.append((f"accum_steps={self.accum_steps}",
-                        "ROADMAP A4 (gradient accumulation)"))
+                        "ROADMAP A3 (gradient accumulation)"))
         if self.method == "shapley":
-            out.append(("method='shapley'", "ROADMAP A3 (Shapley)"))
+            out.append(("method='shapley'", "ROADMAP A2 (Shapley)"))
         elif self.method not in ("apoz", "sensitivity", "taylor"):
             out.append((f"method={self.method!r}",
-                        "ROADMAP A3 (weight-only attributions)"))
+                        "ROADMAP A2 (weight-only attributions)"))
         if self.experiment != "prune_retrain":
             out.append((f"experiment={self.experiment!r}",
-                        "ROADMAP A4 (robustness and train drivers)"))
+                        "ROADMAP A3 (robustness and train experiments)"))
         return out
 
     def to_json(self, path: str):
@@ -277,15 +277,14 @@ class ExperimentConfig:
 
 #: (field, default, ROADMAP item) of the settings the port does not run
 _UNPORTED = (
-    ("mesh", {}, "ROADMAP A8 (parallelism)"),
-    ("zero", False, "ROADMAP A8 (parallelism)"),
-    ("simulate", False, "ROADMAP A1 (core/masking.py and simulate)"),
-    ("run_dir", "", "ROADMAP A9 (resilience)"),
-    ("chaos", {}, "ROADMAP A9 (resilience)"),
-    ("guard_nonfinite", False, "ROADMAP A9 (resilience)"),
-    ("checkpoint_path", "", "ROADMAP A9 (resilience)"),
-    ("remat", False, "ROADMAP A4 (remat)"),
-    ("moe_aux_weight", 0.0, "ROADMAP A2 (MoE)"),
-    ("augment", False, "ROADMAP A4 (image augmentation)"),
-    ("obs_grad_norm", False, "ROADMAP A6 (observability)"),
+    ("mesh", {}, "ROADMAP A7 (parallelism)"),
+    ("zero", False, "ROADMAP A7 (parallelism)"),
+    ("run_dir", "", "ROADMAP A8 (resilience)"),
+    ("chaos", {}, "ROADMAP A8 (resilience)"),
+    ("guard_nonfinite", False, "ROADMAP A8 (resilience)"),
+    ("checkpoint_path", "", "ROADMAP A8 (resilience)"),
+    ("remat", False, "ROADMAP A3 (remat)"),
+    ("moe_aux_weight", 0.0, "ROADMAP A1 (MoE)"),
+    ("augment", False, "ROADMAP A3 (image augmentation)"),
+    ("obs_grad_norm", False, "ROADMAP A5 (observability)"),
 )
