@@ -9,9 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 1. Environment: the card's name and power limit (``nvidia-smi``); build
    the four CUDA sources of ``torchpruner_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together) and print the build time.
-2. Kernel vs plain: the dequant matmul (int4 and int8, M in {1, 4, 64}
-   and the prefill buckets {16, 48, 104} of phase 3's prompts, at the
-   Llama-3-8B projection shapes) and decode attention (B=4, T=512,
+2. Kernel vs plain: the dequant matmul (int4 and int8, M in {1, 4, 64,
+   128, 300} and the prefill buckets {16, 48, 104} of phase 3's prompts,
+   at the Llama-3-8B projection shapes; every row of every call equal bit
+   for bit to the same row computed alone) and decode attention (B=4, T=512,
    H=32, Dh=128, f32 and bf16 cache, ragged positions incl. 0 and T-1,
    stale rows poisoned) against their plain PyTorch versions; CUDA-event
    times of kernel, plain version, one PyTorch library call, and the
@@ -92,9 +93,10 @@ FP32_FLOPS = 67e12
 DQ_SHAPES = {(4096, 4096): 32, (4096, 1024): 64, (4096, 14336): 64,
              (14336, 4096): 32, (4096, 128256): 1}
 DEPTH = 32
-#: rows of a dequant call: decode at 1 and 4 slots, a 64-row case,
-#: and the prefill buckets of phase 3's prompts (16, 40, 100 tokens)
-DQ_ROWS = (1, 4, 16, 48, 64, 104)
+#: rows of a dequant call: decode at 1 and 4 slots, a 64-row case, the
+#: prefill buckets of phase 3's prompts (16, 40, 100 tokens), one full
+#: row tile of the kernel (128) and three (300)
+DQ_ROWS = (1, 4, 16, 48, 64, 104, 128, 300)
 PREFILL_BUCKETS = (16, 48, 104)
 
 
@@ -170,9 +172,15 @@ def dequant_cases(dev):
             qs = [q] + [q.clone() for _ in range(n - 1)]
             n_lib = copies_for(w_lib.numel() * 2)
             libs = [w_lib] + [w_lib.clone() for _ in range(n_lib - 1)]
+            # every row alone (M = 1), held bit for bit against the same
+            # row in each batched call below
+            x_all = torch.randn((max(DQ_ROWS), D), generator=gen,
+                                device=dev, dtype=torch.bfloat16)
+            solo = torch.cat([FM.dequant_matmul(x_all[m:m + 1], q, scale,
+                                                bits=bits)
+                              for m in range(x_all.shape[0])])
             for M in DQ_ROWS:
-                x = torch.randn((M, D), generator=gen, device=dev,
-                                dtype=torch.bfloat16)
+                x = x_all[:M]
                 got = FM.dequant_matmul(x, q, scale, bits=bits)
                 want = FM.dequant_matmul_plain(x, q, scale, bits=bits)
                 torch.cuda.synchronize()
@@ -181,6 +189,10 @@ def dequant_cases(dev):
                 if not (err <= tol and bool(torch.isfinite(got).all())):
                     fail(f"dequant bits={bits} M={M} D={D} F={F}: max "
                          f"abs err {err} > tol {tol}")
+                if not torch.equal(got, solo[:M]):
+                    bad = int((got != solo[:M]).any(dim=1).sum())
+                    fail(f"dequant bits={bits} M={M} D={D} F={F}: {bad} "
+                         f"rows differ from the same row computed alone")
                 ms = event_ms(lambda i: FM.dequant_matmul(
                     x, qs[i % n], scale, bits=bits), 20)
                 plain = event_ms(lambda i: FM.dequant_matmul_plain(
@@ -190,14 +202,15 @@ def dequant_cases(dev):
                 nbytes = x.numel() * 2 + q.numel() + F * 4 + M * F * 4
                 b, by = bound_ms(nbytes, 2.0 * M * D * F, BF16_FLOPS)
                 cases.append({"bits": bits, "M": M, "D": D, "F": F,
-                              "max_abs_err": err, "tol": tol, "ms": ms,
+                              "max_abs_err": err, "tol": tol,
+                              "rows_equal_solo": True, "ms": ms,
                               "plain_ms": plain, "library_ms": lib,
                               "bound_ms": b, "bound_by": by})
                 log(f"  dequant int{bits} M={M:<3d} D={D:<6d} F={F:<7d} "
                     f"kernel {ms:.4f} ms  plain {plain:.3f} ms  "
                     f"library {lib:.4f} ms  bound {b:.4f} ms ({by})  "
                     f"err {err:.3g} (tol {tol:.3g})")
-            del qs, libs, w_lib, qt
+            del qs, libs, w_lib, qt, solo, x_all
         del w
     torch.cuda.empty_cache()
     return cases
@@ -1057,15 +1070,19 @@ def per_step(cases, key, weight):
 
 def prefill_sums(dq) -> dict:
     """The dequant kernel's time, bound and library time per full-depth
-    int4 prefill at each bucket of phase 3 (sum over that forward's
-    calls; the lm_head runs on every bucket row)."""
+    Llama-3-8B prefill at each bucket of phase 3, int4 and int8 (sum over
+    that forward's calls; the lm_head runs on every bucket row), and per
+    decode step at 4 slots."""
+    w = lambda c: DQ_SHAPES[(c["D"], c["F"])]  # noqa: E731
     out = {}
-    for key in ("ms", "bound_ms", "library_ms", "plain_ms"):
-        out[f"prefill_{key}_by_bucket"] = {
-            str(M): per_step([c for c in dq if c["bits"] == 4
-                              and c["M"] == M], key,
-                             lambda c: DQ_SHAPES[(c["D"], c["F"])])
-            for M in PREFILL_BUCKETS}
+    for bits in (4, 8):
+        for key in ("ms", "bound_ms", "library_ms", "plain_ms"):
+            out[f"prefill_int{bits}_{key}_by_bucket"] = {
+                str(M): per_step([c for c in dq if c["bits"] == bits
+                                  and c["M"] == M], key, w)
+                for M in PREFILL_BUCKETS}
+            out[f"decode_step_int{bits}_{key}"] = per_step(
+                [c for c in dq if c["bits"] == bits and c["M"] == 4], key, w)
     return out
 
 

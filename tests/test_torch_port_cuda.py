@@ -44,9 +44,19 @@ def _dq_case(M, D, F, bits, seed=0):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-@pytest.mark.parametrize("M,D,F", [(1, 256, 384), (5, 4096, 1024),
-                                   (64, 512, 200), (9, 14336, 256)])
+@pytest.mark.parametrize("M,D,F", [
+    (1, 256, 384), (5, 4096, 1024), (64, 512, 200), (9, 14336, 256),
+    # llama_tiny's D 32 / F 16, one and two row tiles
+    (1, 32, 16), (5, 32, 16), (130, 32, 16),
+    # ragged F and K: 1-byte weight loads (F odd), 4-byte x loads (D 30,
+    # 34), a contracted length that is no multiple of the 64-row stage
+    (3, 30, 7), (17, 34, 33), (300, 96, 200),
+])
 def test_dequant_kernel_matches_plain(dev, bits, M, D, F):
+    """Every shape launches, with and without a scale, and agrees with
+    the plain version to 1e-5 of the output scale (tensor-core sums over
+    each k16 in the hardware's order, f32 sums in another order than the
+    plain version's)."""
     x, q, scale = _dq_case(M, D, F, bits)
     x, q, scale = x.to(dev), q.to(dev), scale.to(dev)
     n0 = FM.dequant_matmul.launches
@@ -60,14 +70,38 @@ def test_dequant_kernel_matches_plain(dev, bits, M, D, F):
     assert FM.dequant_matmul.launches == n0 + 2
 
 
+#: rows of x in the batch-invariance cases (decode slots, ragged groups
+#: of 8, the prefill buckets, one and three row tiles)
+DQ_BATCH_ROWS = (1, 2, 4, 7, 8, 9, 16, 17, 48, 100, 104, 128, 129, 300)
+_solo_rows = {}
+
+
+def _dq_solo(dev, bits, D, F):
+    """300 rows of x, the weight, and each row's product computed alone
+    (M = 1), made once per (bits, D, F)."""
+    key = (bits, D, F)
+    if key not in _solo_rows:
+        x, q, _ = _dq_case(max(DQ_BATCH_ROWS), D, F, bits, seed=1)
+        x, q = x.to(dev), q.to(dev)
+        solo = torch.cat([FM.dequant_matmul(x[m:m + 1], q, bits=bits)
+                          for m in range(x.shape[0])])
+        ref = FM.dequant_matmul(x[:104], q, bits=bits)
+        _solo_rows[key] = (x, q, solo, ref)
+    return _solo_rows[key]
+
+
 @pytest.mark.parametrize("bits", [4, 8])
-def test_dequant_kernel_rows_batch_invariant(dev, bits):
-    x, q, _ = _dq_case(6, 4096, 1024, bits, seed=1)
-    x, q = x.to(dev), q.to(dev)
-    full = FM.dequant_matmul(x, q, bits=bits)
-    for m in range(6):
-        solo = FM.dequant_matmul(x[m:m + 1], q, bits=bits)
-        assert torch.equal(solo[0], full[m])
+@pytest.mark.parametrize("D,F", [(4096, 1024), (4096, 14336), (32, 16)])
+@pytest.mark.parametrize("M", DQ_BATCH_ROWS)
+def test_dequant_kernel_rows_batch_invariant(dev, bits, D, F, M):
+    """Bit for bit: each row of an M-row call equals the row computed
+    alone, and the first rows equal those of the 104-row call (so a row
+    at M = 100 equals the same row at M = 104)."""
+    x, q, solo, ref = _dq_solo(dev, bits, D, F)
+    full = FM.dequant_matmul(x[:M], q, bits=bits)
+    assert torch.equal(full, solo[:M])
+    n = min(M, 104)
+    assert torch.equal(full[:n], ref[:n])
 
 
 def _decode_case(B, T, H, Dh, dtype, dev, seed=2):

@@ -37,7 +37,7 @@ def _device_us(evt) -> float:
 
 
 #: kernel-name fragments of the port's hand-written kernels (csrc/*.cu)
-PORT_KERNELS = {"dequant_matmul": ("dq_partial", "dq_reduce"),
+PORT_KERNELS = {"dequant_matmul": ("dq_mma",),
                 "decode_attention": ("decode_attn",)}
 
 
