@@ -28,9 +28,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    plain version at the prune loop's shapes: f32 B 128 S 128 H 12 Dh 64
    (scoring), bf16 B 32 (retraining), bf16 causal B 8 S 1024 H 8 Dh 128
    (mfu_llama training) and a causal f32 case whose S is not a multiple
-   of the 64-row tile; CUDA-event times of each kernel, the plain
-   version and ``scaled_dot_product_attention`` (timed only), and the
-   bound.
+   of the 64-row tile; for the bf16 wgmma kernels also a ragged causal S
+   333, Dh 72, q/k/v as views of one fused (B, S, 3, H, Dh) tensor (TMA),
+   rows only 2-byte aligned (the copy route) and S 1; dK/dV run twice
+   must be bit-equal; CUDA-event times of each kernel, the plain version
+   and ``scaled_dot_product_attention`` (timed only), and the bound.
 7. The paper's loop at full width:
    ``python -m torchpruner_tpu_torch --preset bert_glue_sensitivity``
    (BERT-base, Sensitivity on all 12 ``_mlp/fc1`` targets, f32
@@ -375,14 +377,22 @@ def cli_phase() -> dict:
 
 # -- phase 6 ----------------------------------------------------------------
 
-#: (label, B, S, H, Dh, dtype, causal): the attention shapes of the prune
-#: loop — BERT-base scoring (f32) and retraining (bf16), mfu_llama
-#: causal training, and a causal S that is not a multiple of the tile
+#: (label, B, S, H, Dh, dtype, causal[, layout]): the attention shapes of
+#: the prune loop — BERT-base scoring (f32) and retraining (bf16),
+#: mfu_llama causal training, a causal S that is not a multiple of the
+#: tile — and the bf16 kernels where they break: a ragged causal S, a Dh
+#: that is not a multiple of 16, q/k/v as views of one fused (B, S, 3, H,
+#: Dh) tensor (TMA route), rows only 2-byte aligned (the copy route), S 1
 FLASH_CASES = (
     ("scoring", 128, 128, 12, 64, "float32", False),
     ("retrain", 32, 128, 12, 64, "bfloat16", False),
     ("causal_train", 8, 1024, 8, 128, "bfloat16", True),
     ("ragged_causal", 4, 333, 12, 64, "float32", True),
+    ("ragged_causal_bf16", 4, 333, 12, 64, "bfloat16", True),
+    ("dh72_bf16", 4, 256, 8, 72, "bfloat16", True),
+    ("fused_qkv_bf16", 8, 512, 12, 64, "bfloat16", True, "fused"),
+    ("copy_route_bf16", 2, 256, 8, 64, "bfloat16", True, "offset"),
+    ("s1_bf16", 8, 1, 8, 128, "bfloat16", False),
 )
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 BS_KERNELS = ("blocksparse_fwd", "blocksparse_dx", "blocksparse_dw")
@@ -410,7 +420,29 @@ def reset_launches():
     per_rows.calls = 0
 
 
-def flash_case(dev, label, B, S, H, Dh, dtn, causal) -> dict:
+def flash_layout(q, k, v, layout):
+    """q, k, v in ``layout``: ``"bshd"`` as they are, ``"fused"`` views of
+    one (B, S, 3, H, Dh) tensor, ``"offset"`` views whose rows start 2
+    bytes past a 16-byte boundary (the bf16 kernels' copy route)."""
+    import torch
+
+    if layout == "fused":
+        qkv = torch.stack((q, k, v), dim=2)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if layout == "offset":
+        out = []
+        for t in (q, k, v):
+            B, S, H, Dh = t.shape
+            row = H * Dh + 1
+            buf = torch.zeros(B * S * row + 1, dtype=t.dtype, device=t.device)
+            view = buf[1:].as_strided((B, S, H, Dh), (S * row, row, Dh, 1))
+            view.copy_(t)
+            out.append(view)
+        return tuple(out)
+    return q, k, v
+
+
+def flash_case(dev, label, B, S, H, Dh, dtn, causal, layout="bshd") -> dict:
     import torch
     import torch.nn.functional as Fn
 
@@ -421,6 +453,7 @@ def flash_case(dev, label, B, S, H, Dh, dtn, causal) -> dict:
     gen = torch.Generator(device=dev).manual_seed(S + Dh)
     q, k, v, g = (torch.randn((B, S, H, Dh), generator=gen,
                               device=dev).to(dtype) for _ in range(4))
+    q, k, v = flash_layout(q, k, v, layout)
     # the reference: autograd of the plain version, in f32, on the same
     # (for bf16: bf16-rounded) inputs
     ref = [t.float().requires_grad_() for t in (q, k, v)]
@@ -431,23 +464,32 @@ def flash_case(dev, label, B, S, H, Dh, dtn, causal) -> dict:
     o, lse = FA.flash_fwd(q, k, v, causal=causal, with_lse=True)
     dq, delta = FA.flash_dq(q, k, v, o, g, lse, causal=causal)
     dk, dv = FA.flash_dkv(q, k, v, g, lse, delta, causal=causal)
+    dk2, dv2 = FA.flash_dkv(q, k, v, g, lse, delta, causal=causal)
     torch.cuda.synchronize()
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        fail(f"flash {label}: dK/dV differ between two runs")
+    del dk2, dv2
     rel, grel = (1e-5, 1e-4) if f32 else (2 ** -7, 2 ** -7)
     errs = {}
+    dv_scale = float(r_grads[2].abs().max())
     for name, got, want, r in (("out", o, r_out, rel),
                                ("lse", lse, r_lse, 1e-5),
                                ("dq", dq, r_grads[0], grel),
                                ("dk", dk, r_grads[1], grel),
                                ("dv", dv, r_grads[2], grel)):
         err = float((got.float() - want.float()).abs().max())
-        tol = r * float(want.float().abs().max())
+        # an identically-zero reference (dq, dk at S 1: one key, so the
+        # softmax passes no gradient) is held to the backward's scale
+        tol = r * (float(want.float().abs().max()) or dv_scale)
         if not (err <= tol and bool(torch.isfinite(got).all())):
             fail(f"flash {label} {name}: max abs err {err} > tol {tol}")
         errs[name] = {"max_abs_err": err, "tol": tol}
     del ref, r_out, r_lse, r_grads
     torch.cuda.empty_cache()
     case = {"label": label, "B": B, "S": S, "H": H, "Dh": Dh, "dtype": dtn,
-            "causal": causal, "errors": errs}
+            "causal": causal, "layout": layout,
+            "route": None if f32 else FA.copy_route(q, k, v, g),
+            "dkv_bit_equal": True, "errors": errs}
     case["ms"] = {
         "flash_fwd": event_ms(lambda i: FA.flash_fwd(
             q, k, v, causal=causal, with_lse=True), 10),
@@ -485,7 +527,8 @@ def flash_case(dev, label, B, S, H, Dh, dtn, causal) -> dict:
         "flash_dkv": bound_ms(6 * n * es + 8 * rows, 8.0 * pairs * Dh,
                               peak)}
     ms = case["ms"]
-    log(f"  flash {label} {dtn} B{B} S{S} H{H} Dh{Dh} causal={causal}: "
+    log(f"  flash {label} {dtn} B{B} S{S} H{H} Dh{Dh} causal={causal} "
+        f"{layout} route={case['route']}: "
         f"fwd {ms['flash_fwd']:.4f} / dq {ms['flash_dq']:.4f} / dkv "
         f"{ms['flash_dkv']:.4f} ms  bounds "
         + "/".join(f"{case['bound'][k][0]:.4f}" for k in FLASH_KERNELS)
@@ -1207,6 +1250,12 @@ def main() -> int:
                    "whole backward (dq, dk, dv)",
             "launches_retrain": rt["launches"][name],
             "launches_causal": ca["launches"][name],
+            # the bf16 training shapes (the wgmma forward and dK/dV)
+            "bf16": {c["label"]: {
+                "ms": c["ms"][name], "bound_ms": c["bound"][name][0],
+                "library_ms": c["library_fwd_ms"] if name == "flash_fwd"
+                else c["library_bwd_ms"]}
+                for c in fl if c["dtype"] == "bfloat16"},
             **({"cases": fl} if name == "flash_fwd" else {}),
         })
     path = next(c for c in bs if c["label"] == "fc1"

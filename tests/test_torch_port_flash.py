@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from torchpruner_tpu_torch.ops import flash_attention as PF
 
 F32_RTOL = 1e-5
@@ -54,10 +55,13 @@ def _qkv(B, S, H, Dh, seed=0, kv_heads=None):
     return q, k, v, g
 
 
-def _close(got, want, rel):
+def _close(got, want, rel, zero_scale=None):
+    """max|got - want| <= rel * max|want|; a reference that is identically
+    0 (dq and dk at S 1: one key, so the softmax passes no gradient to
+    the scores) is held to rel * ``zero_scale`` instead."""
     want = np.asarray(want, np.float32)
     got = np.asarray(got, np.float32)
-    tol = rel * float(np.abs(want).max())
+    tol = rel * (float(np.abs(want).max()) or (zero_scale or 0.0))
     assert float(np.abs(got - want).max()) <= tol, (
         float(np.abs(got - want).max()), tol)
 
@@ -135,6 +139,55 @@ def test_cpu_dispatch_is_plain_and_cross_attention_plain():
     assert not PF.kernel_active(64, torch.float16, "cuda")
 
 
+# ------------------------------------- the bf16 kernels' launch plan (CPU)
+
+
+def test_copy_route_follows_tma_alignment_rules():
+    bf = torch.bfloat16
+    t = torch.zeros((2, 40, 3, 16), dtype=bf)
+    assert PF.copy_route(t, t, t) == "tma"
+    # (B, H, S, Dh) storage read through strides, and q/k/v as views of
+    # one fused (B, S, 3, H, Dh) tensor: every stride a multiple of 16 B
+    assert PF.copy_route(t.transpose(1, 2).contiguous().transpose(1, 2)) \
+        == "tma"
+    qkv = torch.zeros((2, 40, 3, 3, 16), dtype=bf)
+    assert PF.copy_route(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]) == "tma"
+    # a base 2 bytes past a 16-byte boundary, a row stride of 49 elements
+    buf = torch.zeros(2 * 40 * 49 + 8, dtype=bf)
+    assert PF.copy_route(buf[1:].as_strided((2, 40, 3, 16),
+                                            (40 * 49, 49, 16, 1))) == "copy"
+    assert PF.copy_route(buf[8:].as_strided((2, 40, 3, 16),
+                                            (40 * 48, 48, 16, 1))) == "tma"
+    assert PF.copy_route(buf[8:].as_strided((2, 40, 3, 16),
+                                            (40 * 49, 49, 16, 1))) == "copy"
+    # Dh a multiple of 8: every contiguous input is TMA's, Dh 8 included
+    assert PF.copy_route(torch.zeros((1, 5, 3, 8), dtype=bf)) == "tma"
+    assert PF.copy_route(torch.zeros((3, 5, 1, 8), dtype=bf)) == "tma"
+    # an axis of extent 1 is never stepped, whatever its stride; a
+    # broadcast (stride 0) axis longer than 1 is not TMA's
+    one = buf[8:8 + 40 * 48].as_strided((1, 40, 3, 16), (7, 48, 16, 1))
+    assert PF.copy_route(one) == "tma"
+    assert PF.copy_route(t[:, :, :1].expand(2, 40, 3, 16)) == "copy"
+
+
+def test_smem_fits_the_card_and_pads_head_dim_to_chunks():
+    card = 232448  # bytes of shared memory a block may use on an H100
+    for Dh in range(8, PF.MAX_HEAD_DIM + 1, 8):
+        Dp = PF.padded_head_dim(Dh)
+        assert Dp in (64, 128) and Dh <= Dp and (Dp == 64 or Dh > 64)
+        for kernel in ("fwd", "dkv"):
+            assert 0 < PF.smem_bytes(kernel, Dh) <= card
+    # forward: Q and two K and V stages of 128 rows at 256-byte rows;
+    # dK/dV: K, V and three stages of 64-row Q/dO tiles with their LSE
+    # and delta rows; 8-byte barriers, 1024 bytes of alignment slack
+    assert PF.smem_bytes("fwd", 128) == 128 * 256 * 5 + 40 + 1024
+    assert PF.smem_bytes("dkv", 128) == \
+        2 * 128 * 256 + 3 * (2 * 64 * 256 + 512) + 56 + 1024
+    assert PF.smem_bytes("fwd", 64) < PF.smem_bytes("fwd", 72)
+    with pytest.raises(ValueError):
+        PF.smem_bytes("dq", 64)
+
+
 # ------------------------------------------------------------- on the card
 
 
@@ -147,11 +200,18 @@ def dev():
     return torch.device("cuda")
 
 
+def _layout(ts, layout):
+    """q, k, v, g in storage of the given layout, as strided views (the
+    layouts of ``chip_smoke.py`` phase 6, and (B, H, S, Dh) storage)."""
+    if layout == "bhsd":
+        return [t.transpose(1, 2).contiguous().transpose(1, 2) for t in ts]
+    return [*chip_smoke.flash_layout(*ts[:3], layout), ts[3]]
+
+
 def _kernel_vs_plain(dev, B, S, H, Dh, dtype, causal, layout="bshd"):
     q, k, v, g = _qkv(B, S, H, Dh, seed=S + Dh)
-    ts = [torch.tensor(a, device=dev).to(dtype) for a in (q, k, v, g)]
-    if layout == "bhsd":  # strided views: (B, H, S, Dh) storage
-        ts = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in ts]
+    ts = _layout([torch.tensor(a, device=dev).to(dtype)
+                  for a in (q, k, v, g)], layout)
     qt, kt, vt, gt = ts
     # the reference: autograd of the plain version in f32 on the same
     # (possibly bf16-rounded) inputs
@@ -160,7 +220,9 @@ def _kernel_vs_plain(dev, B, S, H, Dh, dtype, causal, layout="bshd"):
                                             with_lse=True)
     (r_out * gt.float()).sum().backward()
     n0 = (PF.flash_fwd.launches, PF.flash_dq.launches, PF.flash_dkv.launches)
-    got = [t.detach().clone().requires_grad_() for t in (qt, kt, vt)]
+    # detached views keep the layout's strides (a clone of a view with
+    # gaps would be contiguous)
+    got = [t.detach().requires_grad_() for t in (qt, kt, vt)]
     out = PF.flash_attention(*got, causal=causal)
     (out.float() * gt.float()).sum().backward()
     o2, lse = PF.flash_fwd(qt, kt, vt, causal=causal, with_lse=True)
@@ -173,8 +235,10 @@ def _kernel_vs_plain(dev, B, S, H, Dh, dtype, causal, layout="bshd"):
     _close(out.detach().float().cpu(), r_out.detach().cpu(),
            F32_RTOL if f32 else BF16_REL)
     _close(lse.cpu(), r_lse.detach().cpu(), F32_RTOL)
+    dv_scale = float(ref[2].grad.abs().max())
     for a, b in zip(got, ref):
-        _close(a.grad.float().cpu(), b.grad.cpu(), 1e-4 if f32 else BF16_REL)
+        _close(a.grad.float().cpu(), b.grad.cpu(), 1e-4 if f32 else BF16_REL,
+               zero_scale=dv_scale)
 
 
 @pytest.mark.cuda
@@ -186,6 +250,11 @@ def _kernel_vs_plain(dev, B, S, H, Dh, dtype, causal, layout="bshd"):
     (3, 77, 2, 8, torch.bfloat16, False),      # one ragged tile, Dh 8
     (1, 130, 2, 128, torch.float32, True),     # ragged causal, max Dh
     (2, 150, 3, 24, torch.bfloat16, True),     # ragged causal bf16, Dh 24
+    (2, 333, 4, 64, torch.bfloat16, True),     # ragged causal bf16
+    (2, 160, 3, 72, torch.bfloat16, True),     # Dh 72: not a multiple of 16
+    (1, 257, 2, 128, torch.bfloat16, False),   # one row past two tiles
+    (3, 1, 2, 64, torch.bfloat16, True),       # S = 1
+    (2, 1, 2, 128, torch.bfloat16, False),     # S = 1, Dh 128
 ])
 def test_flash_kernels_match_plain(dev, B, S, H, Dh, dtype, causal):
     _kernel_vs_plain(dev, B, S, H, Dh, dtype, causal)
@@ -194,6 +263,53 @@ def test_flash_kernels_match_plain(dev, B, S, H, Dh, dtype, causal):
 @pytest.mark.cuda
 def test_flash_kernels_read_strided_layout(dev):
     _kernel_vs_plain(dev, 2, 96, 4, 32, torch.float32, True, layout="bhsd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,route", [
+    ("bhsd", "tma"), ("fused", "tma"), ("offset", "copy")])
+@pytest.mark.parametrize("Dh,causal", [(64, False), (128, True), (40, True)])
+def test_flash_bf16_layouts_take_their_route(dev, layout, route, Dh, causal):
+    q = _layout([torch.zeros((2, 96, 3, Dh), dtype=torch.bfloat16,
+                             device=dev) for _ in range(4)], layout)
+    assert PF.copy_route(*q[:3]) == route
+    _kernel_vs_plain(dev, 2, 96, 3, Dh, torch.bfloat16, causal, layout=layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_dkv_bit_equal_across_runs(dev, causal):
+    q, k, v, g = (torch.tensor(a, device=dev).to(torch.bfloat16)
+                  for a in _qkv(2, 384, 4, 128, seed=7))
+    o, lse = PF.flash_fwd(q, k, v, causal=causal, with_lse=True)
+    _, delta = PF.flash_dq(q, k, v, o, g, lse, causal=causal)
+    dk, dv = PF.flash_dkv(q, k, v, g, lse, delta, causal=causal)
+    for _ in range(3):
+        dk2, dv2 = PF.flash_dkv(q, k, v, g, lse, delta, causal=causal)
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.cuda
+def test_flash_host_mirrors_match_the_library(dev):
+    import ctypes
+
+    from torchpruner_tpu_torch.ops import _build
+
+    lib = _build.library("flash_attention")
+    lib.tp_flash_smem_bytes.restype = ctypes.c_longlong
+    for Dh in range(8, 129, 8):
+        for code, kernel in enumerate(("fwd", "dkv")):
+            assert lib.tp_flash_smem_bytes(code, Dh) == \
+                PF.smem_bytes(kernel, Dh)
+    route = lib.tp_flash_tma_route
+    route.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                      ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4
+    for layout in ("bshd", "bhsd", "fused", "offset"):
+        ts = _layout([torch.zeros((2, 40, 3, 16), dtype=torch.bfloat16,
+                                  device=dev) for _ in range(4)], layout)[:3]
+        ptrs = (ctypes.c_void_p * 3)(*[t.data_ptr() for t in ts])
+        want = route(ptrs, PF._strides(*ts), 3, 2, 3, 40)
+        assert PF.copy_route(*ts) == ("tma" if want else "copy")
 
 
 @pytest.mark.cuda

@@ -14,7 +14,8 @@
 // reads, far above the card's ~20 f32 (~295 bf16) operations per byte,
 // and the (S, S) score matrix, the one large intermediate, never leaves
 // the chip.  Design against that bound, simple first:
-//   - one CTA per (b, h, 64-row tile): the forward and dQ tile queries
+//   - f32 and bf16 dQ: one CTA per (b, h, 64-row tile) (the bf16
+//     forward and dK/dV: 128 rows); the forward and dQ tile queries
 //     and loop over key tiles, dK/dV tiles keys and loops over query
 //     tiles; blocks run in parallel, so each loop carries its own f32
 //     accumulators (the TPU carried them across sequential grid steps);
@@ -23,10 +24,10 @@
 //     through shared memory padded to an odd row length so the 16
 //     threads of a row group hit 16 distinct banks, each thread a 4 x 4
 //     block of the 64 x 64 score tile and 4 rows x Dh/16 output columns;
-//   - bf16 (training) runs its products on the tensor cores (wmma
-//     16x16x16, bf16 in, f32 accumulate), 4 warps of 16 rows each, with
-//     the softmax and dS arithmetic in f32 on score tiles kept in shared
-//     memory (see the bf16 section below);
+//   - bf16 (training) runs its products on the tensor cores: the
+//     forward and dK/dV on Hopper's wgmma with TMA-fed rings and the
+//     scores in registers (see "bf16 forward and dK/dV" below), dQ on
+//     wmma 16x16x16 with its score tiles in shared memory;
 //   - the online softmax keeps (m, l) per row in registers;
 //   - causal: key tiles above the query tile's diagonal are never loaded
 //     (forward, dQ), query tiles above the key tile's diagonal are never
@@ -35,10 +36,14 @@
 //     writes it for the dK/dV kernel that runs after it on the stream;
 //   - the ragged S edge is masked in the kernel, so every S launches.
 
+#include <cuda.h>  // CUtensorMap and its enums (headers only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <utility>
 
 using namespace nvcuda;
 
@@ -466,16 +471,16 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------- bf16: tensor-core kernels
+// ------------------------------------------- bf16 dQ: wmma kernel
 //
-// The same three passes for bf16 on the tensor cores (wmma 16x16x16,
-// bf16 products into f32 accumulators, mma.sync on sm_90).  One CTA of 4
-// warps per 64-row tile, each warp owning 16 rows.  Tiles live in shared
-// memory as bf16, the head dim zero-padded to a multiple of 16 (Dp); the
-// score tiles a product makes are stored to shared memory as f32, where
-// the softmax / dS arithmetic runs in f32 with two threads per row, and
-// the bf16 result feeds the next product.  P and dS are rounded to bf16
-// before their products (as FlashAttention-2 does); every sum is f32.
+// dQ for bf16 on the tensor cores (wmma 16x16x16, bf16 products into f32
+// accumulators, mma.sync on sm_90).  One CTA of 4 warps per 64-row tile,
+// each warp owning 16 rows.  Tiles live in shared memory as bf16, the
+// head dim zero-padded to a multiple of 16 (Dp); the score tiles a
+// product makes are stored to shared memory as f32, where the dS
+// arithmetic runs in f32 with two threads per row, and the bf16 result
+// feeds the next product.  dS is rounded to bf16 before its product (as
+// FlashAttention-2 does); every sum is f32.
 
 constexpr int TC_THREADS = 128;
 constexpr int MAX_NT = MAX_DH / 16;  // 16-wide head-dim tiles
@@ -557,96 +562,6 @@ __device__ __forceinline__ void rows_by_tile(FragC (&acc)[MAX_NT],
 }
 
 __global__ void __launch_bounds__(TC_THREADS)
-fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-       const bf16* __restrict__ v, bf16* __restrict__ o,
-       float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-       Strides so, int H, int S, int Dh, float scale, int causal, int vec) {
-  extern __shared__ __align__(128) unsigned char raw[];
-  const int Dp = pad16(Dh), ld = Dp + 8, lo = Dp + 4;
-  bf16* Qs = reinterpret_cast<bf16*>(raw);
-  bf16* Ks = Qs + BT * ld;
-  bf16* Vs = Ks + BT * ld;
-  bf16* Ps = Vs + BT * ld;                                         // (64, LDH)
-  float* Ss = reinterpret_cast<float*>(raw + align128((3 * BT * ld + BT * LDH) * sizeof(bf16)));
-  float* Os = Ss + BT * LDS;                                       // (64, lo)
-  const int n_qt = (S + BT - 1) / BT;
-  const int q0 = (blockIdx.x % n_qt) * BT;
-  const int b = blockIdx.x / n_qt / H;
-  const int h = blockIdx.x / n_qt % H;
-  const int warp = threadIdx.x >> 5;
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;  // row, column parity
-  const int qp = q0 + r;
-
-  load_bf16(Qs, ld, q, sq, b, h, q0, S, Dh, Dp, vec);
-  float m = NEG, l = 0.f;
-  float acc[MAX_DH / 2];
-#pragma unroll
-  for (int j = 0; j < MAX_DH / 2; ++j) acc[j] = 0.f;
-  const int n_kt = key_tiles(q0, S, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();
-    load_bf16(Ks, ld, k, sk, b, h, k0, S, Dh, Dp, vec);
-    load_bf16(Vs, ld, v, sv, b, h, k0, S, Dh, Dp, vec);
-    __syncthreads();
-    rows_by_rowsT(Ss, Qs, Ks, ld, Dp, warp);
-    __syncwarp();
-    float rmax = NEG;
-    for (int j = half; j < BT; j += 2) {
-      const int kp = k0 + j;
-      const bool ok = kp < S && (!causal || kp <= qp);
-      if (ok) rmax = fmaxf(rmax, Ss[r * LDS + j] * scale);
-    }
-    rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
-    const float m_new = fmaxf(m, rmax);
-    const float alpha = expf(m - m_new);
-    float rsum = 0.f;
-    for (int j = half; j < BT; j += 2) {
-      const int kp = k0 + j;
-      const bool ok = kp < S && (!causal || kp <= qp);
-      // l (and with it the LSE the backward uses) sums the f32 weights;
-      // only the value product sees them rounded to bf16
-      const float p = ok ? expf(Ss[r * LDS + j] * scale - m_new) : 0.f;
-      Ps[r * LDH + j] = __float2bfloat16(p);
-      rsum += p;
-    }
-    l = l * alpha + rsum + __shfl_xor_sync(0xffffffffu, rsum, 1);
-    m = m_new;
-    __syncwarp();
-    for (int nt = 0; nt * 16 < Dp; ++nt) {  // this tile's P V, stored
-      FragC pv;
-      wmma::fill_fragment(pv, 0.f);
-      for (int kk = 0; kk < BT; kk += 16) {
-        FragA a;
-        FragBr bm;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * LDH + kk, LDH);
-        wmma::load_matrix_sync(bm, Vs + kk * ld + nt * 16, ld);
-        wmma::mma_sync(pv, a, bm, pv);
-      }
-      wmma::store_matrix_sync(Os + warp * 16 * lo + nt * 16, pv, lo,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < MAX_DH / 2; ++j) {
-      const int col = half + 2 * j;
-      if (col < Dp) acc[j] = acc[j] * alpha + Os[r * lo + col];
-    }
-  }
-  if (qp < S) {
-    const float inv = 1.f / l;
-    bf16* orow = o + b * so.b + (long long)qp * so.s + h * so.h;
-#pragma unroll
-    for (int j = 0; j < MAX_DH / 2; ++j) {
-      const int col = half + 2 * j;
-      if (col < Dh) orow[col] = __float2bfloat16(acc[j] * inv);
-    }
-    if (lse != nullptr && half == 0)
-      lse[((long long)b * H + h) * S + qp] = m + logf(l);
-  }
-}
-
-__global__ void __launch_bounds__(TC_THREADS)
 dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const bf16* __restrict__ v, const bf16* __restrict__ o,
       const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -718,107 +633,771 @@ dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-__global__ void __launch_bounds__(TC_THREADS)
-dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-       const float* __restrict__ lse, const float* __restrict__ delta,
-       bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq, Strides sk,
-       Strides sv, Strides sdo, Strides sdk, Strides sdv, int H, int S,
-       int Dh, float scale, int causal, int vec) {
-  extern __shared__ __align__(128) unsigned char raw[];
-  const int Dp = pad16(Dh), ld = Dp + 8, lo = Dp + 4;
-  bf16* Ks = reinterpret_cast<bf16*>(raw);
-  bf16* Vs = Ks + BT * ld;
-  bf16* Qs = Vs + BT * ld;
-  bf16* dOs = Qs + BT * ld;
-  bf16* Pt = dOs + BT * ld;                                        // (64, LDH)
-  bf16* dSt = Pt + BT * LDH;                                       // (64, LDH)
-  float* St = reinterpret_cast<float*>(raw + align128((4 * BT * ld + 2 * BT * LDH) * sizeof(bf16)));
-  float* dPt = St + BT * LDS;
-  float* ls = dPt + BT * LDS;  // the query tile's lse and delta
-  float* ds = ls + BT;
-  float* Out = St;  // (64, lo) staging for dk / dv, after the last tile
-  const int n_t = (S + BT - 1) / BT;
-  const int kt = blockIdx.x % n_t;
-  const int k0 = kt * BT;
-  const int b = blockIdx.x / n_t / H;
-  const int h = blockIdx.x / n_t % H;
-  const int warp = threadIdx.x >> 5;
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;  // key row here
-  const int kp = k0 + r;
-  const long long row_bh = ((long long)b * H + h) * S;
-
-  load_bf16(Ks, ld, k, sk, b, h, k0, S, Dh, Dp, vec);
-  load_bf16(Vs, ld, v, sv, b, h, k0, S, Dh, Dp, vec);
-  FragC gk[MAX_NT], gv[MAX_NT];
-#pragma unroll
-  for (int nt = 0; nt < MAX_NT; ++nt) {
-    wmma::fill_fragment(gk[nt], 0.f);
-    wmma::fill_fragment(gv[nt], 0.f);
-  }
-  for (int qt = causal ? kt : 0; qt < n_t; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();
-    load_bf16(Qs, ld, q, sq, b, h, q0, S, Dh, Dp, vec);
-    load_bf16(dOs, ld, dout, sdo, b, h, q0, S, Dh, Dp, vec);
-    if (threadIdx.x < BT) {
-      const int p = q0 + threadIdx.x;
-      ls[threadIdx.x] = p < S ? lse[row_bh + p] : 0.f;
-      ds[threadIdx.x] = p < S ? delta[row_bh + p] : 0.f;
-    }
-    __syncthreads();
-    rows_by_rowsT(St, Ks, Qs, ld, Dp, warp);    // S^T: keys x queries
-    rows_by_rowsT(dPt, Vs, dOs, ld, Dp, warp);  // dP^T
-    __syncwarp();
-    for (int j = half; j < BT; j += 2) {
-      const int qp = q0 + j;
-      const bool ok = qp < S && kp < S && (!causal || kp <= qp);
-      const float p = ok ? expf(St[r * LDS + j] * scale - ls[j]) : 0.f;
-      Pt[r * LDH + j] = __float2bfloat16(p);
-      dSt[r * LDH + j] = __float2bfloat16(p * (dPt[r * LDS + j] - ds[j]) * scale);
-    }
-    __syncwarp();
-    rows_by_tile(gv, Pt, dOs, ld, Dp, warp);   // dV += P^T dO
-    rows_by_tile(gk, dSt, Qs, ld, Dp, warp);   // dK += dS^T Q
-  }
-  for (int which = 0; which < 2; ++which) {
-    __syncthreads();  // St/dPt are reused as the staging tile
-#pragma unroll
-    for (int nt = 0; nt < MAX_NT; ++nt) {
-      if (nt * 16 >= Dp) break;
-      if (which)
-        wmma::store_matrix_sync(Out + warp * 16 * lo + nt * 16, gv[nt], lo,
-                                wmma::mem_row_major);
-      else
-        wmma::store_matrix_sync(Out + warp * 16 * lo + nt * 16, gk[nt], lo,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-    if (kp < S) {
-      const Strides st = which ? sdv : sdk;
-      bf16* row = (which ? dv : dk) + b * st.b + (long long)kp * st.s + h * st.h;
-      for (int col = half; col < Dh; col += 2)
-        row[col] = __float2bfloat16(Out[r * lo + col]);
-    }
-  }
-}
-
-size_t fwd_tc_smem(int Dh) {
-  const int ld = pad16(Dh) + 8, lo = pad16(Dh) + 4;
-  return align128((3 * BT * ld + BT * LDH) * sizeof(bf16)) +
-         (BT * LDS + BT * lo) * sizeof(float);
-}
-// dQ and dK/dV stage their (64, Dp + 4) f32 output in the two score
-// tiles (2 x 64 x 68 floats >= 64 x 132)
+// dQ stages its (64, Dp + 4) f32 output in the two score tiles
+// (2 x 64 x 68 floats >= 64 x 132)
 size_t dq_tc_smem(int Dh) {
   const int ld = pad16(Dh) + 8;
   return align128((4 * BT * ld + BT * LDH) * sizeof(bf16)) +
          2 * BT * LDS * sizeof(float);
 }
-size_t dkv_tc_smem(int Dh) {
-  const int ld = pad16(Dh) + 8;
-  return align128((4 * BT * ld + 2 * BT * LDH) * sizeof(bf16)) +
-         (2 * BT * LDS + 2 * BT) * sizeof(float);
+
+// ------------------------------- bf16 forward and dK/dV: wgmma kernels
+//
+// `fwd_wgmma` and `dkv_wgmma` run on Hopper's warpgroup products, in the
+// shape the hardware is built for:
+//   - three warpgroups per CTA: two consumers of 64 rows each and one
+//     producer that keeps the next tiles in flight; the consumers get
+//     240 registers, the producer 24 (setmaxnreg);
+//   - every tile lives in shared memory as 64-column chunks of 128-byte
+//     rows in the 128-byte swizzle, the layout both TMA writes and wgmma
+//     reads; Dh is zero-padded to DP = 64 or 128 (a template argument);
+//   - copies: one TMA box per chunk (`cp.async.bulk.tensor`, a 4-d
+//     tensor map over the strided (B, S, H, Dh) view, completion on an
+//     mbarrier) when every base is 16-byte aligned and every stride a
+//     multiple of 16 bytes; otherwise the producer's 128 threads fill the
+//     same ring with their own loads (`copy_tile`), zero past S and Dh;
+//   - a ring of tiles (2 stages of K and V in the forward, 3 of Q and dO
+//     in dK/dV) with full / empty mbarriers: the producer waits for a
+//     free stage, the consumers for a full one;
+//   - products on wgmma (m64nNk16, bf16 in, f32 sums in registers).
+//     The scores stay in the accumulator fragment; the softmax, dS and
+//     masks run on it with quad shuffles; the bf16 weights are repacked
+//     in registers as the A operand of the next product (a warp's
+//     accumulator rows and columns are exactly an A fragment's), and V,
+//     dO and Q enter that product as the transposed (MN-major) B operand;
+//   - causal: key tiles above the diagonal are never loaded, tiles
+//     below it run unmasked, only the diagonal and the ragged S edge are
+//     masked; the forward launches its heaviest query tiles first.
+// Forward: one CTA per (128 query rows, b, h); S = Q K^T into registers,
+// the online softmax in base 2 with (m, l) per row in registers (l sums
+// the f32 weights), O += P V with P in registers, O in registers across
+// all key tiles.  dK/dV: one CTA per (128 keys, b, h), K and V resident,
+// dK and dV in registers across the query tiles; per 64-row query tile
+// S^T = K Q^T and dP^T = V dO^T, then P^T = exp(S^T scale - LSE) and
+// dS^T = P^T (dP^T - delta) scale in registers, the A operands of
+// dV += P^T dO and dK += dS^T Q.  Rows past S carry LSE = +inf, so their
+// weights are 0 with no per-element test.  Deterministic: every sum runs
+// in one CTA in a fixed order, no atomics.
+
+constexpr int WG = 128;               // threads of a warpgroup
+constexpr int HOP_THREADS = 3 * WG;   // two consumer warpgroups, a producer
+constexpr int CH = 64;                // bf16 columns of a 128-byte chunk row
+constexpr int CHUNK_ROW = 128;        // bytes of a chunk row
+constexpr int FWD_BM = 128;           // query rows of a forward CTA
+constexpr int FWD_BN = 128;           // keys of a forward ring stage
+constexpr int KV_BN = 128;            // keys of a dK/dV CTA
+constexpr int KV_BQ = 64;             // query rows of a dK/dV ring stage
+constexpr int FWD_STAGES = 2;         // K/V ring of the forward
+constexpr int KV_STAGES = 3;          // Q/dO ring of dK/dV
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// waits for the phase of `bar` with this parity; a ring that never fills
+// (a fault in the protocol) traps after ~2^26 polls rather than hang
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+// one box of a 4-d tensor map (Dh, S, H, B) into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* tm,
+                                         int col, int row, int h, int b,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(col), "r"(row), "r"(h), "r"(b),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// this thread's writes to shared memory, made visible to wgmma and TMA
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>  // until at most N commit groups are in flight
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// a wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Products on wgmma.  wgmma_ss_first: D = A B, wgmma_ss: D += A B, with
+// A and B K-major in shared memory (a product's first k16 step writes D
+// without reading it, so no register of an earlier tile stays live);
+// wgmma_rs: D += A B with A from registers (a warp's 16 x 16 bf16
+// fragment) and B MN-major in shared memory (the transposed operand: row
+// k of B is contiguous).  Each takes base descriptors and adds the k
+// step's offset (OA, OB, in 16-byte units) inside the instruction block,
+// so a product's steps keep only their two base descriptors live.
+
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 desc_a, desc_b;\nsetp.ne.b32 p, %34, 0;\n"
+      "add.s64 desc_a, %32, %35;\nadd.s64 desc_b, %33, %36;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, desc_a, desc_b, p, 1, 1, 0, 0;\n}\n"
+      :
+        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0), "n"(OA), "n"(OB));
+}
+
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[64], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 desc_a, desc_b;\nsetp.ne.b32 p, %66, 0;\n"
+      "add.s64 desc_a, %64, %67;\nadd.s64 desc_b, %65, %68;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, desc_a, desc_b, p, 1, 1, 0, 0;\n}\n"
+      :
+        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
+        "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]),
+        "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
+        "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]),
+        "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "r"(0), "n"(OA), "n"(OB));
+}
+
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 desc_a, desc_b;\nsetp.ne.b32 p, %34, 0;\n"
+      "add.s64 desc_a, %32, %35;\nadd.s64 desc_b, %33, %36;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, desc_a, desc_b, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(OA), "n"(OB));
+}
+
+template <int OA, int OB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 desc_a, desc_b;\nsetp.ne.b32 p, %66, 0;\n"
+      "add.s64 desc_a, %64, %67;\nadd.s64 desc_b, %65, %68;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, desc_a, desc_b, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(OA), "n"(OB));
+}
+
+template <int OB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 desc_b;\nsetp.ne.b32 p, %37, 0;\n"
+      "add.s64 desc_b, %36, %38;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, desc_b, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(OB));
+}
+
+template <int OB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 desc_b;\nsetp.ne.b32 p, %69, 0;\n"
+      "add.s64 desc_b, %68, %70;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, desc_b, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(OB));
+}
+
+// f(std::integral_constant<int, I>) for I = 0 .. N-1, unrolled, so that
+// each step's offsets are immediates
+template <typename F, int... I>
+__device__ __forceinline__ void unrolled(F&& f,
+                                         std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+template <int N, typename F>
+__device__ __forceinline__ void unrolled(F&& f) {
+  unrolled(f, std::make_integer_sequence<int, N>{});
+}
+
+// Rows row0.. of one (b, h) slice into nc swizzled chunks of `rows` rows
+// with the producer warpgroup's own loads (thread t of 128): 16 bytes
+// when aligned, else 8 elements one by one; zero past S and past Dh.
+// The route for layouts TMA does not take.
+__device__ void copy_tile(unsigned char* dst, const bf16* src, Strides st,
+                          int b, int h, int row0, int rows, int S, int Dh,
+                          int nc, int t) {
+  const bf16* base = src + b * st.b + h * st.h;
+  const int units = nc * 8;  // 16-byte units of a padded row
+  for (int i = t; i < rows * units; i += WG) {
+    const int r = i / units, u = i - r * units;
+    const int col = u * 8, s = row0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (s < S && col < Dh) {
+      const bf16* p = base + (long long)s * st.s + col;
+      if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+        val = *reinterpret_cast<const uint4*>(p);
+      } else {
+        bf16 e[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) e[j] = p[j];
+        memcpy(&val, e, sizeof(val));
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + (u >> 3) * rows * CHUNK_ROW +
+                              r * CHUNK_ROW + (((u & 7) ^ (r & 7)) << 4)) = val;
+  }
+}
+
+// One stage's tiles: TMA (thread 0 sets the byte count and starts a box
+// per chunk) or the warpgroup's copies; each of the producer's 128
+// threads then arrives on `bar`.
+struct TileLoad {
+  unsigned char* dst;
+  const CUtensorMap* tm;
+  const bf16* src;
+  Strides st;
+  int row0, rows;
+};
+template <int N>
+__device__ __forceinline__ void load_stage(const TileLoad (&tl)[N], int nc,
+                                           int b, int h, int S, int Dh,
+                                           int tma, uint64_t* bar, int t) {
+  if (tma) {
+    if (t == 0) {
+      uint32_t bytes = 0;
+#pragma unroll
+      for (int i = 0; i < N; ++i) bytes += nc * tl[i].rows * CHUNK_ROW;
+      mbar_arrive_tx(bar, bytes);
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        for (int c = 0; c < nc; ++c)
+          tma_load(tl[i].dst + c * tl[i].rows * CHUNK_ROW, tl[i].tm, c * CH,
+                   tl[i].row0, h, b, bar);
+    } else {
+      mbar_arrive(bar);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    copy_tile(tl[i].dst, tl[i].src, tl[i].st, b, h, tl[i].row0, tl[i].rows,
+              S, Dh, nc, t);
+  fence_async_smem();
+  mbar_arrive(bar);
+}
+
+template <int DP>
+constexpr size_t fwd_wgmma_smem() {
+  // Q tile, FWD_STAGES K and V tiles, the barriers, 1024-byte alignment
+  // slack
+  return (size_t)(DP / CH) * FWD_BN * CHUNK_ROW * (1 + 2 * FWD_STAGES) +
+         8 * (1 + 2 * FWD_STAGES) + 1024;
+}
+template <int DP>
+constexpr size_t dkv_wgmma_smem() {
+  // K and V tiles, KV_STAGES Q and dO tiles with their LSE and delta
+  // rows, the barriers, alignment slack
+  return (size_t)(DP / CH) * KV_BN * CHUNK_ROW * 2 +
+         KV_STAGES *
+             ((size_t)(DP / CH) * KV_BQ * CHUNK_ROW * 2 + 2 * KV_BQ * 4) +
+         8 * (1 + 2 * KV_STAGES) + 1024;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// bars[0]: the resident tile(s), then `stages` full barriers (each
+// producer thread arrives) and `stages` empty ones (each consumer warp)
+__device__ __forceinline__ void init_ring(uint64_t* bars, int stages) {
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], WG);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&bars[1 + s], WG);
+      mbar_init(&bars[1 + stages + s], 2 * WG / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// a consumer warp is done with a stage
+__device__ __forceinline__ void warp_release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+static_assert(FWD_BM == FWD_BN, "the forward's diagonal key tile is j == qt");
+
+template <int DP>
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, const bf16* __restrict__ q,
+          const bf16* __restrict__ k, const bf16* __restrict__ v,
+          bf16* __restrict__ o, float* __restrict__ lse, Strides sq,
+          Strides sk, Strides sv, Strides so, int B, int H, int S, int Dh,
+          float scale, int causal, int tma) {
+  constexpr int NC = DP / CH;
+  constexpr int TILE = NC * FWD_BN * CHUNK_ROW;  // a 128-row tile (Q, K, V)
+  extern __shared__ unsigned char raw[];
+  unsigned char* Qs = align1024(raw);
+  unsigned char* Ks = Qs + TILE;
+  unsigned char* Vs = Ks + FWD_STAGES * TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + FWD_STAGES * TILE);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + FWD_STAGES;
+
+  const int BH = B * H, n_qt = (S + FWD_BM - 1) / FWD_BM;
+  const int t = blockIdx.x / BH;
+  const int qt = causal ? n_qt - 1 - t : t;  // heaviest query tiles first
+  const int b = blockIdx.x % BH / H, h = blockIdx.x % H;
+  const int q0 = qt * FWD_BM;
+  const int n_kt = causal ? qt + 1 : (S + FWD_BN - 1) / FWD_BN;
+  const int wg = threadIdx.x / WG, lane = threadIdx.x & 31;
+  init_ring(bars, FWD_STAGES);
+
+  if (wg == 2) {  // producer: Q, then K_j and V_j into the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    const int pt = threadIdx.x - 2 * WG;
+    const TileLoad tq_load[1] = {{Qs, &tq, q, sq, q0, FWD_BM}};
+    load_stage(tq_load, NC, b, h, S, Dh, tma, &bars[0], pt);
+    for (int j = 0; j < n_kt; ++j) {
+      const int s = j % FWD_STAGES;
+      mbar_wait(&empty[s], ((j / FWD_STAGES) & 1) ^ 1);
+      const TileLoad kv[2] = {{Ks + s * TILE, &tk, k, sk, j * FWD_BN, FWD_BN},
+                              {Vs + s * TILE, &tv, v, sv, j * FWD_BN, FWD_BN}};
+      load_stage(kv, NC, b, h, S, Dh, tma, &full[s], pt);
+    }
+  } else {  // consumers: rows q0 + 64 wg + (r0, r0 + 8)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int quad = lane >> 2, c2 = (lane & 3) * 2;
+    const int r0 = (threadIdx.x % WG) / 32 * 16 + quad;
+    const int row0 = q0 + wg * 64;
+    const float sl2 = scale * LOG2E;
+    const uint64_t q_d = sdesc(smem_u32(Qs) + wg * 64 * CHUNK_ROW, 16, 1024);
+    float oacc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
+    float m2[2] = {NEG, NEG}, lsum[2] = {0.f, 0.f};  // base-2 max, row sums
+    mbar_wait(&bars[0], 0);
+    for (int j = 0; j < n_kt; ++j) {
+      const int s = j % FWD_STAGES, k0 = j * FWD_BN;
+      mbar_wait(&full[s], (j / FWD_STAGES) & 1);
+      // S = Q K^T into registers (the scores are written by wgmma only)
+      float sacc[FWD_BN / 2];
+      const uint64_t k_d = sdesc(smem_u32(Ks + s * TILE), 16, 1024);
+      wg_fence();
+      unrolled<DP / 16>([&](auto kk) {  // padded columns are zeros
+        constexpr int K = decltype(kk)::value;
+        constexpr int off = ((K >> 2) * FWD_BN * CHUNK_ROW + (K & 3) * 32) >> 4;
+        if constexpr (K == 0)
+          wgmma_ss_first<off, off>(sacc, q_d, k_d);
+        else
+          wgmma_ss<off, off>(sacc, q_d, k_d);
+      });
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sacc);
+      // the online softmax in base 2, the diagonal and ragged tiles masked
+      const bool masked = (causal && j == qt) || k0 + FWD_BN > S;
+      auto score = [&](int i) {
+        float x = sacc[i] * sl2;
+        if (masked) {
+          const int kp = k0 + 8 * (i / 4) + c2 + (i & 1);
+          const int qp = row0 + r0 + 8 * ((i >> 1) & 1);
+          if (kp >= S || (causal && kp > qp)) x = NEG;
+        }
+        return x;
+      };
+      float mx[2] = {m2[0], m2[1]}, alpha[2];
+#pragma unroll
+      for (int i = 0; i < FWD_BN / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], score(i));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        alpha[r] = fast_exp2(m2[r] - mx[r]);
+        m2[r] = mx[r];
+        lsum[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+      // P: f32 weights summed into l, bf16 pairs as the A operand
+      uint32_t pa[FWD_BN / 16][4];
+#pragma unroll
+      for (int kb = 0; kb < FWD_BN / 16; ++kb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 8 * kb + 2 * e, r = e & 1;
+          const float p0 = fast_exp2(score(i) - m2[r]);
+          const float p1 = fast_exp2(score(i + 1) - m2[r]);
+          lsum[r] += p0 + p1;
+          pa[kb][e] = pack_bf16(p0, p1);
+        }
+      // O += P V, V the transposed B operand
+      const uint64_t v_d = sdesc(smem_u32(Vs + s * TILE), FWD_BN * CHUNK_ROW,
+                                 1024);
+      fence_regs(oacc);
+      wg_fence();
+      unrolled<FWD_BN / 16>([&](auto kb) {
+        constexpr int K = decltype(kb)::value;
+        wgmma_rs<K * 16 * CHUNK_ROW / 16>(oacc, pa[K], v_d);
+      });
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(oacc);
+      fence_regs(pa);
+      warp_release(&empty[s], lane);
+    }
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lsum[r] = quad_sum(lsum[r]);
+      inv[r] = 1.f / lsum[r];
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int r = (i >> 1) & 1, col = 8 * (i / 4) + c2;
+      const int qp = row0 + r0 + 8 * r;
+      if (qp < S && col < Dh)
+        *reinterpret_cast<uint32_t*>(o + b * so.b + (long long)qp * so.s +
+                                     h * so.h + col) =
+            pack_bf16(oacc[i] * inv[r], oacc[i + 1] * inv[r]);
+    }
+    if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qp = row0 + r0 + 8 * r;
+        if (qp < S)
+          lse[((long long)b * H + h) * S + qp] = (m2[r] + log2f(lsum[r])) * LN2;
+      }
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv,
+          const __grid_constant__ CUtensorMap tdo, const bf16* __restrict__ q,
+          const bf16* __restrict__ k, const bf16* __restrict__ v,
+          const bf16* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, bf16* __restrict__ dk,
+          bf16* __restrict__ dv, Strides sq, Strides sk, Strides sv,
+          Strides sdo, Strides sdk, Strides sdv, int B, int H, int S, int Dh,
+          float scale, int causal, int tma) {
+  constexpr int NC = DP / CH;
+  constexpr int KTILE = NC * KV_BN * CHUNK_ROW;  // K or V, 128 keys
+  constexpr int QTILE = NC * KV_BQ * CHUNK_ROW;  // Q or dO, 64 rows
+  extern __shared__ unsigned char raw[];
+  unsigned char* Ks = align1024(raw);
+  unsigned char* Vs = Ks + KTILE;
+  unsigned char* Qs = Vs + KTILE;              // the Q ring
+  unsigned char* Gs = Qs + KV_STAGES * QTILE;  // the dO ring
+  float* Ls = reinterpret_cast<float*>(Gs + KV_STAGES * QTILE);  // LSE log2 e
+  float* Ds = Ls + KV_STAGES * KV_BQ;                            // delta
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Ds + KV_STAGES * KV_BQ);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + KV_STAGES;
+
+  const int BH = B * H;
+  const int kt = blockIdx.x / BH;  // causal: the first key tiles see most
+  const int b = blockIdx.x % BH / H, h = blockIdx.x % H;
+  const int k0 = kt * KV_BN;
+  const int n_qt = (S + KV_BQ - 1) / KV_BQ;
+  const int qt0 = causal ? k0 / KV_BQ : 0;  // earlier queries see no key here
+  const int n_q = n_qt - qt0;
+  const int wg = threadIdx.x / WG, lane = threadIdx.x & 31;
+  init_ring(bars, KV_STAGES);
+
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    const int pt = threadIdx.x - 2 * WG;
+    const long long row_bh = ((long long)b * H + h) * S;
+    const TileLoad kv[2] = {{Ks, &tk, k, sk, k0, KV_BN},
+                            {Vs, &tv, v, sv, k0, KV_BN}};
+    load_stage(kv, NC, b, h, S, Dh, tma, &bars[0], pt);
+    for (int j = 0; j < n_q; ++j) {
+      const int s = j % KV_STAGES, q0 = (qt0 + j) * KV_BQ, qp = q0 + pt;
+      // this tile's LSE and delta rows are loaded while the stage drains;
+      // rows past S: LSE +inf, so their weights are 0
+      float lr = __int_as_float(0x7f800000), dr = 0.f;
+      if (pt < KV_BQ && qp < S) {
+        lr = lse[row_bh + qp] * LOG2E;
+        dr = delta[row_bh + qp];
+      }
+      mbar_wait(&empty[s], ((j / KV_STAGES) & 1) ^ 1);
+      if (pt < KV_BQ) {
+        Ls[s * KV_BQ + pt] = lr;
+        Ds[s * KV_BQ + pt] = dr;
+      }
+      const TileLoad qg[2] = {{Qs + s * QTILE, &tq, q, sq, q0, KV_BQ},
+                              {Gs + s * QTILE, &tdo, dout, sdo, q0, KV_BQ}};
+      load_stage(qg, NC, b, h, S, Dh, tma, &full[s], pt);
+    }
+  } else {  // consumers: keys kw0 + (r0, r0 + 8)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int quad = lane >> 2, c2 = (lane & 3) * 2;
+    const int r0 = (threadIdx.x % WG) / 32 * 16 + quad;
+    const int kw0 = k0 + wg * 64;
+    const float sl2 = scale * LOG2E;
+    const uint64_t k_d = sdesc(smem_u32(Ks) + wg * 64 * CHUNK_ROW, 16, 1024);
+    const uint64_t v_d = sdesc(smem_u32(Vs) + wg * 64 * CHUNK_ROW, 16, 1024);
+    float gk[DP / 2], gv[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) gk[i] = gv[i] = 0.f;
+    mbar_wait(&bars[0], 0);
+    for (int j = 0; j < n_q; ++j) {
+      const int s = j % KV_STAGES, q0 = (qt0 + j) * KV_BQ;
+      mbar_wait(&full[s], (j / KV_STAGES) & 1);
+      if (!causal || q0 >= kw0) {  // else no query of the tile sees a key
+        const uint32_t qa = smem_u32(Qs + s * QTILE);
+        const uint32_t ga = smem_u32(Gs + s * QTILE);
+        float st[KV_BQ / 2], dp[KV_BQ / 2];  // S^T and dP^T of this tile
+        const uint64_t q_d = sdesc(qa, 16, 1024), g_d = sdesc(ga, 16, 1024);
+        wg_fence();
+        unrolled<DP / 16>([&](auto kk) {  // padded columns are zeros
+          constexpr int K = decltype(kk)::value;
+          constexpr int ko = ((K >> 2) * KV_BN * CHUNK_ROW + (K & 3) * 32) >> 4;
+          constexpr int qo = ((K >> 2) * KV_BQ * CHUNK_ROW + (K & 3) * 32) >> 4;
+          if constexpr (K == 0) {
+            wgmma_ss_first<ko, qo>(st, k_d, q_d);
+            wgmma_ss_first<ko, qo>(dp, v_d, g_d);
+          } else {
+            wgmma_ss<ko, qo>(st, k_d, q_d);
+            wgmma_ss<ko, qo>(dp, v_d, g_d);
+          }
+        });
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(st);
+        fence_regs(dp);
+        const float* L = Ls + s * KV_BQ;
+        const float* D = Ds + s * KV_BQ;
+        const bool diag = causal && q0 == kw0;
+        // P^T and dS^T in one pass (each score register dies as its pair
+        // is packed), bf16 pairs as the A operands of dV and dK
+        uint32_t pa[KV_BQ / 16][4], sa[KV_BQ / 16][4];
+#pragma unroll
+        for (int kb = 0; kb < KV_BQ / 16; ++kb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 8 * kb + 2 * e;
+            const int kr = r0 + 8 * (e & 1), qc = 16 * kb + 8 * (e >> 1) + c2;
+            float p0 = fast_exp2(st[i] * sl2 - L[qc]);
+            float p1 = fast_exp2(st[i + 1] * sl2 - L[qc + 1]);
+            if (diag) {
+              if (kr > qc) p0 = 0.f;
+              if (kr > qc + 1) p1 = 0.f;
+            }
+            pa[kb][e] = pack_bf16(p0, p1);
+            sa[kb][e] = pack_bf16(p0 * (dp[i] - D[qc]) * scale,
+                                  p1 * (dp[i + 1] - D[qc + 1]) * scale);
+          }
+        fence_regs(gv);
+        fence_regs(gk);
+        wg_fence();
+        const uint64_t gt_d = sdesc(ga, KV_BQ * CHUNK_ROW, 1024);
+        const uint64_t qt_d = sdesc(qa, KV_BQ * CHUNK_ROW, 1024);
+        unrolled<KV_BQ / 16>([&](auto kb) {  // dV += P^T dO
+          constexpr int K = decltype(kb)::value;
+          wgmma_rs<K * 16 * CHUNK_ROW / 16>(gv, pa[K], gt_d);
+        });
+        unrolled<KV_BQ / 16>([&](auto kb) {  // dK += dS^T Q
+          constexpr int K = decltype(kb)::value;
+          wgmma_rs<K * 16 * CHUNK_ROW / 16>(gk, sa[K], qt_d);
+        });
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(gv);
+        fence_regs(gk);
+        fence_regs(pa);
+        fence_regs(sa);
+      }
+      warp_release(&empty[s], lane);
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int r = (i >> 1) & 1, col = 8 * (i / 4) + c2;
+      const int kp = kw0 + r0 + 8 * r;
+      if (kp < S && col < Dh) {
+        *reinterpret_cast<uint32_t*>(dk + b * sdk.b + (long long)kp * sdk.s +
+                                     h * sdk.h + col) =
+            pack_bf16(gk[i], gk[i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + b * sdv.b + (long long)kp * sdv.s +
+                                     h * sdv.h + col) =
+            pack_bf16(gv[i], gv[i + 1]);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------- launch
@@ -857,6 +1436,85 @@ cudaError_t launch(Kernel kernel, int threads, size_t smem, int B, int H,
   return cudaGetLastError();
 }
 
+// TMA's rules, else the copy route: every base 16-byte aligned, and the
+// stride of every axis longer than 1 a positive multiple of 16 bytes
+// below 2^40 (bf16 elements; st holds (b, s, h) strides per tensor)
+int tma_ok(const void* const* ptrs, int n, const long long* st, int B, int H,
+           int S) {
+  const long long ext[3] = {B, S, H};
+  for (int i = 0; i < n; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return 0;
+    for (int a = 0; a < 3; ++a) {
+      const long long bytes = st[3 * i + a] * 2;
+      if (ext[a] > 1 && (bytes <= 0 || bytes % 16 || bytes >= (1LL << 40)))
+        return 0;
+    }
+  }
+  return 1;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time through the runtime's
+// entry-point query (the library links no libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The (Dh, S, H, B) tensor map of one strided bf16 tensor, boxes of 64
+// columns by `rows` rows in the 128-byte swizzle, zeros outside the
+// tensor.  0, or 1000 + the CUresult of a refused map.
+int make_map(CUtensorMap* m, const void* ptr, Strides st, int B, int H, int S,
+             int Dh, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const long long ext[3] = {S, H, B}, el[3] = {st.s, st.h, st.b};
+  const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  cuuint64_t strides[3];
+  for (int a = 0; a < 3; ++a)  // an axis of extent 1 is never stepped
+    strides[a] = ext[a] > 1 ? (cuuint64_t)(el[a] * 2) : 16;
+  const cuuint32_t box[4] = {(cuuint32_t)CH, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
+// one CTA of three warpgroups per (tile, b, h)
+template <typename Kernel, typename... Args>
+cudaError_t launch_hopper(Kernel kernel, size_t smem, int tiles, int B, int H,
+                          cudaStream_t s, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long grid = (long long)tiles * B * H;
+  kernel<<<(unsigned)grid, HOP_THREADS, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
 template <typename T>
 const T* in(const void* p) { return static_cast<const T*>(p); }
 template <typename T>
@@ -869,7 +1527,7 @@ T* out(void* p) { return static_cast<T*>(p); }
 // order of the tensor arguments; the head-dim stride must be 1.  `scale`
 // is 1/sqrt(Dh) as the caller rounds it.  Requires Dh <= 128, Dh % 8 == 0
 // (checked by the Python wrapper too).  Returns the cudaError_t of the
-// launch.
+// launch, or 1000 + the CUresult of a refused tensor map.
 
 // q, k, v, o; lse may be null (no backward will follow)
 extern "C" int tp_flash_fwd(const void* q, const void* k, const void* v,
@@ -882,17 +1540,30 @@ extern "C" int tp_flash_fwd(const void* q, const void* k, const void* v,
                 c = strides_at(st, 2), d = strides_at(st, 3);
   float* l = static_cast<float*>(lse);
   const void* ptrs[] = {q, k, v, o};
-  const int vec = vec_ok(ptrs, 4, st, dtype == 0 ? 4 : 2);
   if (dtype == 0)
     return (int)launch(fwd_kernel<float>, THREADS, fwd_smem(Dh), B, H, S, s,
                        in<float>(q), in<float>(k), in<float>(v),
                        out<float>(o), l, a, b, c, d, H, S, Dh, scale, causal,
-                       vec);
-  if (dtype == 1)
-    return (int)launch(fwd_tc, TC_THREADS, fwd_tc_smem(Dh), B, H, S, s,
-                       in<bf16>(q), in<bf16>(k), in<bf16>(v), out<bf16>(o),
-                       l, a, b, c, d, H, S, Dh, scale, causal, vec);
-  return (int)cudaErrorInvalidValue;
+                       vec_ok(ptrs, 4, st, 4));
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const int tma = tma_ok(ptrs, 3, st, B, H, S);
+  CUtensorMap mq{}, mk{}, mv{};  // unread on the copy route
+  if (tma) {
+    int e = make_map(&mq, q, a, B, H, S, Dh, FWD_BM);
+    if (!e) e = make_map(&mk, k, b, B, H, S, Dh, FWD_BN);
+    if (!e) e = make_map(&mv, v, c, B, H, S, Dh, FWD_BN);
+    if (e) return e;
+  }
+  const int tiles = (S + FWD_BM - 1) / FWD_BM;
+  if (Dh <= 64)
+    return (int)launch_hopper(fwd_wgmma<64>, fwd_wgmma_smem<64>(), tiles, B,
+                              H, s, mq, mk, mv, in<bf16>(q), in<bf16>(k),
+                              in<bf16>(v), out<bf16>(o), l, a, b, c, d, B, H,
+                              S, Dh, scale, causal, tma);
+  return (int)launch_hopper(fwd_wgmma<128>, fwd_wgmma_smem<128>(), tiles, B,
+                            H, s, mq, mk, mv, in<bf16>(q), in<bf16>(k),
+                            in<bf16>(v), out<bf16>(o), l, a, b, c, d, B, H, S,
+                            Dh, scale, causal, tma);
 }
 
 // strides of q, k, v, o, do, dq; writes dq and delta (B, H, S) f32
@@ -938,16 +1609,47 @@ extern "C" int tp_flash_dkv(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const void* ptrs[] = {q, k, v, dout, dk, dv};
-  const int vec = vec_ok(ptrs, 6, st, dtype == 0 ? 4 : 2);
   if (dtype == 0)
     return (int)launch(dkv_kernel<float>, THREADS, dkv_smem(Dh), B, H, S, s,
                        in<float>(q), in<float>(k), in<float>(v),
                        in<float>(dout), l, dl, out<float>(dk), out<float>(dv),
-                       a, b, c, d, e, f, H, S, Dh, scale, causal, vec);
-  if (dtype == 1)
-    return (int)launch(dkv_tc, TC_THREADS, dkv_tc_smem(Dh), B, H, S, s,
-                       in<bf16>(q), in<bf16>(k), in<bf16>(v), in<bf16>(dout),
-                       l, dl, out<bf16>(dk), out<bf16>(dv), a, b, c, d, e, f,
-                       H, S, Dh, scale, causal, vec);
-  return (int)cudaErrorInvalidValue;
+                       a, b, c, d, e, f, H, S, Dh, scale, causal,
+                       vec_ok(ptrs, 6, st, 4));
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const int tma = tma_ok(ptrs, 4, st, B, H, S);
+  CUtensorMap mq{}, mk{}, mv{}, mg{};  // unread on the copy route
+  if (tma) {
+    int err = make_map(&mq, q, a, B, H, S, Dh, KV_BQ);
+    if (!err) err = make_map(&mk, k, b, B, H, S, Dh, KV_BN);
+    if (!err) err = make_map(&mv, v, c, B, H, S, Dh, KV_BN);
+    if (!err) err = make_map(&mg, dout, d, B, H, S, Dh, KV_BQ);
+    if (err) return err;
+  }
+  const int tiles = (S + KV_BN - 1) / KV_BN;
+  if (Dh <= 64)
+    return (int)launch_hopper(dkv_wgmma<64>, dkv_wgmma_smem<64>(), tiles, B,
+                              H, s, mq, mk, mv, mg, in<bf16>(q), in<bf16>(k),
+                              in<bf16>(v), in<bf16>(dout), l, dl,
+                              out<bf16>(dk), out<bf16>(dv), a, b, c, d, e, f,
+                              B, H, S, Dh, scale, causal, tma);
+  return (int)launch_hopper(dkv_wgmma<128>, dkv_wgmma_smem<128>(), tiles, B,
+                            H, s, mq, mk, mv, mg, in<bf16>(q), in<bf16>(k),
+                            in<bf16>(v), in<bf16>(dout), l, dl, out<bf16>(dk),
+                            out<bf16>(dv), a, b, c, d, e, f, B, H, S, Dh,
+                            scale, causal, tma);
+}
+
+// The bf16 forward's and dK/dV's copy route for n tensors (pointers and
+// (b, s, h) strides as above): 1 = TMA, 0 = the producer's own copies.
+extern "C" int tp_flash_tma_route(const void* const* ptrs,
+                                  const long long* st, int n, int B, int H,
+                                  int S) {
+  return tma_ok(ptrs, n, st, B, H, S);
+}
+
+// Dynamic shared memory of the bf16 forward (kernel 0) or dK/dV (1) at Dh.
+extern "C" long long tp_flash_smem_bytes(int kernel, int Dh) {
+  if (kernel == 0)
+    return (long long)(Dh <= 64 ? fwd_wgmma_smem<64>() : fwd_wgmma_smem<128>());
+  return (long long)(Dh <= 64 ? dkv_wgmma_smem<64>() : dkv_wgmma_smem<128>());
 }

@@ -15,8 +15,12 @@ self-attention call launches hand-written Hopper kernels
 mirroring the JAX package's custom VJP: a forward that needs no
 gradient skips the LSE writes.  q/k/v stay in the JAX layout
 ``(B, S, H, Dh)``; the kernels read them through their strides, so no
-transpose is made.  CPU tensors run :func:`flash_attention_plain` (the
-``_xla_attention`` math) under autograd.  A CUDA tensor whose head
+transpose is made.  In bf16 the forward and dK/dV run on Hopper's wgmma
+with their tiles copied by TMA, or by the kernel's producer threads where
+a base or stride breaks TMA's 16-byte rules (:func:`copy_route`); their
+shared memory (:func:`smem_bytes`) is mirrored here for the tests.  CPU
+tensors run :func:`flash_attention_plain` (the ``_xla_attention`` math)
+under autograd.  A CUDA tensor whose head
 dimension or dtype the kernels do not take raises: there is no fallback.
 Cross-attention (K/V longer or shorter than Q) computes plainly on
 either device, as in the JAX package.
@@ -66,6 +70,59 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     if with_lse:
         return out, torch.logsumexp(logits, dim=-1)
     return out
+
+
+# ---------------------------------------- the bf16 kernels' copies and memory
+# Mirrors of ``csrc/flash_attention.cu`` (``tma_ok``, ``*_wgmma_smem``);
+# the card tests hold them equal to the library's ``tp_flash_tma_route``
+# and ``tp_flash_smem_bytes``.
+
+#: rows of a forward query tile and of a dK/dV key tile (one CTA each);
+#: the forward streams K and V tiles through a ring of 2 stages, dK/dV
+#: query tiles of 64 rows through a ring of 3
+TILE_ROWS = 128
+RING_ROWS = 64
+RING_STAGES = {"fwd": 2, "dkv": 3}
+
+
+def padded_head_dim(Dh: int) -> int:
+    """The head dimension the wgmma kernels compute at: Dh zero-padded to
+    one or two 64-column chunks of 128-byte rows."""
+    return 64 if Dh <= 64 else 128
+
+
+def copy_route(*ts: torch.Tensor) -> str:
+    """How the bf16 forward and dK/dV fill their shared-memory rings for
+    these inputs (q, k, v, and dO for dK/dV): ``"tma"`` when every base
+    is 16-byte aligned and the stride of every axis longer than 1 a
+    positive multiple of 16 bytes below 2**40, else ``"copy"`` (the
+    producer threads' own loads)."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            return "copy"
+        for n, st in zip(t.shape[:3], t.stride()[:3]):
+            nbytes = st * t.element_size()
+            if n > 1 and not (0 < nbytes < 2 ** 40 and nbytes % 16 == 0):
+                return "copy"
+    return "tma"
+
+
+def smem_bytes(kernel: str, Dh: int) -> int:
+    """Dynamic shared memory of the bf16 ``kernel`` at head dim ``Dh``:
+    forward, a 128-row Q tile and a ring of K and V tiles; dK/dV, K and V
+    of 128 keys and a ring of 64-row Q and dO tiles with their LSE and
+    delta rows; each plus its 8-byte mbarriers (one for the resident
+    tiles, a full and an empty one per ring stage) and 1024 bytes of
+    alignment."""
+    if kernel not in RING_STAGES:
+        raise ValueError(f"kernel {kernel!r}: 'fwd' or 'dkv'")
+    row = padded_head_dim(Dh) * 2          # bytes of a padded bf16 row
+    stages = RING_STAGES[kernel]
+    extra = 8 * (1 + 2 * stages) + 1024
+    if kernel == "fwd":
+        return TILE_ROWS * row * (1 + 2 * stages) + extra
+    return (2 * TILE_ROWS * row
+            + stages * (2 * RING_ROWS * row + 2 * RING_ROWS * 4) + extra)
 
 
 # ---------------------------------------------------------------- kernels
