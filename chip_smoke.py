@@ -48,7 +48,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
     F 3072, half the output blocks kept) and ``fc2`` (D 3072, F 768, half
     the input blocks kept), at R 1024, D 4096, F 4096 with both axes half
     kept, at a ragged R (4099) and at block 32; dropped columns and
-    blocks exactly 0; CUDA-event times of each kernel, of the same kernel
+    blocks exactly 0; dW bit-equal across two runs; each call's launch
+    plan from the library's ``tp_bs_plan`` equal to ``ops/blocksparse.py
+    plan`` and printed (body: ``wgmma`` for bf16 on multiple-of-64
+    blocks, ``wmma`` for bf16 block 32, ``fma`` for f32; tile, ring
+    stages, dW split); CUDA-event times of each kernel, of the same kernel
     with every block kept, of the plain version and of ``torch.matmul``
     on the dense masked weight (timed only), and the bound.
 11. Masked block-sparse retraining at full width: BERT-base, Sensitivity
@@ -75,6 +79,7 @@ The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -753,7 +758,21 @@ def blocksparse_case(dev, label, R, D, F, block, half_in, half_out,
     y = BS.blocksparse_fwd(x, w, ik, ok, block)
     dx = BS.blocksparse_dx(g, w, ik, ok, block)
     dw = BS.blocksparse_dw(x, g, ik, ok, block)
+    dw_again = BS.blocksparse_dw(x, g, ik, ok, block)
     torch.cuda.synchronize()
+    if not torch.equal(dw, dw_again):
+        fail(f"blocksparse {label} {dtn}: dW differs between two runs")
+    del dw_again
+    # the launch plan each call took, as the library computes it, must be
+    # the one ops/blocksparse.py's mirror says
+    plans = {}
+    for name in BS_KERNELS:
+        args = (name[12:], R, D, F, block, len(ik), len(ok), dtype)
+        got_plan = BS.plan_on_card(*args)
+        if got_plan != BS.plan(*args):
+            fail(f"blocksparse {label} {dtn} {name}: tp_bs_plan "
+                 f"{got_plan} != plan() {BS.plan(*args)}")
+        plans[name] = dataclasses.asdict(got_plan)
     rel = 1e-5 if f32 else 2 ** -7
     errs = {}
     for name, got, want in (("blocksparse_fwd", y, yr.detach()),
@@ -775,7 +794,8 @@ def blocksparse_case(dev, label, R, D, F, block, half_in, half_out,
     all_in, all_out = tuple(range(D // block)), tuple(range(F // block))
     case = {"label": label, "R": R, "D": D, "F": F, "block": block,
             "dtype": dtn, "in_kept": len(ik), "in_blocks": D // block,
-            "out_kept": len(ok), "out_blocks": F // block, "errors": errs}
+            "out_kept": len(ok), "out_blocks": F // block, "errors": errs,
+            "plan": plans}
     case["ms"] = {
         "blocksparse_fwd": event_ms(lambda i: BS.blocksparse_fwd(
             x, w, ik, ok, block), 20),
@@ -825,7 +845,10 @@ def blocksparse_case(dev, label, R, D, F, block, half_in, half_out,
         "blocksparse_dw": bound_ms((R * kd + R * kf + D * F) * es, ops,
                                    peak)}
     log(f"  blocksparse {label} {dtn} R{R} D{D} F{F} block {block} kept "
-        f"{len(ik)}/{D // block} x {len(ok)}/{F // block}: "
+        f"{len(ik)}/{D // block} x {len(ok)}/{F // block}, plan "
+        + " / ".join(f"{p['body']} {p['tile_m']}x{p['tile_n']} "
+                     f"{p['stages']} stages split {p['split']}"
+                     for p in plans.values()) + ": "
         + "  ".join(
             f"{k[12:]} {case['ms'][k]:.4f} ms (all kept "
             f"{case['all_kept_ms'][k]:.4f}, plain {case['plain_ms'][k]:.4f}, "
@@ -1260,6 +1283,8 @@ def main() -> int:
         })
     path = next(c for c in bs if c["label"] == "fc1"
                 and c["dtype"] == "bfloat16")
+    fc2 = next(c for c in bs if c["label"] == "fc2"
+               and c["dtype"] == "bfloat16")
     for name in BS_KERNELS:
         kernels.append({
             "name": name, "route": "cuda",
@@ -1275,6 +1300,11 @@ def main() -> int:
             "bound_by": path["bound"][name][1],
             "library_ms": path["library_ms"][name],
             "all_kept_ms": path["all_kept_ms"][name],
+            "plan": path["plan"][name],
+            # fc2 (D 3072, F 768, 12 of 24 input blocks kept), bf16
+            "fc2": {k: fc2[k][name] for k in ("ms", "library_ms", "plan")}
+            | {"bound_ms": fc2["bound"][name][0],
+               "bound_by": fc2["bound"][name][1]},
             "per": "one call at BERT-base fc1 in training (bf16, R 4096, "
                    "D 768, F 3072, 12 of 24 output blocks kept); "
                    "library_ms: torch.matmul on the dense masked weight",

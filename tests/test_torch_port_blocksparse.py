@@ -691,3 +691,165 @@ def test_simulate_with_finetune_still_raises():
     for cls in (ExperimentConfig, JExperimentConfig):
         with pytest.raises(ValueError, match="masked_update"):
             cls(**kw, simulate=True, finetune_epochs=1)
+
+
+# -- the kernels' launch plan and build ----------------------------------
+
+#: phase 10's shapes and mfu_llama's GatedDense sites at B 8 x S 1024
+#: (wg / wu: 1024 -> 4096 half the outputs kept; down: 4096 -> 1024 half
+#: the inputs kept): (R, D, F, block, kept in-blocks, kept out-blocks)
+PLAN_SHAPES = {
+    "fc1": (4096, 768, 3072, 128, 6, 12),
+    "fc2": (4096, 3072, 768, 128, 12, 6),
+    "both_axes": (1024, 4096, 4096, 128, 16, 16),
+    "ragged": (4099, 768, 3072, 128, 6, 12),
+    "block32": (1000, 256, 384, 32, 4, 6),
+    "mfu_gate": (8192, 1024, 4096, 128, 8, 16),
+    "mfu_down": (8192, 4096, 1024, 128, 16, 8),
+}
+#: (body, tile_m, tile_n, stages, split, kept tiles) per shape and mode
+PLAN_WANT = {
+    ("fc1", "fwd"): ("wgmma", 128, 192, 4, 1, 256),
+    ("fc1", "dx"): ("wgmma", 128, 192, 4, 1, 128),
+    ("fc1", "dw"): ("wgmma", 128, 192, 4, 2, 48),
+    ("fc2", "fwd"): ("wgmma", 128, 192, 4, 1, 128),
+    ("fc2", "dx"): ("wgmma", 128, 192, 4, 1, 256),
+    ("fc2", "dw"): ("wgmma", 128, 192, 4, 2, 48),
+    ("both_axes", "fwd"): ("wgmma", 128, 128, 6, 1, 128),
+    ("both_axes", "dx"): ("wgmma", 128, 128, 6, 1, 128),
+    ("both_axes", "dw"): ("wgmma", 128, 128, 6, 1, 256),
+    ("ragged", "fwd"): ("wgmma", 128, 192, 4, 1, 264),
+    ("ragged", "dx"): ("wgmma", 128, 192, 4, 1, 132),
+    ("ragged", "dw"): ("wgmma", 128, 192, 4, 2, 48),
+    ("block32", "fwd"): ("wmma", 64, 32, 1, 1, 192),
+    ("block32", "dx"): ("wmma", 64, 32, 1, 1, 128),
+    ("block32", "dw"): ("wmma", 32, 32, 1, 1, 96),
+    ("mfu_gate", "fwd"): ("wgmma", 128, 192, 4, 1, 704),
+    ("mfu_gate", "dx"): ("wgmma", 128, 192, 4, 1, 384),
+    ("mfu_gate", "dw"): ("wgmma", 128, 128, 6, 1, 128),
+    ("mfu_down", "fwd"): ("wgmma", 128, 192, 4, 1, 384),
+    ("mfu_down", "dx"): ("wgmma", 128, 192, 4, 1, 704),
+    ("mfu_down", "dw"): ("wgmma", 128, 128, 6, 1, 128),
+}
+
+
+@pytest.mark.parametrize("shape,mode", sorted(PLAN_WANT))
+def test_plan_at_the_path_shapes(shape, mode):
+    """The plan a bf16 call takes at phase 10's and mfu_llama's shapes,
+    and what holds for every plan: tiles cover the kept output, the
+    ring fits in 227 KB, fwd / dx run at most 132 CTAs, dW one cluster
+    (of 1, 2, 4 or 8) per tile with at least 4 ring stages a rank."""
+    R, D, F, block, n_in, n_out = PLAN_SHAPES[shape]
+    p = PBS.plan(mode, R, D, F, block, n_in, n_out)
+    assert (p.body, p.tile_m, p.tile_n, p.stages, p.split, p.tiles) \
+        == PLAN_WANT[(shape, mode)]
+    if p.body != "wgmma":  # the earlier wmma body: static shared memory
+        assert p.smem_bytes == 0 and p.ctas == p.tiles
+        rows = D if mode == "dw" else R
+        cols = D if mode == "dx" else F
+        assert p.tiles == -(-rows // p.tile_m) * (cols // p.tile_n)
+        return
+    rows = n_in * block if mode == "dw" else R
+    cols = (n_in if mode == "dx" else n_out) * block
+    assert p.tiles == -(-rows // p.tile_m) * -(-cols // p.tile_n)
+    assert p.smem_bytes <= 232448 and 2 <= p.stages <= 8
+    stage = (p.tile_m + p.tile_n) * 64 * 2
+    assert p.smem_bytes >= p.stages * stage + p.tile_m * p.tile_n * 2
+    if mode == "dw":
+        assert p.split in (1, 2, 4, 8) and p.ctas == p.tiles * p.split
+        assert -(-R // 64) >= 4 * p.split or p.split == 1
+        assert p.stages * stage >= p.tile_m * p.tile_n * 4  # the partial
+    else:
+        assert p.split == 1 and p.ctas == 132
+
+
+@pytest.mark.parametrize("mode", ["fwd", "dx", "dw"])
+def test_plan_bodies_by_dtype_and_block(mode):
+    """f32 keeps its FMA body and tiles at every block; bf16 takes the
+    wgmma body on every multiple of 64 (64, 192: 64-wide chunks) and the
+    wmma body on odd multiples of 32; a shape no body takes raises."""
+    f32 = PBS.plan(mode, 4096, 768, 3072, 128, 6, 12, torch.float32)
+    assert f32.body == "fma" and f32.stages == 1 and f32.split == 1
+    assert (f32.tile_m, f32.tile_n) == ((64, 64) if mode == "dw"
+                                        else (128, 128))
+    for block in (64, 192, 256):
+        p = PBS.plan(mode, 300, 768, 1536, block, 1, 2)
+        assert p.body == "wgmma" and p.tile_m == 128
+    for block in (32, 96):
+        p = PBS.plan(mode, 300, 768, 1536, block, 1, 2)
+        assert p.body == "wmma"
+        assert (p.tile_m, p.tile_n) == ((32, 32) if mode == "dw"
+                                        else (64, 32))
+    for bad in ((0, 768, 1536, 128, 1, 1), (64, 768, 1536, 48, 1, 1),
+                (64, 768, 1536, 128, 7, 1), (64, 768, 1000, 128, 1, 1)):
+        with pytest.raises(ValueError, match="no block-sparse body"):
+            PBS.plan(mode, *bad)
+
+
+def test_plan_width_and_split_follow_the_cost_model():
+    """The tile width and dW's split minimize rounds of 132 CTAs x (ring
+    stages x (128 + width) + a fixed cost) over widths 64 / 128 / 192
+    and splits 1 / 2 / 4 / 8: spelled out at fc1's dW, where 48 tiles of
+    192 split 2 fill one round of 96 CTAs."""
+    steps, fixed = 4096 // 64, 6 * 256
+    cost = {}
+    for bn in (64, 128, 192):
+        tiles = (768 // 128) * (1536 // bn)
+        for s in (1, 2, 4, 8):
+            cost[(bn, s)] = -(-tiles * s // 132) * (
+                -(-steps // s) * (128 + bn) + fixed)
+    best = min(cost, key=lambda k: (cost[k], k[0], k[1]))
+    p = PBS.plan("dw", 4096, 768, 3072, 128, 6, 12)
+    assert best == (192, 2) == (p.tile_n, p.split)
+    # a row count too short to give each of two ranks 4 stages is not split
+    assert PBS.plan("dw", 64 * 7, 768, 3072, 128, 6, 12).split == 1
+
+
+def test_build_digest_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A library is named by a digest of its source, every ``csrc/*.cuh``
+    header and the flags: editing a header the source includes must
+    change the library's name, so a stale build is never loaded."""
+    from torchpruner_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    first = _build._target("k")
+    assert first.parent == tmp_path / "_build"
+    assert _build._target("k") == first  # a pure function of the files
+    (csrc / "h.cuh").write_text("// v2\n")
+    second = _build._target("k")
+    assert second != first
+    (csrc / "other.cuh").write_text("// a new header\n")
+    assert _build._target("k") not in (first, second)
+    (csrc / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build._target("k").name.startswith("libk-")
+
+
+def test_ab_build_refuses_an_old_source_without_its_headers(tmp_path,
+                                                            monkeypatch):
+    """An A/B's earlier source compiles against the headers beside it,
+    never the package's ``csrc/``: one whose quoted include (directly or
+    through a header) is not beside it is refused before ``nvcc`` runs."""
+    from torchpruner_tpu_torch.experiments import _ab
+    from torchpruner_tpu_torch.ops import _build
+
+    def no_nvcc():
+        raise AssertionError("nvcc ran on a source missing its header")
+
+    monkeypatch.setattr(_build, "nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    old = tmp_path / "rev"
+    old.mkdir()
+    src = old / "k.cu"
+    src.write_text('#include <cstdint>\n#include "h.cuh"\n')
+    assert _ab.missing_includes(src) == [str(old / "h.cuh")]
+    with pytest.raises(FileNotFoundError, match="h.cuh"):
+        _ab.build_library(str(src), "k_old")
+    (old / "h.cuh").write_text('#pragma once\n#include "deep.cuh"\n')
+    assert _ab.missing_includes(src) == [str(old / "deep.cuh")]
+    (old / "deep.cuh").write_text('#include "h.cuh"\n')  # a cycle ends
+    assert _ab.missing_includes(src) == []

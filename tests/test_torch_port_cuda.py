@@ -284,3 +284,86 @@ def test_blocksparse_weight_through_a_dense_layer(dev):
     assert BS.blocksparse_fwd.launches == n0 + 1
     tol = 2 ** -7 * float(want.float().abs().max())
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+# -- the bf16 wgmma body -------------------------------------------------------
+
+
+def _bs_case_keep(R, D, F, block, ik, ok, dtype, dev, seed=5):
+    """x, w (blocks outside in_keep x out_keep zeroed), g for given keep
+    lists (any order)."""
+    x, w, g, _, _ = _bs_case(R, D, F, block, 0, 0, dtype, dev, seed)
+    keep = np.kron(np.isin(np.arange(D // block), ik)[:, None]
+                   & np.isin(np.arange(F // block), ok)[None, :],
+                   np.ones((block, block), bool))
+    return x, w * torch.from_numpy(keep).to(dev, dtype), g
+
+
+@pytest.mark.parametrize("R", [4096, 4099])
+def test_blocksparse_dw_bit_equal_across_runs(dev, R):
+    """dW sums its cluster's partials in rank order, with no atomics: two
+    runs at BERT-base's fc1 (split 2) give the same bits."""
+    from torchpruner_tpu_torch.ops import blocksparse as BS
+
+    x, w, g, ik, ok = _bs_case(R, 768, 3072, 128, 0, 0.5, torch.bfloat16,
+                               dev)
+    assert BS.plan("dw", R, 768, 3072, 128, len(ik), len(ok)).split > 1
+    first = BS.blocksparse_dw(x, g, ik, ok, 128)
+    for _ in range(3):
+        assert torch.equal(BS.blocksparse_dw(x, g, ik, ok, 128), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocksparse_plan_entry_matches_the_mirror(dev, dtype):
+    """``tp_bs_plan`` of the built library equals ``plan`` at every
+    shape the CPU tests pin and at small and ragged ones."""
+    from torchpruner_tpu_torch.ops import blocksparse as BS
+
+    shapes = [(4096, 768, 3072, 128, 6, 12), (4096, 3072, 768, 128, 12, 6),
+              (1024, 4096, 4096, 128, 16, 16), (4099, 768, 3072, 128, 6, 12),
+              (1000, 256, 384, 32, 4, 6), (8192, 1024, 4096, 128, 8, 16),
+              (8192, 4096, 1024, 128, 16, 8), (1, 128, 128, 128, 1, 1),
+              (63, 384, 576, 192, 1, 2), (131, 192, 320, 64, 2, 2),
+              (77, 96, 160, 32, 2, 3), (448, 768, 3072, 128, 6, 12)]
+    for shape in shapes:
+        for mode in ("fwd", "dx", "dw"):
+            assert BS.plan_on_card(mode, *shape, dtype) \
+                == BS.plan(mode, *shape, dtype), (mode, shape)
+
+
+@pytest.mark.parametrize("R", [1, 63, 4099, 8192])
+def test_blocksparse_wgmma_rows(dev, R):
+    """All three bf16 modes against the plain version where the row count
+    is one, below a wgmma's 64, ragged, and mfu_llama's 8192."""
+    x, w, g, ik, ok = _bs_case(R, 768, 3072, 128, 0.5, 0.5, torch.bfloat16,
+                               dev)
+    _bs_check(x, w, g, ik, ok, 128)
+
+
+@pytest.mark.parametrize("block", [64, 128, 192])
+def test_blocksparse_wgmma_every_block_kept(dev, block):
+    x, w, g, ik, ok = _bs_case(777, 384 * 2, 384 * 3, block, 0, 0,
+                               torch.bfloat16, dev)
+    assert len(ik) == 768 // block and len(ok) == 1152 // block
+    _bs_check(x, w, g, ik, ok, block)
+
+
+def test_blocksparse_wgmma_unsorted_keep_lists(dev):
+    """Keep lists in any order gather the same blocks: a tile may span
+    two kept blocks that lie far apart."""
+    ik, ok = (5, 0, 3), (17, 2, 9, 4, 11)
+    x, w, g = _bs_case_keep(1000, 768, 3072, 128, ik, ok, torch.bfloat16,
+                            dev)
+    _bs_check(x, w, g, ik, ok, 128)
+
+
+@pytest.mark.parametrize("ik,ok", [((4,), tuple(range(24))),
+                                   (tuple(range(6)), (17,)),
+                                   ((4,), (17,))])
+def test_blocksparse_wgmma_single_kept_block(dev, ik, ok):
+    """One kept block on an axis: a tile whose columns (or dW rows) are
+    half past the kept width loads the last real chunk again and stores
+    only the real ones."""
+    x, w, g = _bs_case_keep(4099, 768, 3072, 128, ik, ok, torch.bfloat16,
+                            dev)
+    _bs_check(x, w, g, ik, ok, 128)

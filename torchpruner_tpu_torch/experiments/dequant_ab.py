@@ -20,9 +20,12 @@ kernel, and compares the two in one process on one card:
 
 Writes the whole result to ``--out`` (JSON) and prints a summary.
 
-Run from the root of a checkout on the card:
-``python -m torchpruner_tpu_torch.experiments.dequant_ab --old OLD.cu
-[--out chiprun_out/dequant_ab.json] [--no-serve]``.
+Run from the root of a checkout on the card, with the earlier revision's
+``csrc/`` extracted into the git-ignored ``_archive/`` (``python -m
+torchpruner_tpu_torch.experiments._ab REV``):
+``python -m torchpruner_tpu_torch.experiments.dequant_ab --old
+_archive/REV/dequant_matmul.cu [--out chiprun_out/dequant_ab.json]
+[--no-serve]``.
 """
 
 from __future__ import annotations
@@ -31,9 +34,9 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 import sys
-import time
+
+from torchpruner_tpu_torch.experiments._ab import ORDER, build_library
 
 #: the earlier kernel's grid target: 528 blocks of 128 columns
 _OLD_TARGET_BLOCKS = 528
@@ -47,19 +50,13 @@ def old_k_splits(rows: int, F: int) -> int:
 
 
 def build_old(src: str):
-    """Compile ``src`` with the package's nvcc flags; the loaded entry."""
-    from torchpruner_tpu_torch.ops import _build
-
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / "libdequant_matmul_old.so"
-    t0 = time.perf_counter()
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
-                   check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(out)).tp_dequant_matmul
+    """Compile ``src``; the loaded entry and the build seconds."""
+    lib, seconds = build_library(src, "dequant_matmul_old")
+    fn = lib.tp_dequant_matmul
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, time.perf_counter() - t0
+    return fn, seconds
 
 
 def old_wrapper(fn):
@@ -107,7 +104,6 @@ def kernel_cases(dev, kernels) -> list:
     from torchpruner_tpu_torch.ops import fused_matmul as FM
     from torchpruner_tpu_torch.ops.quant import quantize_tensor
 
-    order = ("old", "new", "new", "old")
     cases = []
     gen = torch.Generator(device=dev).manual_seed(0)
     for (D, F) in CS.DQ_SHAPES:
@@ -126,7 +122,7 @@ def kernel_cases(dev, kernels) -> list:
                 errs = {k: float((fn(x, q, scale, bits=bits) - want).abs()
                                  .max()) for k, fn in kernels.items()}
                 times = {k: [] for k in kernels}
-                for k in order:
+                for k in ORDER:
                     fn = kernels[k]
                     times[k].append(CS.event_ms(
                         lambda i: fn(x, qs[i % n], scale, bits=bits), 20))
@@ -169,7 +165,9 @@ def sums(cases) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True,
-                    help="the earlier kernel's .cu source")
+                    help="an earlier kernel source beside its own revision's "
+                         "headers (_archive/REV/NAME.cu, from python -m "
+                         "torchpruner_tpu_torch.experiments._ab REV)")
     ap.add_argument("--out", default="chiprun_out/dequant_ab.json")
     ap.add_argument("--no-serve", action="store_true",
                     help="skip the phase 3 serve turns")
@@ -202,7 +200,7 @@ def main(argv=None) -> int:
               f"{v['new'][0]:.3f}/{v['new'][1]:.3f} ms", flush=True)
     if not args.no_serve:
         serve = []
-        for k in ("old", "new", "new", "old"):
+        for k in ORDER:
             FM.dequant_matmul = old if k == "old" else new
             try:
                 out = CS.serve_phase(dev, bits=4, depth=CS.DEPTH)

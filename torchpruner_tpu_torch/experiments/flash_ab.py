@@ -22,73 +22,30 @@ Writes the whole result to ``--out`` (JSON) and prints a summary: for
 each case and kernel the median of the new library's turns over the
 median of the old's.
 
-Run from the root of a checkout on the card, with the earlier source
-unpacked into the git-ignored ``_archive/``:
-``python -m torchpruner_tpu_torch.experiments.flash_ab --old OLD.cu
-[--out logs/flash_ab.json] [--steps 6] [--no-steps]``.
+Run from the root of a checkout on the card, with the earlier revision's
+``csrc/`` extracted into the git-ignored ``_archive/`` (``python -m
+torchpruner_tpu_torch.experiments._ab REV``):
+``python -m torchpruner_tpu_torch.experiments.flash_ab --old
+_archive/REV/flash_attention.cu [--out logs/flash_ab.json] [--steps 6]
+[--no-steps]``.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
-ORDER = ("old", "new", "new", "old")
+from torchpruner_tpu_torch.experiments._ab import (
+    ORDER,
+    bound_library,
+    build_library,
+)
+
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
-
-
-def build_old(src: str) -> tuple:
-    """Compile ``src`` with the package's nvcc flags; the loaded library
-    and the build seconds."""
-    from torchpruner_tpu_torch.ops import _build
-
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / "libflash_attention_old.so"
-    t0 = time.perf_counter()
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
-                   check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(out)), time.perf_counter() - t0
-
-
-def entries(lib):
-    """A stand-in for ``flash_attention._fn`` that takes the C entries
-    from ``lib`` (one ctypes signature per entry, set once)."""
-    cache = {}
-
-    def fn(name: str, n_ptr: int):
-        f = cache.get(name)
-        if f is None:
-            f = cache[name] = getattr(lib, name)
-            f.argtypes = ([ctypes.c_void_p] * n_ptr
-                          + [ctypes.POINTER(ctypes.c_longlong)]
-                          + [ctypes.c_int] * 4
-                          + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_void_p])
-            f.restype = ctypes.c_int
-        return f
-
-    return fn
-
-
-@contextlib.contextmanager
-def bound(fn):
-    """The flash wrappers launch through ``fn`` while the context is
-    open."""
-    from torchpruner_tpu_torch.ops import flash_attention as FA
-
-    orig = FA._fn
-    FA._fn = fn
-    try:
-        yield
-    finally:
-        FA._fn = orig
 
 
 def kernel_cases(dev, libs) -> list:
@@ -116,8 +73,8 @@ def kernel_cases(dev, libs) -> list:
         del ref, r_out, r_lse
         errs, times, inputs = {}, {k_: {n: [] for n in libs}
                                    for k_ in KERNELS}, {}
-        for name, fn in libs.items():
-            with bound(fn):
+        for name, lib in libs.items():
+            with bound_library("flash_attention", lib):
                 o, lse = FA.flash_fwd(q, k, v, causal=causal, with_lse=True)
                 dq, delta = FA.flash_dq(q, k, v, o, g, lse, causal=causal)
                 dk, dv = FA.flash_dkv(q, k, v, g, lse, delta, causal=causal)
@@ -135,7 +92,7 @@ def kernel_cases(dev, libs) -> list:
             "flash_dkv": lambda i: FA.flash_dkv(q, k, v, g, lse, delta,
                                                 causal=causal)}
         for name in ORDER:
-            with bound(libs[name]):
+            with bound_library("flash_attention", libs[name]):
                 for kern in KERNELS:
                     times[kern][name].append(CS.event_ms(launch[kern], 20))
         ratio = {kern: statistics.median(times[kern]["new"])
@@ -164,7 +121,7 @@ def step_turns(trainer, batches, libs, steps: int) -> list:
 
     out = []
     for name in ORDER:
-        with bound(libs[name]):
+        with bound_library("flash_attention", libs[name]):
             walls = []
             for x, y in batches[:steps]:
                 torch.cuda.synchronize()
@@ -239,7 +196,9 @@ def retrain_steps(dev, libs, steps: int) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True,
-                    help="the earlier kernels' .cu source")
+                    help="an earlier kernel source beside its own revision's "
+                         "headers (_archive/REV/NAME.cu, from python -m "
+                         "torchpruner_tpu_torch.experiments._ab REV)")
     ap.add_argument("--out", default="logs/flash_ab.json")
     ap.add_argument("--steps", type=int, default=6,
                     help="timed training steps per turn")
@@ -260,9 +219,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     smi = CS.smi_line()
     info = _build.build(["flash_attention"])["flash_attention"]
-    old_lib, old_s = build_old(args.old)
-    libs = {"old": entries(old_lib),
-            "new": entries(_build.library("flash_attention"))}
+    old_lib, old_s = build_library(args.old, "flash_attention_old")
+    libs = {"old": old_lib, "new": _build.library("flash_attention")}
     print(f"card: {smi}; built new {info['seconds']:.2f} s, old "
           f"{old_s:.2f} s", flush=True)
     result = {"card": smi, "cases": kernel_cases(dev, libs)}

@@ -53,9 +53,9 @@ GROUPS = {"flash_fwd": ("fwd_kernel", "fwd_wgmma", "fwd_tc"),
           "flash_dq": ("dq_kernel", "dq_tc"),
           "flash_dkv": ("dkv_kernel", "dkv_wgmma", "dkv_tc"),
           "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet")}
-#: csrc/blocksparse_matmul.cu: ``bs_kernel<T, MODE, ...>``, MODE 0
-#: forward, 1 dx, 2 dW
-_BS_MODE = re.compile(r"bs_kernel<[^,]*, *(?:\([^)]*\))?(\d)")
+#: csrc/blocksparse_matmul.cu: ``bs_kernel<T, MODE, ...>`` and
+#: ``bs_wgmma<MODE, ...>``, MODE 0 forward, 1 dx, 2 dW
+_BS_MODE = re.compile(r"bs_(?:kernel<[^,]*, *|wgmma<)(?:\([^)]*\))?(\d)")
 _BS_NAMES = ("blocksparse_fwd", "blocksparse_dx", "blocksparse_dw")
 
 

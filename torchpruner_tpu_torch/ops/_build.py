@@ -5,8 +5,8 @@ Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with ``ctypes`` — seconds per file, against
 minutes for a source that includes PyTorch's headers.  Libraries land in
 ``torchpruner_tpu_torch/_build/`` (listed in ``.gitignore``) under a
-name carrying a digest of the source and flags, so an edited source is
-never served by a stale library.  :func:`build` compiles every missing
+name carrying a digest of the source, the shared headers and the flags,
+so an edited source or header is never served by a stale library.  :func:`build` compiles every missing
 library in parallel, one ``nvcc`` per source, all started together.
 """
 
@@ -55,9 +55,13 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of ``csrc/{name}.cu``, named by a digest of the source,
+    every shared header of ``csrc/`` (``*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:

@@ -18,6 +18,13 @@ kernel ``_mm_kernel`` in its three grid layouts:
 - :func:`blocksparse_dw` — ``dW = xᵀ g`` on the kept (in × out) blocks;
   every other block exactly 0.
 
+How a call runs is its launch plan, a function of the shapes alone
+(:func:`plan`, the mirror of the library's ``tp_bs_plan``): bf16 on a
+block that is a multiple of 64 takes the wgmma body (TMA ring, tiles of
+128 rows by 64-192 columns gathered through the keep lists, dW's rows
+split over a thread-block cluster and summed in rank order), bf16 on an
+odd multiple of 32 the earlier wmma body, f32 the FMA body.
+
 :func:`blocksparse_matmul` wraps them in a ``torch.autograd.Function``
 that mirrors the JAX custom VJP.  CPU tensors run
 :func:`blocksparse_matmul_plain` (the dense product of the masked
@@ -48,6 +55,7 @@ __all__ = [
     "BlockSparseWeight", "blocksparse_matmul", "blocksparse_matmul_plain",
     "blocksparse_fwd", "blocksparse_dx", "blocksparse_dw", "kernel_active",
     "keep_blocks_from_drop", "keep_blocks_from_mask", "DEFAULT_BLOCK",
+    "BlockSparsePlan", "plan",
 ]
 
 #: weight-block edge: the JAX package's lane width, and the granularity
@@ -156,6 +164,119 @@ def _keep_tuple(keep: Optional[Sequence[int]], n: int) -> Tuple[int, ...]:
     if keep is None:
         return _all_blocks(n)
     return keep if isinstance(keep, tuple) else tuple(int(i) for i in keep)
+
+
+_MODES = {"fwd": 0, "dx": 1, "dw": 2}
+_BODIES = ("fma", "wmma", "wgmma")
+#: the plan's constants, as in ``csrc/blocksparse_matmul.cu``
+_BK = _CH = 64
+_BM, _SMS, _SMEM_LIMIT, _MAX_STAGES, _MAX_SPLIT = 128, 132, 232448, 8, 8
+_MIN_SPLIT_STEPS, _FIXED_COST = 4, 6 * 256
+
+
+@dataclass(frozen=True)
+class BlockSparsePlan:
+    """How a kernel call runs (``tp_bs_plan``): the body (``"fma"`` f32,
+    ``"wmma"`` bf16 on a block that is an odd multiple of 32, ``"wgmma"``
+    bf16 otherwise), its output tile, ring stages, the dW row split over a
+    cluster, CTAs, kept output tiles and dynamic shared-memory bytes."""
+
+    body: str
+    tile_m: int
+    tile_n: int
+    stages: int
+    split: int
+    ctas: int
+    tiles: int
+    smem_bytes: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _wgmma_smem(bn, stages, n_in, n_out, D, F, block) -> int:
+    return (1024 + stages * (_BM + bn) * _BK * 2 + _BM * bn * 2
+            + 16 * stages
+            + _cdiv(4 * (n_in + n_out), 16) * 16
+            + _cdiv(D // block + F // block, 16) * 16)
+
+
+def plan(mode: str, R: int, D: int, F: int, block: int, n_in: int,
+         n_out: int, dtype=torch.bfloat16) -> BlockSparsePlan:
+    """The launch plan of ``mode`` (``"fwd"``, ``"dx"``, ``"dw"``) at
+    these shapes: the mirror of the C entry ``tp_bs_plan``, a function of
+    its arguments alone.  bf16 on a multiple-of-64 block takes the wgmma
+    body: tiles of 128 rows by 64, 128 or 192 columns gathered through
+    the keep lists; the width, and dW's split of R over a cluster of 1,
+    2, 4 or 8 CTAs, minimize rounds of 132 CTAs x (ring stages x (128 +
+    width) + a fixed cost), what the CTAs read from L2; fwd / dx run at
+    most 132 persistent CTAs, dW one cluster per tile; as many ring
+    stages (at most 8) as 227 KB holds."""
+    m = _MODES[mode]
+    if not (R >= 1 and block >= 32 and block % 32 == 0 and D >= 1
+            and F >= 1 and D % block == 0 and F % block == 0
+            and 1 <= n_in <= D // block and 1 <= n_out <= F // block
+            and dtype in _CODES):
+        raise ValueError(f"no block-sparse body takes {mode} R {R} D {D} "
+                         f"F {F} block {block} kept {n_in} x {n_out} "
+                         f"{dtype}")
+    f32 = dtype == torch.float32
+    if f32 or block % 64:
+        if m == 2:
+            bm = bn = 64 if f32 and block % 64 == 0 else 32
+        elif f32 and block % 64 == 0:
+            bm = bn = 128 if block % 128 == 0 else 64
+        else:
+            bm, bn = 64, 32
+        rows = D // bm if m == 2 else _cdiv(R, bm)
+        ctas = rows * ((D if m == 1 else F) // bn)
+        return BlockSparsePlan("fma" if f32 else "wmma", bm, bn, 1, 1,
+                               ctas, ctas, 0)
+    rows = n_in * block if m == 2 else R
+    cols = (n_in if m == 1 else n_out) * block
+    steps = (n_in * block // _BK if m == 0 else
+             n_out * block // _BK if m == 1 else _cdiv(R, _BK))
+    best = None
+    for bn in (_CH, 2 * _CH, 3 * _CH):
+        tiles = _cdiv(rows, _BM) * _cdiv(cols, bn)
+        s = 1
+        while s <= (_MAX_SPLIT if m == 2 else 1):
+            if s > 1 and steps < s * _MIN_SPLIT_STEPS:
+                break
+            c = _cdiv(tiles * s, _SMS) * (
+                _cdiv(steps, s) * (_BM + bn) + _FIXED_COST)
+            if best is None or c < best[0]:
+                best = (c, bn, s, tiles)
+            s *= 2
+    _, bn, split, tiles = best
+    if m == 2:
+        ctas = tiles * split
+    else:  # the CTAs also write the dropped (64-row, block) units
+        ctas = min(_cdiv(R, _CH) * ((F if m == 0 else D) // block) + tiles,
+                   _SMS)
+    stage = (_BM + bn) * _BK * 2
+    fixed = _wgmma_smem(bn, 0, n_in, n_out, D, F, block) + 16 * _MAX_STAGES
+    stages = min((_SMEM_LIMIT - fixed) // stage, _MAX_STAGES)
+    if stages < 2 or stages * stage < _BM * bn * 4:
+        raise ValueError(f"block-sparse {mode}: the keep lists of D {D} / "
+                         f"F {F} at block {block} leave no room for a ring")
+    return BlockSparsePlan("wgmma", _BM, bn, stages, split, ctas, tiles,
+                           _wgmma_smem(bn, stages, n_in, n_out, D, F, block))
+
+
+def plan_on_card(mode: str, R: int, D: int, F: int, block: int, n_in: int,
+                 n_out: int, dtype=torch.bfloat16) -> BlockSparsePlan:
+    """The plan as the built library's ``tp_bs_plan`` computes it."""
+    from torchpruner_tpu_torch.ops import _build
+
+    fn = _build.function("blocksparse_matmul", "tp_bs_plan",
+                         [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    out = (ctypes.c_longlong * 8)()
+    _build.check(fn(_MODES[mode], R, D, F, block, n_in, n_out,
+                    _CODES[dtype], ctypes.addressof(out)), "tp_bs_plan")
+    v = list(out)
+    return BlockSparsePlan(_BODIES[v[0]], *v[1:])
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
