@@ -12,15 +12,18 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 2. Kernel vs plain: the dequant matmul (int4 and int8, M in {1, 4, 64,
    128, 300} and the prefill buckets {16, 48, 104} of phase 3's prompts,
    at the Llama-3-8B projection shapes; every row of every call equal bit
-   for bit to the same row computed alone) and decode attention (B=4, T=512,
-   H=32, Dh=128, f32 and bf16 cache, ragged positions incl. 0 and T-1,
-   stale rows poisoned) against their plain PyTorch versions; CUDA-event
-   times of kernel, plain version, one PyTorch library call, and the
-   least time the card could take (bound).
+   for bit to the same row computed alone) and split-KV decode attention
+   (B=4, T=512, H=32, Dh=128, and a long cache B=4, T=8192, H=8, Dh=128;
+   f32 and bf16 cache, ragged positions incl. 0 and T-1, stale rows
+   poisoned, every row alone and a second run bit-equal, one launch a
+   call, each case's ``decode_plan`` printed) against their plain
+   PyTorch versions; CUDA-event times of kernel, plain version, one
+   PyTorch library call, and the least time the card could take (bound).
 3. Serve Llama-3-8B at full width and depth with int4 weights through
    ``ServeEngine`` (4 slots, max_len 512, bf16 activations and KV) on 8
    greedy requests, replay each alone through ``generate``; launch
-   counts of both kernels are read around the serve run.
+   counts of both kernels are read around the serve run (decode
+   attention: one launch a layer a decode step).
 4. The same at int8 with 4 blocks (the int8 mode of the dequant kernel).
 5. The CLI: ``python -m torchpruner_tpu_torch serve llama3_ffn_taylor
    --smoke --synthetic 8 --verify``.
@@ -30,8 +33,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    (mfu_llama training) and a causal f32 case whose S is not a multiple
    of the 64-row tile; for the bf16 wgmma kernels also a ragged causal S
    333, Dh 72, q/k/v as views of one fused (B, S, 3, H, Dh) tensor (TMA),
-   rows only 2-byte aligned (the copy route) and S 1; dK/dV run twice
-   must be bit-equal; CUDA-event times of each kernel, the plain version
+   rows only 2-byte aligned (the copy route) and S 1; dQ (with delta)
+   and dK/dV run twice must be bit-equal; the dQ body and route that
+   ran are printed; CUDA-event times of each kernel, the plain version
    and ``scaled_dot_product_attention`` (timed only), and the bound.
 7. The paper's loop at full width:
    ``python -m torchpruner_tpu_torch --preset bert_glue_sensitivity``
@@ -223,61 +227,90 @@ def dequant_cases(dev):
     return cases
 
 
+#: decode attention's cases: (B, T, H, Dh, positions) — the serving
+#: cache of phase 3 at the Llama-3-8B attention width, and a long cache
+#: (16 chunks of 512) with spread positions
+DECODE_CASES = ((4, 512, 32, 128, (0, 100, 300, 511)),
+                (4, 8192, 8, 128, (100, 2900, 5600, 8191)))
+
+
 def decode_cases(dev):
     import torch
     import torch.nn.functional as Fn
 
     from torchpruner_tpu_torch.ops import decode_attention as DA
 
-    B, T, H, Dh = 4, 512, 32, 128
-    pos = torch.tensor([0, 100, 300, T - 1], dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn((B, 1, H, Dh), generator=gen, device=dev,
-                        dtype=torch.bfloat16)
-        k = torch.randn((B, T, H, Dh), generator=gen, device=dev).to(dtype)
-        v = torch.randn((B, T, H, Dh), generator=gen, device=dev).to(dtype)
-        got = DA.decode_attention(q, k, v, pos)
-        want = DA.decode_attention_plain(q, k, v, pos)
-        torch.cuda.synchronize()
-        rel = 1e-5 if dtype == torch.float32 else 2 ** -7
-        tol = rel * float(want.float().abs().max())
-        err = float((got.float() - want.float()).abs().max())
-        if not err <= tol:
-            fail(f"decode attention {dtype}: max abs err {err} > tol {tol}")
-        kp, vp = k.clone(), v.clone()
-        for b, p in enumerate(pos.tolist()):
-            kp[b, p + 1:] = 1e4
-            vp[b, p + 1:] = -1e4
-        if not torch.equal(DA.decode_attention(q, kp, vp, pos), got):
-            fail(f"decode attention {dtype}: stale rows changed a result")
-        n = copies_for(k.numel() * k.element_size() * 2)
-        kvs = [(k, v)] + [(k.clone(), v.clone()) for _ in range(n - 1)]
-        ms = event_ms(lambda i: DA.decode_attention(
-            q, kvs[i % n][0], kvs[i % n][1], pos), 50)
-        plain = event_ms(lambda i: DA.decode_attention_plain(
-            q, k, v, pos), 2)
-        t = torch.arange(T, device=dev)
-        mask = (t[None, :] <= pos[:, None].long())[:, None, None, :]
-        qs = q.to(dtype).permute(0, 2, 1, 3)
-        lib = event_ms(lambda i: Fn.scaled_dot_product_attention(
-            qs, kvs[i % n][0].permute(0, 2, 1, 3),
-            kvs[i % n][1].permute(0, 2, 1, 3), attn_mask=mask), 50)
-        live = sum(p + 1 for p in pos.tolist())
-        nbytes = (q.numel() * q.element_size()
-                  + 2 * live * H * Dh * k.element_size()
-                  + pos.numel() * 4 + got.numel() * got.element_size())
-        b, by = bound_ms(nbytes, 4.0 * live * H * Dh, FP32_FLOPS)
-        cases.append({"cache_dtype": str(dtype).replace("torch.", ""),
-                      "B": B, "T": T, "H": H, "Dh": Dh,
-                      "pos": pos.tolist(), "max_abs_err": err, "tol": tol,
-                      "ms": ms, "plain_ms": plain, "library_ms": lib,
-                      "bound_ms": b, "bound_by": by})
-        log(f"  decode cache={dtype} kernel {ms:.4f} ms  plain "
-            f"{plain:.3f} ms  library {lib:.4f} ms  bound {b:.4f} ms "
-            f"({by})  err {err:.3g} (tol {tol:.3g})")
-        del kvs, k, v, kp, vp
+    for B, T, H, Dh, positions in DECODE_CASES:
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        plan = DA.decode_plan(T)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, 1, H, Dh), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            k = torch.randn((B, T, H, Dh), generator=gen,
+                            device=dev).to(dtype)
+            v = torch.randn((B, T, H, Dh), generator=gen,
+                            device=dev).to(dtype)
+            n0 = DA.decode_attention.launches
+            got = DA.decode_attention(q, k, v, pos)
+            want = DA.decode_attention_plain(q, k, v, pos)
+            torch.cuda.synchronize()
+            if DA.decode_attention.launches != n0 + 1:
+                fail(f"decode attention T={T}: "
+                     f"{DA.decode_attention.launches - n0} launches a call")
+            rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+            tol = rel * float(want.float().abs().max())
+            err = float((got.float() - want.float()).abs().max())
+            if not err <= tol:
+                fail(f"decode attention T={T} {dtype}: max abs err {err} > "
+                     f"tol {tol}")
+            if not torch.equal(DA.decode_attention(q, k, v, pos), got):
+                fail(f"decode attention T={T} {dtype}: two runs differ")
+            for b in range(B):
+                if not torch.equal(DA.decode_attention(
+                        q[b:b + 1], k[b:b + 1], v[b:b + 1], pos[b:b + 1])[0],
+                        got[b]):
+                    fail(f"decode attention T={T} {dtype}: row {b} alone "
+                         f"differs from the batched row")
+            kp, vp = k.clone(), v.clone()
+            for b, p in enumerate(positions):
+                kp[b, p + 1:] = 1e4
+                vp[b, p + 1:] = -1e4
+            if not torch.equal(DA.decode_attention(q, kp, vp, pos), got):
+                fail(f"decode attention T={T} {dtype}: stale rows changed "
+                     f"a result")
+            del kp, vp
+            n = copies_for(k.numel() * k.element_size() * 2)
+            kvs = [(k, v)] + [(k.clone(), v.clone()) for _ in range(n - 1)]
+            ms = event_ms(lambda i: DA.decode_attention(
+                q, kvs[i % n][0], kvs[i % n][1], pos), 50)
+            plain = event_ms(lambda i: DA.decode_attention_plain(
+                q, k, v, pos), 2)
+            t = torch.arange(T, device=dev)
+            mask = (t[None, :] <= pos[:, None].long())[:, None, None, :]
+            qs = q.to(dtype).permute(0, 2, 1, 3)
+            lib = event_ms(lambda i: Fn.scaled_dot_product_attention(
+                qs, kvs[i % n][0].permute(0, 2, 1, 3),
+                kvs[i % n][1].permute(0, 2, 1, 3), attn_mask=mask), 50)
+            live = sum(p + 1 for p in positions)
+            nbytes = (q.numel() * q.element_size()
+                      + 2 * live * H * Dh * k.element_size()
+                      + pos.numel() * 4 + got.numel() * got.element_size())
+            b_ms, by = bound_ms(nbytes, 4.0 * live * H * Dh, FP32_FLOPS)
+            cases.append({"cache_dtype": str(dtype).replace("torch.", ""),
+                          "B": B, "T": T, "H": H, "Dh": Dh,
+                          "pos": list(positions),
+                          "plan": {"chunk": plan[0], "n_split": plan[1]},
+                          "max_abs_err": err, "tol": tol,
+                          "rows_equal_solo": True, "runs_bit_equal": True,
+                          "ms": ms, "plain_ms": plain, "library_ms": lib,
+                          "bound_ms": b_ms, "bound_by": by})
+            log(f"  decode B={B} T={T} H={H} Dh={Dh} cache={dtype} plan "
+                f"{plan[1]} x {plan[0]}: kernel {ms:.4f} ms  plain "
+                f"{plain:.3f} ms  library {lib:.4f} ms  bound {b_ms:.4f} ms "
+                f"({by})  err {err:.3g} (tol {tol:.3g})")
+            del kvs, k, v
     torch.cuda.empty_cache()
     return cases
 
@@ -358,6 +391,11 @@ def serve_phase(dev, *, bits: int, depth: int) -> dict:
     for name, n in launches.items():
         if n <= 0:
             fail(f"int{bits} serve never launched the {name} kernel")
+    # split-KV decode attention stays one launch a layer a decode step
+    if launches["decode_attention"] != depth * summary["decode_steps"]:
+        fail(f"int{bits} serve: {launches['decode_attention']} decode "
+             f"attention launches for {summary['decode_steps']} steps of "
+             f"{depth} layers")
     del engine, params
     torch.cuda.empty_cache()
     return out
@@ -470,10 +508,13 @@ def flash_case(dev, label, B, S, H, Dh, dtn, causal, layout="bshd") -> dict:
     dq, delta = FA.flash_dq(q, k, v, o, g, lse, causal=causal)
     dk, dv = FA.flash_dkv(q, k, v, g, lse, delta, causal=causal)
     dk2, dv2 = FA.flash_dkv(q, k, v, g, lse, delta, causal=causal)
+    dq2, delta2 = FA.flash_dq(q, k, v, o, g, lse, causal=causal)
     torch.cuda.synchronize()
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         fail(f"flash {label}: dK/dV differ between two runs")
-    del dk2, dv2
+    if not (torch.equal(dq, dq2) and torch.equal(delta, delta2)):
+        fail(f"flash {label}: dQ or delta differ between two runs")
+    del dk2, dv2, dq2, delta2
     rel, grel = (1e-5, 1e-4) if f32 else (2 ** -7, 2 ** -7)
     errs = {}
     dv_scale = float(r_grads[2].abs().max())
@@ -494,7 +535,10 @@ def flash_case(dev, label, B, S, H, Dh, dtn, causal, layout="bshd") -> dict:
     case = {"label": label, "B": B, "S": S, "H": H, "Dh": Dh, "dtype": dtn,
             "causal": causal, "layout": layout,
             "route": None if f32 else FA.copy_route(q, k, v, g),
-            "dkv_bit_equal": True, "errors": errs}
+            # the dQ body and the route its q, k, v, o, dO take
+            "dq_body": "dq_kernel (fma)" if f32 else "dq_wgmma",
+            "dq_route": None if f32 else FA.copy_route(q, k, v, o, g),
+            "dkv_bit_equal": True, "dq_bit_equal": True, "errors": errs}
     case["ms"] = {
         "flash_fwd": event_ms(lambda i: FA.flash_fwd(
             q, k, v, causal=causal, with_lse=True), 10),
@@ -533,7 +577,8 @@ def flash_case(dev, label, B, S, H, Dh, dtn, causal, layout="bshd") -> dict:
                               peak)}
     ms = case["ms"]
     log(f"  flash {label} {dtn} B{B} S{S} H{H} Dh{Dh} causal={causal} "
-        f"{layout} route={case['route']}: "
+        f"{layout} route={case['route']} dq {case['dq_body']} route="
+        f"{case['dq_route']}: "
         f"fwd {ms['flash_fwd']:.4f} / dq {ms['flash_dq']:.4f} / dkv "
         f"{ms['flash_dkv']:.4f} ms  bounds "
         + "/".join(f"{case['bound'][k][0]:.4f}" for k in FLASH_KERNELS)
@@ -1216,7 +1261,8 @@ def main() -> int:
     # per-kernel line: the work of one full-depth 8B int4 decode step at
     # 4 slots (sum over that step's calls), every case beside it
     step_dq = [c for c in dq if c["bits"] == 4 and c["M"] == 4]
-    step_da = [c for c in da if c["cache_dtype"] == "bfloat16"]
+    step_da = [c for c in da if c["cache_dtype"] == "bfloat16"
+               and c["T"] == DECODE_CASES[0][1]]
     dq_w = lambda c: DQ_SHAPES[(c["D"], c["F"])]  # noqa: E731
     da_w = lambda c: DEPTH  # noqa: E731
     kernels = []
@@ -1244,7 +1290,8 @@ def main() -> int:
             "per": "one full-depth Llama-3-8B int4 decode step at 4 slots "
                    "(sum over its calls)",
             "launches_int8_phase": s8["launches"][name],
-            **(prefill_sums(dq) if name == "dequant_matmul" else {}),
+            **(prefill_sums(dq) if name == "dequant_matmul" else
+               {"plan": step[0]["plan"]}),
             "cases": cases,
         })
     score = next(c for c in fl if c["label"] == "scoring")

@@ -139,6 +139,63 @@ def test_decode_kernel_matches_plain_and_masks_stale(dev, dtype, T):
         assert torch.equal(solo[0], got[b])
 
 
+#: the split-KV cases: T across one chunk (8), a ragged chunk (100), the
+#: serving cache (512) and 16-chunk plans (4096, 8192)
+DECODE_T = (8, 100, 512, 4096, 8192)
+
+
+def _decode_positions(T):
+    """0, both sides of a chunk edge (where the plan has one), T - 1."""
+    chunk, n = DA.decode_plan(T)
+    edge = chunk if n > 1 else T // 2
+    return [0, max(0, edge - 1), min(T - 1, edge), T - 1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("T", DECODE_T)
+def test_decode_split_kv_matches_plain_bitstable_one_launch(dev, T, Dh,
+                                                            dtype):
+    B, H = 4, 4
+    q, k, v = _decode_case(B, T, H, Dh, dtype, dev, seed=T + Dh)
+    pos = torch.tensor(_decode_positions(T), dtype=torch.int32, device=dev)
+    n0 = DA.decode_attention.launches
+    got = DA.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert DA.decode_attention.launches == n0 + 1  # one launch a call
+    want = DA.decode_attention_plain(q, k, v, pos)
+    assert got.dtype == dtype and got.shape == (B, 1, H, Dh)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+    tol = rel * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert torch.equal(DA.decode_attention(q, k, v, pos), got)  # two runs
+    kp, vp = k.clone(), v.clone()
+    for b, p in enumerate(pos.tolist()):
+        kp[b, p + 1:] = 1e4
+        vp[b, p + 1:] = -1e4
+    assert torch.equal(DA.decode_attention(q, kp, vp, pos), got)
+    for b in range(B):  # a row alone gives the batched row's bits
+        solo = DA.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                   pos[b:b + 1])
+        assert torch.equal(solo[0], got[b])
+
+
+def test_decode_plan_entry_matches_the_mirror(dev):
+    import ctypes
+
+    from torchpruner_tpu_torch.ops import _build
+
+    fn = _build.function("decode_attention", "tp_decode_plan",
+                         [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                          ctypes.POINTER(ctypes.c_int)])
+    for T in (*range(1, 300), 511, 512, 513, 1000, 4095, 4096, 8192,
+              DA.MAX_CACHE_LEN):
+        chunk, n = ctypes.c_int(), ctypes.c_int()
+        assert fn(T, ctypes.byref(chunk), ctypes.byref(n)) == 0
+        assert (chunk.value, n.value) == DA.decode_plan(T)
+    assert fn(DA.MAX_CACHE_LEN + 1, ctypes.byref(chunk), ctypes.byref(n))
+
+
 def test_serve_int4_verify_on_card(dev):
     from torchpruner_tpu_torch.experiments.llama8b_decode import (
         quantized_random_params,

@@ -175,7 +175,7 @@ def test_smem_fits_the_card_and_pads_head_dim_to_chunks():
     for Dh in range(8, PF.MAX_HEAD_DIM + 1, 8):
         Dp = PF.padded_head_dim(Dh)
         assert Dp in (64, 128) and Dh <= Dp and (Dp == 64 or Dh > 64)
-        for kernel in ("fwd", "dkv"):
+        for kernel in ("fwd", "dq", "dkv"):
             assert 0 < PF.smem_bytes(kernel, Dh) <= card
     # forward: Q and two K and V stages of 128 rows at 256-byte rows;
     # dK/dV: K, V and three stages of 64-row Q/dO tiles with their LSE
@@ -185,7 +185,39 @@ def test_smem_fits_the_card_and_pads_head_dim_to_chunks():
         2 * 128 * 256 + 3 * (2 * 64 * 256 + 512) + 56 + 1024
     assert PF.smem_bytes("fwd", 64) < PF.smem_bytes("fwd", 72)
     with pytest.raises(ValueError):
-        PF.smem_bytes("dq", 64)
+        PF.smem_bytes("dx", 64)
+
+
+@pytest.mark.parametrize("Dh,want", [
+    # Q, dO and O tiles of 128 rows, three stages of 64-key K and V tiles,
+    # 7 barriers and 1024 bytes of alignment slack, at 128- or 256-byte
+    # rows (Dh padded to 64 or 128)
+    (8, (3 * 128 + 2 * 3 * 64) * 128 + 56 + 1024),
+    (64, 99384),
+    (72, (3 * 128 + 2 * 3 * 64) * 256 + 56 + 1024),
+    (128, 197688),
+])
+def test_smem_dq_pinned(Dh, want):
+    assert PF.smem_bytes("dq", Dh) == want
+    assert want <= 232448  # one CTA an SM: the consumers' registers fill it
+
+
+def test_copy_route_for_dq_tensors():
+    """dQ reads q, k, v, o and dO: one tensor off TMA's rules sends all
+    five through the producer's copies (dq itself is allocated
+    contiguous, and always stored by TMA)."""
+    bf = torch.bfloat16
+    qkv = torch.zeros((2, 40, 3, 3, 16), dtype=bf)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o, do = torch.zeros((2, 40, 3, 16), dtype=bf), torch.zeros(
+        (2, 40, 3, 16), dtype=bf)
+    assert PF.copy_route(q, k, v, o, do) == "tma"
+    buf = torch.zeros(2 * 40 * 49 + 8, dtype=bf)
+    odd = buf[1:].as_strided((2, 40, 3, 16), (40 * 49, 49, 16, 1))
+    assert PF.copy_route(q, k, v, odd, do) == "copy"
+    assert PF.copy_route(q, k, v, o, odd) == "copy"
+    assert PF.copy_route(q, k, v, o, do.transpose(1, 2).contiguous()
+                         .transpose(1, 2)) == "tma"
 
 
 # ------------------------------------------------------------- on the card
@@ -289,6 +321,64 @@ def test_flash_dkv_bit_equal_across_runs(dev, causal):
         assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
+#: the bf16 dQ kernel's cases: retrain, causal_train (B cut to 2), a
+#: ragged causal S, Dh 72, q/k/v views of one fused tensor (TMA), rows
+#: only 2-byte aligned (the copy route), S 1
+DQ_CASES = [
+    (4, 128, 12, 64, False, "bshd"),
+    (2, 1024, 8, 128, True, "bshd"),
+    (2, 333, 4, 64, True, "bshd"),
+    (2, 256, 4, 72, True, "bshd"),
+    (2, 512, 4, 64, True, "fused"),
+    (2, 256, 4, 64, True, "offset"),
+    (4, 1, 4, 128, False, "bshd"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Dh,causal,layout", DQ_CASES)
+def test_flash_dq_bf16_delta_bit_equal_and_feeds_dkv(dev, B, S, H, Dh,
+                                                     causal, layout):
+    """dQ and delta against autograd of the plain version (dQ to 2**-7 of
+    its scale; delta, an f32 row sum, to rtol 1e-5 of the same sum
+    taken by PyTorch on the kernel's own O); dQ bit-equal across runs;
+    dK/dV computed from the kernel's delta equal, to 2**-7 of the plain
+    version's gradient scale, to dK/dV computed from that reference
+    delta."""
+    ts = _layout([torch.tensor(a, device=dev).to(torch.bfloat16)
+                  for a in _qkv(B, S, H, Dh, seed=S + Dh)], layout)
+    qt, kt, vt, gt = ts
+    ref = [t.detach().float().requires_grad_() for t in (qt, kt, vt)]
+    r_grads = torch.autograd.grad(
+        PF.flash_attention_plain(*ref, causal=causal), ref, gt.float())
+    dv_scale = float(r_grads[2].abs().max())
+    o, lse = PF.flash_fwd(qt, kt, vt, causal=causal, with_lse=True)
+    assert PF.copy_route(qt, kt, vt, o, gt) == (
+        "copy" if layout == "offset" else "tma")
+    n0 = PF.flash_dq.launches
+    dq, delta = PF.flash_dq(qt, kt, vt, o, gt, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert PF.flash_dq.launches == n0 + 1
+    assert dq.dtype == torch.bfloat16 and dq.shape == (B, S, H, Dh)
+    assert delta.dtype == torch.float32 and delta.shape == (B, H, S)
+    _close(dq.float().cpu(), r_grads[0].cpu(), BF16_REL, zero_scale=dv_scale)
+    want_delta = (gt.float() * o.float()).sum(-1).transpose(1, 2)
+    _close(delta.cpu(), want_delta.cpu(), F32_RTOL)
+    for _ in range(2):
+        dq2, delta2 = PF.flash_dq(qt, kt, vt, o, gt, lse, causal=causal)
+        assert torch.equal(dq2, dq) and torch.equal(delta2, delta)
+    # held to the scale of the plain version's gradients (at S 1 dK is
+    # rounding noise about 0 either way: held to dV's scale)
+    dk, dv = PF.flash_dkv(qt, kt, vt, gt, lse, delta, causal=causal)
+    dk_r, dv_r = PF.flash_dkv(qt, kt, vt, gt, lse, want_delta.contiguous(),
+                              causal=causal)
+    dk_scale = float(r_grads[1].abs().max()) or dv_scale
+    assert float((dk.float() - dk_r.float()).abs().max()) \
+        <= BF16_REL * dk_scale
+    assert float((dv.float() - dv_r.float()).abs().max()) \
+        <= BF16_REL * dv_scale
+
+
 @pytest.mark.cuda
 def test_flash_host_mirrors_match_the_library(dev):
     import ctypes
@@ -298,7 +388,7 @@ def test_flash_host_mirrors_match_the_library(dev):
     lib = _build.library("flash_attention")
     lib.tp_flash_smem_bytes.restype = ctypes.c_longlong
     for Dh in range(8, 129, 8):
-        for code, kernel in enumerate(("fwd", "dkv")):
+        for code, kernel in ((0, "fwd"), (1, "dkv"), (2, "dq")):
             assert lib.tp_flash_smem_bytes(code, Dh) == \
                 PF.smem_bytes(kernel, Dh)
     route = lib.tp_flash_tma_route

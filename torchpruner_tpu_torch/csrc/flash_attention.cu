@@ -13,21 +13,20 @@
 // Dh 64-128) attention does ~4 S Dh operations per element of Q/K/V it
 // reads, far above the card's ~20 f32 (~295 bf16) operations per byte,
 // and the (S, S) score matrix, the one large intermediate, never leaves
-// the chip.  Design against that bound, simple first:
-//   - f32 and bf16 dQ: one CTA per (b, h, 64-row tile) (the bf16
-//     forward and dK/dV: 128 rows); the forward and dQ tile queries
-//     and loop over key tiles, dK/dV tiles keys and loops over query
-//     tiles; blocks run in parallel, so each loop carries its own f32
-//     accumulators (the TPU carried them across sequential grid steps);
+// the chip.  Design against that bound:
 //   - f32 (the scoring path) runs on the FMA units, which is all the
-//     card has for f32 without TF32 rounding: 256 threads, tiles staged
-//     through shared memory padded to an odd row length so the 16
-//     threads of a row group hit 16 distinct banks, each thread a 4 x 4
-//     block of the 64 x 64 score tile and 4 rows x Dh/16 output columns;
-//   - bf16 (training) runs its products on the tensor cores: the
-//     forward and dK/dV on Hopper's wgmma with TMA-fed rings and the
-//     scores in registers (see "bf16 forward and dK/dV" below), dQ on
-//     wmma 16x16x16 with its score tiles in shared memory;
+//     card has for f32 without TF32 rounding: one CTA per (b, h, 64-row
+//     tile) of 256 threads, tiles staged through shared memory padded to
+//     an odd row length so the 16 threads of a row group hit 16 distinct
+//     banks, each thread a 4 x 4 block of the 64 x 64 score tile and 4
+//     rows x Dh/16 output columns; the forward and dQ tile queries and
+//     loop over key tiles, dK/dV tiles keys and loops over query tiles;
+//     blocks run in parallel, so each loop carries its own f32
+//     accumulators (the TPU carried them across sequential grid steps);
+//   - bf16 (training) runs all three kernels on Hopper's wgmma with
+//     TMA-fed rings and the scores in registers (see "bf16 kernels:
+//     wgmma" below): the forward and dQ one CTA per 128 query rows, dK/dV
+//     one per 128 keys;
 //   - the online softmax keeps (m, l) per row in registers;
 //   - causal: key tiles above the query tile's diagonal are never loaded
 //     (forward, dQ), query tiles above the key tile's diagonal are never
@@ -39,15 +38,12 @@
 #include <cuda.h>  // CUtensorMap and its enums (headers only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 #include <string.h>
 
 #include <utility>
 
 #include "sm90.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -473,180 +469,10 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------- bf16 dQ: wmma kernel
+// ------------------------------------------------ bf16 kernels: wgmma
 //
-// dQ for bf16 on the tensor cores (wmma 16x16x16, bf16 products into f32
-// accumulators, mma.sync on sm_90).  One CTA of 4 warps per 64-row tile,
-// each warp owning 16 rows.  Tiles live in shared memory as bf16, the
-// head dim zero-padded to a multiple of 16 (Dp); the score tiles a
-// product makes are stored to shared memory as f32, where the dS
-// arithmetic runs in f32 with two threads per row, and the bf16 result
-// feeds the next product.  dS is rounded to bf16 before its product (as
-// FlashAttention-2 does); every sum is f32.
-
-constexpr int TC_THREADS = 128;
-constexpr int MAX_NT = MAX_DH / 16;  // 16-wide head-dim tiles
-constexpr int LDS = BT + 4;          // f32 (64, 64) tile row
-constexpr int LDH = BT + 8;          // bf16 (64, 64) tile row
-typedef __nv_bfloat16 bf16;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBr;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBc;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-__host__ __device__ inline int pad16(int Dh) { return (Dh + 15) / 16 * 16; }
-__host__ __device__ inline size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-// a (64, Dp) bf16 tile: rows row0.. of src, zero past S and past Dh;
-// `vec`: every row starts 16-byte aligned, so 8 elements move at once
-// (Dh is a multiple of 8, and so is the padded row stride)
-__device__ __forceinline__ void load_bf16(bf16* dst, int ld, const bf16* src,
-                                          Strides st, int b, int h, int row0,
-                                          int S, int Dh, int Dp, int vec) {
-  const bf16* base = src + b * st.b + h * st.h;
-  if (vec) {
-    const int n8 = Dp / 8;
-    for (int i = threadIdx.x; i < BT * n8; i += TC_THREADS) {
-      const int r = i / n8;
-      const int d = (i - r * n8) * 8;
-      const int s = row0 + r;
-      *reinterpret_cast<uint4*>(dst + r * ld + d) =
-          (s < S && d < Dh) ? *reinterpret_cast<const uint4*>(
-                                  base + (long long)s * st.s + d)
-                            : make_uint4(0u, 0u, 0u, 0u);
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < BT * Dp; i += TC_THREADS) {
-    const int r = i / Dp;
-    const int d = i - r * Dp;
-    const int s = row0 + r;
-    dst[r * ld + d] = (s < S && d < Dh) ? base[(long long)s * st.s + d]
-                                        : __float2bfloat16(0.f);
-  }
-}
-
-// out[16 rows of warp w][64] = A[warp rows][Dp] . B^T, B (64, Dp) row-major
-// (the "col-major" wmma B operand), stored f32 with row stride LDS
-__device__ __forceinline__ void rows_by_rowsT(float* out, const bf16* A,
-                                              const bf16* B, int ld, int Dp,
-                                              int warp) {
-  for (int nt = 0; nt < BT / 16; ++nt) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < Dp; kk += 16) {
-      FragA a;
-      FragBc bm;
-      wmma::load_matrix_sync(a, A + warp * 16 * ld + kk, ld);
-      wmma::load_matrix_sync(bm, B + nt * 16 * ld + kk, ld);
-      wmma::mma_sync(acc, a, bm, acc);
-    }
-    wmma::store_matrix_sync(out + warp * 16 * LDS + nt * 16, acc, LDS,
-                            wmma::mem_row_major);
-  }
-}
-
-// acc[nt] (+)= P[warp rows][64] . V[64][Dp], P bf16 with row stride LDH
-__device__ __forceinline__ void rows_by_tile(FragC (&acc)[MAX_NT],
-                                             const bf16* P, const bf16* V,
-                                             int ld, int Dp, int warp) {
-#pragma unroll
-  for (int nt = 0; nt < MAX_NT; ++nt) {
-    if (nt * 16 >= Dp) break;
-    for (int kk = 0; kk < BT; kk += 16) {
-      FragA a;
-      FragBr bm;
-      wmma::load_matrix_sync(a, P + warp * 16 * LDH + kk, LDH);
-      wmma::load_matrix_sync(bm, V + kk * ld + nt * 16, ld);
-      wmma::mma_sync(acc[nt], a, bm, acc[nt]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(TC_THREADS)
-dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-      const bf16* __restrict__ v, const bf16* __restrict__ o,
-      const bf16* __restrict__ dout, const float* __restrict__ lse,
-      bf16* __restrict__ dq, float* __restrict__ delta, Strides sq,
-      Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq, int H,
-      int S, int Dh, float scale, int causal, int vec) {
-  extern __shared__ __align__(128) unsigned char raw[];
-  const int Dp = pad16(Dh), ld = Dp + 8, lo = Dp + 4;
-  bf16* Qs = reinterpret_cast<bf16*>(raw);
-  bf16* dOs = Qs + BT * ld;
-  bf16* Ks = dOs + BT * ld;
-  bf16* Vs = Ks + BT * ld;
-  bf16* dSs = Vs + BT * ld;                                        // (64, LDH)
-  float* Ss = reinterpret_cast<float*>(raw + align128((4 * BT * ld + BT * LDH) * sizeof(bf16)));
-  float* dPs = Ss + BT * LDS;
-  float* Out = Ss;  // (64, lo) staging for dq, after the last tile
-  const int n_qt = (S + BT - 1) / BT;
-  const int q0 = (blockIdx.x % n_qt) * BT;
-  const int b = blockIdx.x / n_qt / H;
-  const int h = blockIdx.x / n_qt % H;
-  const int warp = threadIdx.x >> 5;
-  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-  const int qp = q0 + r;
-  const long long row_bh = ((long long)b * H + h) * S;
-
-  load_bf16(Qs, ld, q, sq, b, h, q0, S, Dh, Dp, vec);
-  load_bf16(dOs, ld, dout, sdo, b, h, q0, S, Dh, Dp, vec);
-  load_bf16(Ks, ld, o, so, b, h, q0, S, Dh, Dp, vec);  // O, for delta only
-  __syncthreads();
-  float part = 0.f;
-  for (int d = half; d < Dh; d += 2)
-    part += __bfloat162float(dOs[r * ld + d]) * __bfloat162float(Ks[r * ld + d]);
-  const float dl = part + __shfl_xor_sync(0xffffffffu, part, 1);
-  const float lr = qp < S ? lse[row_bh + qp] : 0.f;
-  if (half == 0 && qp < S) delta[row_bh + qp] = dl;
-  FragC acc[MAX_NT];
-#pragma unroll
-  for (int nt = 0; nt < MAX_NT; ++nt) wmma::fill_fragment(acc[nt], 0.f);
-  const int n_kt = key_tiles(q0, S, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();
-    load_bf16(Ks, ld, k, sk, b, h, k0, S, Dh, Dp, vec);
-    load_bf16(Vs, ld, v, sv, b, h, k0, S, Dh, Dp, vec);
-    __syncthreads();
-    rows_by_rowsT(Ss, Qs, Ks, ld, Dp, warp);
-    rows_by_rowsT(dPs, dOs, Vs, ld, Dp, warp);
-    __syncwarp();
-    for (int j = half; j < BT; j += 2) {
-      const int kp = k0 + j;
-      const bool ok = qp < S && kp < S && (!causal || kp <= qp);
-      const float p = ok ? expf(Ss[r * LDS + j] * scale - lr) : 0.f;
-      dSs[r * LDH + j] = __float2bfloat16(p * (dPs[r * LDS + j] - dl) * scale);
-    }
-    __syncwarp();
-    rows_by_tile(acc, dSs, Ks, ld, Dp, warp);
-  }
-  __syncthreads();  // Ss/dPs are reused as the staging tile
-#pragma unroll
-  for (int nt = 0; nt < MAX_NT; ++nt)
-    if (nt * 16 < Dp)
-      wmma::store_matrix_sync(Out + warp * 16 * lo + nt * 16, acc[nt], lo,
-                              wmma::mem_row_major);
-  __syncwarp();
-  if (qp < S) {
-    bf16* row = dq + b * sdq.b + (long long)qp * sdq.s + h * sdq.h;
-    for (int col = half; col < Dh; col += 2)
-      row[col] = __float2bfloat16(Out[r * lo + col]);
-  }
-}
-
-// dQ stages its (64, Dp + 4) f32 output in the two score tiles
-// (2 x 64 x 68 floats >= 64 x 132)
-size_t dq_tc_smem(int Dh) {
-  const int ld = pad16(Dh) + 8;
-  return align128((4 * BT * ld + BT * LDH) * sizeof(bf16)) +
-         2 * BT * LDS * sizeof(float);
-}
-
-// ------------------------------- bf16 forward and dK/dV: wgmma kernels
-//
-// `fwd_wgmma` and `dkv_wgmma` run on Hopper's warpgroup products, in the
-// shape the hardware is built for:
+// `fwd_wgmma`, `dq_wgmma` and `dkv_wgmma` run on Hopper's warpgroup
+// products, in the shape the hardware is built for:
 //   - three warpgroups per CTA: two consumers of 64 rows each and one
 //     producer that keeps the next tiles in flight; the consumers get
 //     240 registers, the producer 24 (setmaxnreg);
@@ -658,29 +484,37 @@ size_t dq_tc_smem(int Dh) {
 //     mbarrier) when every base is 16-byte aligned and every stride a
 //     multiple of 16 bytes; otherwise the producer's 128 threads fill the
 //     same ring with their own loads (`copy_tile`), zero past S and Dh;
-//   - a ring of tiles (2 stages of K and V in the forward, 3 of Q and dO
-//     in dK/dV) with full / empty mbarriers: the producer waits for a
-//     free stage, the consumers for a full one;
+//   - a ring of tiles (2 stages of K and V in the forward, 3 of K and V
+//     in dQ, 3 of Q and dO in dK/dV) with full / empty mbarriers: the
+//     producer waits for a free stage, the consumers for a full one;
 //   - products on wgmma (m64nNk16, bf16 in, f32 sums in registers).
 //     The scores stay in the accumulator fragment; the softmax, dS and
 //     masks run on it with quad shuffles; the bf16 weights are repacked
 //     in registers as the A operand of the next product (a warp's
 //     accumulator rows and columns are exactly an A fragment's), and V,
-//     dO and Q enter that product as the transposed (MN-major) B operand;
+//     K, dO and Q enter that product as the transposed (MN-major) B
+//     operand;
 //   - causal: key tiles above the diagonal are never loaded, tiles
 //     below it run unmasked, only the diagonal and the ragged S edge are
-//     masked; the forward launches its heaviest query tiles first.
+//     masked; the forward and dQ launch their heaviest query tiles first.
 // Forward: one CTA per (128 query rows, b, h); S = Q K^T into registers,
 // the online softmax in base 2 with (m, l) per row in registers (l sums
 // the f32 weights), O += P V with P in registers, O in registers across
-// all key tiles.  dK/dV: one CTA per (128 keys, b, h), K and V resident,
-// dK and dV in registers across the query tiles; per 64-row query tile
-// S^T = K Q^T and dP^T = V dO^T, then P^T = exp(S^T scale - LSE) and
+// all key tiles.  dQ: one CTA per (128 query rows, b, h), Q and dO
+// resident, O loaded once beside them only to form delta (written before
+// the key loop); per 64-key tile S = Q K^T and dP = dO V^T, then
+// P = exp(S scale - LSE) and dS = P (dP - delta) scale in registers, the
+// A operand of dQ += dS K; dQ in registers across the key tiles, rounded
+// once into the Q tile's shared memory and stored by TMA.  dK/dV: one
+// CTA per (128 keys, b, h), K and V resident, dK and dV in registers
+// across the query tiles; per 64-row query tile S^T = K Q^T and
+// dP^T = V dO^T, then P^T = exp(S^T scale - LSE) and
 // dS^T = P^T (dP^T - delta) scale in registers, the A operands of
 // dV += P^T dO and dK += dS^T Q.  Rows past S carry LSE = +inf, so their
 // weights are 0 with no per-element test.  Deterministic: every sum runs
 // in one CTA in a fixed order, no atomics.
 
+typedef __nv_bfloat16 bf16;
 constexpr int WG = 128;               // threads of a warpgroup
 constexpr int HOP_THREADS = 3 * WG;   // two consumer warpgroups, a producer
 constexpr int CH = 64;                // bf16 columns of a 128-byte chunk row
@@ -691,6 +525,9 @@ constexpr int KV_BN = 128;            // keys of a dK/dV CTA
 constexpr int KV_BQ = 64;             // query rows of a dK/dV ring stage
 constexpr int FWD_STAGES = 2;         // K/V ring of the forward
 constexpr int KV_STAGES = 3;          // Q/dO ring of dK/dV
+constexpr int DQ_BM = 128;            // query rows of a dQ CTA
+constexpr int DQ_BN = 64;             // keys of a dQ ring stage
+constexpr int DQ_STAGES = 3;          // K/V ring of dQ
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -790,6 +627,15 @@ constexpr size_t dkv_wgmma_smem() {
          KV_STAGES *
              ((size_t)(DP / CH) * KV_BQ * CHUNK_ROW * 2 + 2 * KV_BQ * 4) +
          8 * (1 + 2 * KV_STAGES) + 1024;
+}
+
+template <int DP>
+constexpr size_t dq_wgmma_smem() {
+  // Q, dO and O tiles, DQ_STAGES K and V tiles, the barriers, alignment
+  // slack
+  return (size_t)(DP / CH) * CHUNK_ROW *
+             (3 * DQ_BM + 2 * DQ_STAGES * DQ_BN) +
+         8 * (1 + 2 * DQ_STAGES) + 1024;
 }
 
 // bars[0]: the resident tile(s), then `stages` full barriers (each
@@ -1119,6 +965,195 @@ dkv_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+template <int DP>
+__global__ void __launch_bounds__(HOP_THREADS, 1)
+dq_wgmma(const __grid_constant__ CUtensorMap tq,
+         const __grid_constant__ CUtensorMap tk,
+         const __grid_constant__ CUtensorMap tv,
+         const __grid_constant__ CUtensorMap to,
+         const __grid_constant__ CUtensorMap tdo,
+         const __grid_constant__ CUtensorMap tdq, const bf16* __restrict__ q,
+         const bf16* __restrict__ k, const bf16* __restrict__ v,
+         const bf16* __restrict__ o, const bf16* __restrict__ dout,
+         const float* __restrict__ lse, float* __restrict__ delta,
+         Strides sq, Strides sk, Strides sv, Strides so, Strides sdo, int B,
+         int H, int S, int Dh, float scale, int causal, int tma) {
+  constexpr int NC = DP / CH;
+  constexpr int RTILE = NC * DQ_BM * CHUNK_ROW;  // Q, dO or O, 128 rows
+  constexpr int KTILE = NC * DQ_BN * CHUNK_ROW;  // K or V, 64 keys
+  extern __shared__ unsigned char raw[];
+  unsigned char* Qs = align1024(raw);  // then dQ's staging
+  unsigned char* Gs = Qs + RTILE;      // dO
+  unsigned char* Os = Gs + RTILE;      // O, for delta only
+  unsigned char* Ks = Os + RTILE;      // the K ring
+  unsigned char* Vs = Ks + DQ_STAGES * KTILE;  // the V ring
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + DQ_STAGES * KTILE);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + DQ_STAGES;
+
+  const int BH = B * H, n_qt = (S + DQ_BM - 1) / DQ_BM;
+  const int t = blockIdx.x / BH;
+  const int qt = causal ? n_qt - 1 - t : t;  // heaviest query tiles first
+  const int b = blockIdx.x % BH / H, h = blockIdx.x % H;
+  const int q0 = qt * DQ_BM;
+  const int n_all = (S + DQ_BN - 1) / DQ_BN;
+  // causal: key tiles past the last query row are never loaded
+  const int n_kt = causal ? min(n_all, (q0 + DQ_BM) / DQ_BN) : n_all;
+  const int wg = threadIdx.x / WG, lane = threadIdx.x & 31;
+  init_ring(bars, DQ_STAGES);
+
+  if (wg == 2) {  // producer: Q, dO and O, then K_j and V_j into the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    const int pt = threadIdx.x - 2 * WG;
+    const TileLoad res[3] = {{Qs, &tq, q, sq, q0, DQ_BM},
+                             {Gs, &tdo, dout, sdo, q0, DQ_BM},
+                             {Os, &to, o, so, q0, DQ_BM}};
+    load_stage(res, NC, b, h, S, Dh, tma, &bars[0], pt);
+    for (int j = 0; j < n_kt; ++j) {
+      const int s = j % DQ_STAGES;
+      mbar_wait(&empty[s], ((j / DQ_STAGES) & 1) ^ 1);
+      const TileLoad kv[2] = {
+          {Ks + s * KTILE, &tk, k, sk, j * DQ_BN, DQ_BN},
+          {Vs + s * KTILE, &tv, v, sv, j * DQ_BN, DQ_BN}};
+      load_stage(kv, NC, b, h, S, Dh, tma, &full[s], pt);
+    }
+  } else {  // consumers: rows row0 + (r0, r0 + 8)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int quad = lane >> 2, c2 = (lane & 3) * 2;
+    const int r0 = (threadIdx.x % WG) / 32 * 16 + quad;
+    const int row0 = q0 + wg * 64;
+    const long long row_bh = ((long long)b * H + h) * S;
+    const float sl2 = scale * LOG2E;
+    // key tiles this warpgroup's rows see (causal: up to its diagonal)
+    const int n_see = causal ? min(n_kt, (row0 + 64) / DQ_BN) : n_kt;
+    // LSE in base 2; rows past S +inf, so their weights are 0
+    float l2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = row0 + r0 + 8 * r;
+      l2[r] = qp < S ? lse[row_bh + qp] * LOG2E : __int_as_float(0x7f800000);
+    }
+    mbar_wait(&bars[0], 0);
+    // delta = rowsum(dO * O) from the resident tiles: the four lanes of a
+    // quad take every fourth 16-byte unit of the row, then a quad sum
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int R = wg * 64 + r0 + 8 * r;  // row of the 128-row tiles
+      float part = 0.f;
+#pragma unroll
+      for (int w = 0; w < DP / 32; ++w) {
+        const int u = (lane & 3) + 4 * w;
+        const int off = (u >> 3) * DQ_BM * CHUNK_ROW + R * CHUNK_ROW +
+                        (((u & 7) ^ (R & 7)) << 4);
+        const uint4 gu = *reinterpret_cast<const uint4*>(Gs + off);
+        const uint4 ou = *reinterpret_cast<const uint4*>(Os + off);
+        const uint32_t gw[4] = {gu.x, gu.y, gu.z, gu.w};
+        const uint32_t ow[4] = {ou.x, ou.y, ou.z, ou.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          __nv_bfloat162 gh, oh;
+          memcpy(&gh, &gw[e], sizeof(gh));
+          memcpy(&oh, &ow[e], sizeof(oh));
+          const float2 gf = __bfloat1622float2(gh);
+          const float2 of = __bfloat1622float2(oh);
+          part = fmaf(gf.x, of.x, part);
+          part = fmaf(gf.y, of.y, part);
+        }
+      }
+      dl[r] = quad_sum(part);
+      const int qp = row0 + r0 + 8 * r;
+      if ((lane & 3) == 0 && qp < S) delta[row_bh + qp] = dl[r];
+    }
+    const uint64_t q_d = sdesc(smem_u32(Qs) + wg * 64 * CHUNK_ROW, 16, 1024);
+    const uint64_t g_d = sdesc(smem_u32(Gs) + wg * 64 * CHUNK_ROW, 16, 1024);
+    float acc[DP / 2];  // dQ rows r0, r0 + 8
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    for (int j = 0; j < n_kt; ++j) {
+      const int s = j % DQ_STAGES, k0 = j * DQ_BN;
+      mbar_wait(&full[s], (j / DQ_STAGES) & 1);
+      if (j < n_see) {
+        // S = Q K^T and dP = dO V^T into registers
+        float sacc[DQ_BN / 2], pacc[DQ_BN / 2];
+        const uint32_t ka = smem_u32(Ks + s * KTILE);
+        const uint64_t k_d = sdesc(ka, 16, 1024);
+        const uint64_t v_d = sdesc(smem_u32(Vs + s * KTILE), 16, 1024);
+        wg_fence();
+        unrolled<DP / 16>([&](auto kk) {  // padded columns are zeros
+          constexpr int K = decltype(kk)::value;
+          constexpr int ro = ((K >> 2) * DQ_BM * CHUNK_ROW + (K & 3) * 32) >> 4;
+          constexpr int ko = ((K >> 2) * DQ_BN * CHUNK_ROW + (K & 3) * 32) >> 4;
+          if constexpr (K == 0) {
+            wgmma_ss_first<ro, ko>(sacc, q_d, k_d);
+            wgmma_ss_first<ro, ko>(pacc, g_d, v_d);
+          } else {
+            wgmma_ss<ro, ko>(sacc, q_d, k_d);
+            wgmma_ss<ro, ko>(pacc, g_d, v_d);
+          }
+        });
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(sacc);
+        fence_regs(pacc);
+        // P and dS in one pass (each score register dies as its pair is
+        // packed), bf16 pairs as the A operand of dQ += dS K; the
+        // diagonal and ragged tiles masked
+        const bool masked = (causal && k0 + DQ_BN > row0) || k0 + DQ_BN > S;
+        uint32_t sa[DQ_BN / 16][4];
+#pragma unroll
+        for (int kb = 0; kb < DQ_BN / 16; ++kb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 8 * kb + 2 * e, r = e & 1;
+            float p0 = fast_exp2(sacc[i] * sl2 - l2[r]);
+            float p1 = fast_exp2(sacc[i + 1] * sl2 - l2[r]);
+            if (masked) {
+              const int kp = k0 + 16 * kb + 8 * (e >> 1) + c2;
+              const int qp = row0 + r0 + 8 * r;
+              if (kp >= S || (causal && kp > qp)) p0 = 0.f;
+              if (kp + 1 >= S || (causal && kp + 1 > qp)) p1 = 0.f;
+            }
+            sa[kb][e] = pack_bf16(p0 * (pacc[i] - dl[r]) * scale,
+                                  p1 * (pacc[i + 1] - dl[r]) * scale);
+          }
+        // dQ += dS K, K the transposed B operand
+        const uint64_t kt_d = sdesc(ka, DQ_BN * CHUNK_ROW, 1024);
+        fence_regs(acc);
+        wg_fence();
+        unrolled<DQ_BN / 16>([&](auto kb) {
+          constexpr int K = decltype(kb)::value;
+          wgmma_rs<K * 16 * CHUNK_ROW / 16>(acc, sa[K], kt_d);
+        });
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(acc);
+        fence_regs(sa);
+      }
+      warp_release(&empty[s], lane);
+    }
+    // dQ rounded once into this warpgroup's 64 rows of the Q tile (its
+    // products are done; the other warpgroup reads only its own rows), in
+    // the 128-byte swizzle, then stored by TMA, clipped at S and Dh
+    unsigned char* stg = Qs + wg * 64 * CHUNK_ROW;
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int r = r0 + 8 * ((i >> 1) & 1), u = (i >> 2) & 7;
+      *reinterpret_cast<uint32_t*>(stg + i / 32 * DQ_BM * CHUNK_ROW +
+                                   r * CHUNK_ROW + ((u ^ (r & 7)) << 4) +
+                                   c2 * 2) = pack_bf16(acc[i], acc[i + 1]);
+    }
+    fence_async_smem();
+    asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(WG) : "memory");
+    if (threadIdx.x % WG == 0 && row0 < S) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        tma_store_4d(&tdq, stg + c * DQ_BM * CHUNK_ROW, c * CH, row0, h, b);
+      bulk_commit();
+      bulk_wait<0>();
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 Strides strides_at(const long long* st, int i) {
@@ -1271,19 +1306,43 @@ extern "C" int tp_flash_dq(const void* q, const void* k, const void* v,
                 e = strides_at(st, 4), f = strides_at(st, 5);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  const void* ptrs[] = {q, k, v, o, dout, dq};
-  const int vec = vec_ok(ptrs, 6, st, dtype == 0 ? 4 : 2);
-  if (dtype == 0)
+  if (dtype == 0) {
+    const void* ptrs[] = {q, k, v, o, dout, dq};
     return (int)launch(dq_kernel<float>, THREADS, dq_smem(Dh), B, H, S, s,
                        in<float>(q), in<float>(k), in<float>(v),
                        in<float>(o), in<float>(dout), l, out<float>(dq), dl,
-                       a, b, c, d, e, f, H, S, Dh, scale, causal, vec);
-  if (dtype == 1)
-    return (int)launch(dq_tc, TC_THREADS, dq_tc_smem(Dh), B, H, S, s,
-                       in<bf16>(q), in<bf16>(k), in<bf16>(v), in<bf16>(o),
-                       in<bf16>(dout), l, out<bf16>(dq), dl, a, b, c, d, e,
-                       f, H, S, Dh, scale, causal, vec);
-  return (int)cudaErrorInvalidValue;
+                       a, b, c, d, e, f, H, S, Dh, scale, causal,
+                       vec_ok(ptrs, 6, st, 4));
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  // dq is stored by TMA: its base and strides must be TMA's (the wrapper
+  // allocates it contiguous); the inputs take TMA or the copy route
+  const void* outs[] = {dq};
+  if (!tma_ok(outs, 1, st + 15, B, H, S)) return (int)cudaErrorInvalidValue;
+  const void* ins[] = {q, k, v, o, dout};
+  const int tma = tma_ok(ins, 5, st, B, H, S);
+  CUtensorMap mq{}, mk{}, mv{}, mo{}, mg{}, md{};  // loads: TMA route only
+  int err = make_map(&md, dq, f, B, H, S, Dh, 64);
+  if (!err && tma) {
+    err = make_map(&mq, q, a, B, H, S, Dh, DQ_BM);
+    if (!err) err = make_map(&mk, k, b, B, H, S, Dh, DQ_BN);
+    if (!err) err = make_map(&mv, v, c, B, H, S, Dh, DQ_BN);
+    if (!err) err = make_map(&mo, o, d, B, H, S, Dh, DQ_BM);
+    if (!err) err = make_map(&mg, dout, e, B, H, S, Dh, DQ_BM);
+  }
+  if (err) return err;
+  const int tiles = (S + DQ_BM - 1) / DQ_BM;
+  if (Dh <= 64)
+    return (int)launch_hopper(dq_wgmma<64>, dq_wgmma_smem<64>(), tiles, B, H,
+                              s, mq, mk, mv, mo, mg, md, in<bf16>(q),
+                              in<bf16>(k), in<bf16>(v), in<bf16>(o),
+                              in<bf16>(dout), l, dl, a, b, c, d, e, B, H, S,
+                              Dh, scale, causal, tma);
+  return (int)launch_hopper(dq_wgmma<128>, dq_wgmma_smem<128>(), tiles, B, H,
+                            s, mq, mk, mv, mo, mg, md, in<bf16>(q),
+                            in<bf16>(k), in<bf16>(v), in<bf16>(o),
+                            in<bf16>(dout), l, dl, a, b, c, d, e, B, H, S, Dh,
+                            scale, causal, tma);
 }
 
 // strides of q, k, v, do, dk, dv; reads the delta tp_flash_dq wrote
@@ -1331,17 +1390,20 @@ extern "C" int tp_flash_dkv(const void* q, const void* k, const void* v,
                             scale, causal, tma);
 }
 
-// The bf16 forward's and dK/dV's copy route for n tensors (pointers and
-// (b, s, h) strides as above): 1 = TMA, 0 = the producer's own copies.
+// The bf16 kernels' copy route for n input tensors (pointers and (b, s,
+// h) strides as above): 1 = TMA, 0 = the producer's own copies.
 extern "C" int tp_flash_tma_route(const void* const* ptrs,
                                   const long long* st, int n, int B, int H,
                                   int S) {
   return tma_ok(ptrs, n, st, B, H, S);
 }
 
-// Dynamic shared memory of the bf16 forward (kernel 0) or dK/dV (1) at Dh.
+// Dynamic shared memory of the bf16 forward (kernel 0), dK/dV (1) or dQ
+// (2) at Dh.
 extern "C" long long tp_flash_smem_bytes(int kernel, int Dh) {
   if (kernel == 0)
     return (long long)(Dh <= 64 ? fwd_wgmma_smem<64>() : fwd_wgmma_smem<128>());
+  if (kernel == 2)
+    return (long long)(Dh <= 64 ? dq_wgmma_smem<64>() : dq_wgmma_smem<128>());
   return (long long)(Dh <= 64 ? dkv_wgmma_smem<64>() : dkv_wgmma_smem<128>());
 }

@@ -373,6 +373,17 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* tm,
       "r"(col), "r"(row), "r"(smem_u32(src))
       : "memory");
 }
+// one box of shared memory into a 4-d tensor map (Dh, S, H, B), clipped
+// at the tensor's edges like tma_store_2d
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* tm,
+                                             const void* src, int col,
+                                             int row, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(reinterpret_cast<uint64_t>(tm)),
+      "r"(col), "r"(row), "r"(h), "r"(b), "r"(smem_u32(src))
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

@@ -46,11 +46,11 @@ import time
 from torchpruner_tpu_torch.experiments.step_trace import _device_us
 
 #: kernel-name fragments by group: the port's flash kernels
-#: (csrc/flash_attention.cu; ``fwd_tc`` / ``dkv_tc``: the earlier wmma
-#: bodies, which ``flash_ab.py`` builds from an older source) and the
-#: library's matrix products
+#: (csrc/flash_attention.cu; ``fwd_tc`` / ``dq_tc`` / ``dkv_tc``: the
+#: earlier wmma bodies, which ``flash_ab.py`` builds from an older
+#: source) and the library's matrix products
 GROUPS = {"flash_fwd": ("fwd_kernel", "fwd_wgmma", "fwd_tc"),
-          "flash_dq": ("dq_kernel", "dq_tc"),
+          "flash_dq": ("dq_kernel", "dq_wgmma", "dq_tc"),
           "flash_dkv": ("dkv_kernel", "dkv_wgmma", "dkv_tc"),
           "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet")}
 #: csrc/blocksparse_matmul.cu: ``bs_kernel<T, MODE, ...>`` and

@@ -36,9 +36,10 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-#: kernel-name fragments of the port's hand-written kernels (csrc/*.cu)
+#: kernel-name fragments of the port's hand-written kernels (csrc/*.cu;
+#: ``decode_attn``: the one-CTA-per-row decode body of an older source)
 PORT_KERNELS = {"dequant_matmul": ("dq_mma",),
-                "decode_attention": ("decode_attn",)}
+                "decode_attention": ("decode_split", "decode_attn")}
 
 
 def _group(name: str) -> str:

@@ -3,15 +3,18 @@
 Counterpart of ``torchpruner_tpu/ops/decode_attention.py``.  On CUDA every
 single-token step (``s == 1``) launches the hand-written Hopper kernel
 ``csrc/decode_attention.cu`` (which replaces the Pallas kernel
-``_decode_call``/``_decode_kernel``); on CPU tensors the same function
-runs in plain PyTorch (:func:`decode_attention_plain`).  Prefill blocks
-(``s > 1``) take the masked path :func:`xla_decode_attention` in plain
-PyTorch on either device, as the JAX package computes them outside Pallas.
+``_decode_call``/``_decode_kernel``): split-KV in one launch, a CTA per
+(row, head, chunk of the cache), the last live CTA of a (row, head)
+merging the chunks' partials in chunk order.  On CPU tensors the same
+function runs in plain PyTorch (:func:`decode_attention_plain`, the same
+partition).  Prefill blocks (``s > 1``) take the masked path
+:func:`xla_decode_attention` in plain PyTorch on either device, as the
+JAX package computes them outside Pallas.
 
 **Bit-stability contract** (the serve ``--verify`` path), as in the JAX
 package: a row's result depends only on its real positions ``0..pos``
-and on the block partition, which is a function of the cache length
-alone (:func:`_block_for`).  Positions past ``pos`` are never read, so
+and on the chunk partition, which is a function of the cache length
+alone (:func:`decode_plan`).  Positions past ``pos`` are never read, so
 stale K/V from a slot's previous occupant cannot change a row.  The
 masked prefill path partitions the cache into blocks of a FIXED width
 (independent of the cache length) and queries into fixed chunks of rows,
@@ -23,14 +26,14 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 #: decode block cap / floor: positions per KV block
 MAX_DECODE_BLOCK = 128
 MIN_DECODE_BLOCK = 8
-#: the kernel keeps two head-dim elements per thread of 128
+#: the kernel's largest head dimension
 MAX_HEAD_DIM = 256
 #: query rows per chunk and KV positions per block of the masked path —
 #: fixed widths, independent of the prompt and cache lengths
@@ -53,18 +56,36 @@ def decode_block(T: int) -> Optional[int]:
     return bk
 
 
-def _block_for(T: int) -> int:
-    """The KV block the port streams a length-``T`` cache in: the JAX
-    block where one exists, else ``MIN_DECODE_BLOCK`` with a ragged tail
-    (the JAX package takes its einsum path there; the port's kernel masks
-    the tail instead, so every step launches it)."""
-    return decode_block(T) or MIN_DECODE_BLOCK
+#: the split-KV plan's limits (``csrc/decode_attention.cu``): chunks of a
+#: multiple of 64 positions, at most 16 of them a row, at most 4096
+#: positions each
+MIN_CHUNK = 64
+MAX_SPLIT = 16
+MAX_CHUNK = 4096
+MAX_CACHE_LEN = MAX_SPLIT * MAX_CHUNK
+
+
+def decode_plan(T: int) -> Tuple[int, int]:
+    """``(chunk, n_split)``: how a length-``T`` cache is cut for the
+    kernel, a function of T alone (mirror of ``make_plan`` in
+    ``csrc/decode_attention.cu``, which the C entry checks): as many
+    chunks as 64-position blocks up to :data:`MAX_SPLIT`, each a multiple
+    of 64 positions, the last clipped at T.  Chunk ``c`` covers positions
+    ``c * chunk .. min((c + 1) * chunk, T) - 1``."""
+    if not 0 < T <= MAX_CACHE_LEN:
+        raise ValueError(f"decode attention takes cache lengths 1.."
+                         f"{MAX_CACHE_LEN}, got {T}")
+    want = min(MAX_SPLIT, -(-T // MIN_CHUNK))
+    per = -(-T // want)
+    chunk = -(-per // MIN_CHUNK) * MIN_CHUNK
+    return chunk, -(-T // chunk)
 
 
 def kernel_active(T: int, Dh: int, dtype, device="cuda") -> bool:
     """True when :func:`decode_attention` launches the CUDA kernel for a
     single-token step at this cache geometry on ``device``."""
-    return torch.device(device).type == "cuda" and Dh <= MAX_HEAD_DIM
+    return (torch.device(device).type == "cuda" and Dh <= MAX_HEAD_DIM
+            and 0 < T <= MAX_CACHE_LEN)
 
 
 def _pos_vector(pos: Pos, B: int, device) -> torch.Tensor:
@@ -133,33 +154,37 @@ def xla_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, pos: Pos) -> torch.Tensor:
-    """The plain version of the decode kernel: per row, an f32 online
-    softmax over KV blocks of :func:`_block_for` ``(T)`` positions up to
-    the row's own ``pos`` (clamped to ``T - 1``); nothing past ``pos`` is
-    read.  Returns ``(B, 1, H, Dh)`` in the cache dtype."""
+    """The plain version of the decode kernel, on its partition: per row,
+    each chunk of :func:`decode_plan` ``(T)`` up to the row's own ``pos``
+    (clamped to ``T - 1``) gives an f32 partial (max, sum of weights,
+    weighted sum of V rows), and the partials are combined in chunk
+    order; nothing past ``pos`` is read.  Returns ``(B, 1, H, Dh)`` in
+    the cache dtype."""
     B, _, H, Dh = q.shape
     T = k_cache.shape[1]
-    block = _block_for(T)
+    chunk, _ = decode_plan(T)
     scale = 1.0 / math.sqrt(Dh)
     rows = _pos_vector(pos, B, "cpu").tolist()
     out = torch.empty((B, 1, H, Dh), dtype=v_cache.dtype, device=q.device)
     for b, p in enumerate(rows):
         p = min(max(int(p), 0), T - 1)
         qf = q[b, 0].float()                               # (H, Dh)
-        m = torch.full((H,), _NEG_INF, device=q.device)
-        l = torch.zeros((H,), device=q.device)
-        acc = torch.zeros((H, Dh), device=q.device)
-        for t0 in range(0, p + 1, block):
-            live = min(block, p - t0 + 1)
+        parts = []
+        for t0 in range(0, p + 1, chunk):
+            live = min(chunk, p - t0 + 1)
             kf = k_cache[b, t0:t0 + live].float()          # (live, H, Dh)
             vf = v_cache[b, t0:t0 + live].float()
             sc = (qf[None] * kf).sum(dim=-1).t() * scale   # (H, live)
-            m_new = torch.maximum(m, sc.amax(dim=-1))
-            pr = torch.exp(sc - m_new[:, None])
-            alpha = torch.exp(m - m_new)
-            l = alpha * l + pr.sum(dim=-1)
-            acc = acc * alpha[:, None] + (pr.t()[:, :, None] * vf).sum(0)
-            m = m_new
+            m = sc.amax(dim=-1)
+            w = torch.exp(sc - m[:, None])
+            parts.append((m, w.sum(dim=-1), (w.t()[:, :, None] * vf).sum(0)))
+        m = torch.stack([pm for pm, _, _ in parts]).amax(dim=0)
+        l = torch.zeros((H,), device=q.device)
+        acc = torch.zeros((H, Dh), device=q.device)
+        for pm, pl, pa in parts:
+            alpha = torch.exp(pm - m)
+            l = l + pl * alpha
+            acc = acc + pa * alpha[:, None]
         out[b, 0] = (acc / l[:, None]).to(v_cache.dtype)
     return out
 
@@ -170,6 +195,22 @@ def _dtype_code(t: torch.Tensor) -> int:
         raise TypeError(f"decode attention takes float32/bfloat16, got "
                         f"{t.dtype}")
     return codes[t.dtype]
+
+
+#: the merge's workspace per (device, stream): int32 counters, one per
+#: (row, head), which the kernel leaves at 0 after every call, and f32
+#: scratch for the chunks' partials; grown, never shrunk
+_workspaces: dict = {}
+
+
+def _workspace(device, stream: int, n_bh: int, n_part: int):
+    cnt, part = _workspaces.get((device, stream), (None, None))
+    if cnt is None or cnt.numel() < n_bh:
+        cnt = torch.zeros(n_bh, dtype=torch.int32, device=device)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    _workspaces[(device, stream)] = (cnt, part)
+    return cnt, part
 
 
 def _launch(q, k_cache, v_cache, pos: Pos) -> torch.Tensor:
@@ -187,17 +228,21 @@ def _launch(q, k_cache, v_cache, pos: Pos) -> torch.Tensor:
                          f"{tuple(q.shape)}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("decode kernel needs contiguous K/V caches")
+    chunk, n_split = decode_plan(T)
     qc = q.contiguous()
     pv = _pos_vector(pos, B, q.device).contiguous()
     out = torch.empty((B, 1, H, Dh), dtype=v_cache.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    cnt, part = _workspace(q.device, stream, B * H,
+                           B * H * n_split * (Dh + 2))
     fn = _build.function(
         "decode_attention", "tp_decode_attention",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     err = fn(qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             pv.data_ptr(), out.data_ptr(), B, H, T, Dh, _block_for(T),
-             1.0 / math.sqrt(Dh), _dtype_code(qc), _dtype_code(k_cache),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             pv.data_ptr(), out.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+             B, H, T, Dh, chunk, n_split, 1.0 / math.sqrt(Dh),
+             _dtype_code(qc), _dtype_code(k_cache), stream)
     _build.check(err, "decode_attention")
     return out
 

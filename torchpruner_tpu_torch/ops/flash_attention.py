@@ -15,10 +15,11 @@ self-attention call launches hand-written Hopper kernels
 mirroring the JAX package's custom VJP: a forward that needs no
 gradient skips the LSE writes.  q/k/v stay in the JAX layout
 ``(B, S, H, Dh)``; the kernels read them through their strides, so no
-transpose is made.  In bf16 the forward and dK/dV run on Hopper's wgmma
-with their tiles copied by TMA, or by the kernel's producer threads where
-a base or stride breaks TMA's 16-byte rules (:func:`copy_route`); their
-shared memory (:func:`smem_bytes`) is mirrored here for the tests.  CPU
+transpose is made.  In bf16 all three run on Hopper's wgmma with their
+tiles copied by TMA, or by the kernel's producer threads where a base or
+stride breaks TMA's 16-byte rules (:func:`copy_route`); dQ stores its
+result by TMA.  Their shared memory (:func:`smem_bytes`) is mirrored here
+for the tests.  CPU
 tensors run :func:`flash_attention_plain` (the ``_xla_attention`` math)
 under autograd.  A CUDA tensor whose head
 dimension or dtype the kernels do not take raises: there is no fallback.
@@ -77,12 +78,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 # the card tests hold them equal to the library's ``tp_flash_tma_route``
 # and ``tp_flash_smem_bytes``.
 
-#: rows of a forward query tile and of a dK/dV key tile (one CTA each);
-#: the forward streams K and V tiles through a ring of 2 stages, dK/dV
-#: query tiles of 64 rows through a ring of 3
+#: rows of a forward or dQ query tile and of a dK/dV key tile (one CTA
+#: each); the forward streams 128-key K and V tiles through a ring of 2
+#: stages, dQ 64-key K and V tiles through a ring of 3, dK/dV query tiles
+#: of 64 rows through a ring of 3
 TILE_ROWS = 128
 RING_ROWS = 64
-RING_STAGES = {"fwd": 2, "dkv": 3}
+RING_STAGES = {"fwd": 2, "dq": 3, "dkv": 3}
 
 
 def padded_head_dim(Dh: int) -> int:
@@ -92,8 +94,9 @@ def padded_head_dim(Dh: int) -> int:
 
 
 def copy_route(*ts: torch.Tensor) -> str:
-    """How the bf16 forward and dK/dV fill their shared-memory rings for
-    these inputs (q, k, v, and dO for dK/dV): ``"tma"`` when every base
+    """How the bf16 kernels fill their shared memory for these inputs (q,
+    k, v for the forward; q, k, v, o, dO for dQ; q, k, v, dO for dK/dV):
+    ``"tma"`` when every base
     is 16-byte aligned and the stride of every axis longer than 1 a
     positive multiple of 16 bytes below 2**40, else ``"copy"`` (the
     producer threads' own loads)."""
@@ -109,18 +112,21 @@ def copy_route(*ts: torch.Tensor) -> str:
 
 def smem_bytes(kernel: str, Dh: int) -> int:
     """Dynamic shared memory of the bf16 ``kernel`` at head dim ``Dh``:
-    forward, a 128-row Q tile and a ring of K and V tiles; dK/dV, K and V
-    of 128 keys and a ring of 64-row Q and dO tiles with their LSE and
-    delta rows; each plus its 8-byte mbarriers (one for the resident
-    tiles, a full and an empty one per ring stage) and 1024 bytes of
-    alignment."""
+    forward, a 128-row Q tile and a ring of K and V tiles of 128 keys; dQ,
+    128-row Q, dO and O tiles and a ring of K and V tiles of 64 keys;
+    dK/dV, K and V of 128 keys and a ring of 64-row Q and dO tiles with
+    their LSE and delta rows; each plus its 8-byte mbarriers (one for the
+    resident tiles, a full and an empty one per ring stage) and 1024
+    bytes of alignment."""
     if kernel not in RING_STAGES:
-        raise ValueError(f"kernel {kernel!r}: 'fwd' or 'dkv'")
+        raise ValueError(f"kernel {kernel!r}: 'fwd', 'dq' or 'dkv'")
     row = padded_head_dim(Dh) * 2          # bytes of a padded bf16 row
     stages = RING_STAGES[kernel]
     extra = 8 * (1 + 2 * stages) + 1024
     if kernel == "fwd":
         return TILE_ROWS * row * (1 + 2 * stages) + extra
+    if kernel == "dq":
+        return (3 * TILE_ROWS + 2 * stages * RING_ROWS) * row + extra
     return (2 * TILE_ROWS * row
             + stages * (2 * RING_ROWS * row + 2 * RING_ROWS * 4) + extra)
 
@@ -197,7 +203,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_dq(q, k, v, o, do, lse, *, causal: bool
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 2: ``(dq (B, S, H, Dh), delta (B, H, S) f32)``."""
+    """Kernel 2: ``(dq (B, S, H, Dh), delta (B, H, S) f32)``; ``dq`` is
+    allocated contiguous (the bf16 kernel stores it by TMA)."""
     q, k, v, o, do = (_unit_last(t) for t in (q, k, v, o, do))
     _check(q, k, v, o, do)
     B, S, H, Dh = q.shape
