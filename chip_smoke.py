@@ -33,10 +33,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    (mfu_llama training) and a causal f32 case whose S is not a multiple
    of the 64-row tile; for the bf16 wgmma kernels also a ragged causal S
    333, Dh 72, q/k/v as views of one fused (B, S, 3, H, Dh) tensor (TMA),
-   rows only 2-byte aligned (the copy route) and S 1; dQ (with delta)
-   and dK/dV run twice must be bit-equal; the dQ body and route that
-   ran are printed; CUDA-event times of each kernel, the plain version
-   and ``scaled_dot_product_attention`` (timed only), and the bound.
+   rows only 2-byte aligned (the copy route) and S 1, and f32 rows only
+   4-byte aligned (4-byte copies); dQ (with delta) and dK/dV run twice
+   must be bit-equal; f32 cases at Dh 128 and 72 (the 128-wide copies
+   of the f32 bodies, exact and guarded); the bodies that ran, as the profiler names them, must be
+   the dtype's (f32: ``fwd_tf32x3`` / ``dq_kernel`` / ``dkv_tf32x3``,
+   bf16 the three ``*_wgmma``) and are printed with the route;
+   CUDA-event times of each kernel, the plain version and
+   ``scaled_dot_product_attention`` (timed only), and the bound (f32 at
+   3xTF32's rate, the FMA units' bound printed beside it).
 7. The paper's loop at full width:
    ``python -m torchpruner_tpu_torch --preset bert_glue_sensitivity``
    (BERT-base, Sensitivity on all 12 ``_mlp/fc1`` targets, f32
@@ -94,10 +99,13 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 #: H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s,
-#: bf16 tensor-core FLOP/s, float32 non-tensor FLOP/s
+#: bf16 tensor-core FLOP/s, float32 non-tensor FLOP/s, and the f32
+#: FLOP/s of 3xTF32 (three TF32 tensor-core products, at 494.7 TFLOP/s,
+#: for each f32 product)
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+TF32X3_FLOPS = 494.7e12 / 3
 
 #: Llama-3-8B dequant matmul sites: (D, F) -> calls per decode step
 #: (32 blocks x wq / wk+wv / wg+wu / down, plus the lm_head)
@@ -425,7 +433,8 @@ def cli_phase() -> dict:
 #: mfu_llama causal training, a causal S that is not a multiple of the
 #: tile — and the bf16 kernels where they break: a ragged causal S, a Dh
 #: that is not a multiple of 16, q/k/v as views of one fused (B, S, 3, H,
-#: Dh) tensor (TMA route), rows only 2-byte aligned (the copy route), S 1
+#: Dh) tensor (TMA route), rows only 2-byte aligned (the copy route), S 1;
+#: and the f32 kernels' 4-byte copies (rows only 4-byte aligned)
 FLASH_CASES = (
     ("scoring", 128, 128, 12, 64, "float32", False),
     ("retrain", 32, 128, 12, 64, "bfloat16", False),
@@ -436,6 +445,9 @@ FLASH_CASES = (
     ("fused_qkv_bf16", 8, 512, 12, 64, "bfloat16", True, "fused"),
     ("copy_route_bf16", 2, 256, 8, 64, "bfloat16", True, "offset"),
     ("s1_bf16", 8, 1, 8, 128, "bfloat16", False),
+    ("unaligned_f32", 2, 256, 8, 64, "float32", True, "offset"),
+    ("dh128_f32", 4, 512, 8, 128, "float32", False),
+    ("dh72_f32", 4, 256, 8, 72, "float32", True),
 )
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 BS_KERNELS = ("blocksparse_fwd", "blocksparse_dx", "blocksparse_dw")
@@ -465,8 +477,9 @@ def reset_launches():
 
 def flash_layout(q, k, v, layout):
     """q, k, v in ``layout``: ``"bshd"`` as they are, ``"fused"`` views of
-    one (B, S, 3, H, Dh) tensor, ``"offset"`` views whose rows start 2
-    bytes past a 16-byte boundary (the bf16 kernels' copy route)."""
+    one (B, S, 3, H, Dh) tensor, ``"offset"`` views whose rows start one
+    element past a 16-byte boundary (the bf16 kernels' copy route, the
+    f32 kernels' 4-byte copies)."""
     import torch
 
     if layout == "fused":
@@ -483,6 +496,32 @@ def flash_layout(q, k, v, layout):
             out.append(view)
         return tuple(out)
     return q, k, v
+
+
+def flash_bodies(calls) -> dict:
+    """The kernel each flash call ran, as the profiler names it (a
+    demangled name without its namespaces and parameters), by kernel;
+    grouped by ``prune_trace.py``'s name fragments."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchpruner_tpu_torch.experiments.prune_trace import _group
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+    ran = {kernel: set() for kernel in calls}
+    for e in prof.events():
+        if _group(e.name) in ran:
+            m = re.search(r"(\w+(?:<[^()]*>)?)\(", e.name)
+            ran[_group(e.name)].add(m.group(1) if m else e.name)
+    for kernel, names in ran.items():
+        if len(names) != 1:
+            fail(f"flash {kernel}: the profiler saw kernels {sorted(names)}")
+    return {kernel: names.pop() for kernel, names in ran.items()}
 
 
 def flash_case(dev, label, B, S, H, Dh, dtn, causal, layout="bshd") -> dict:
@@ -535,10 +574,21 @@ def flash_case(dev, label, B, S, H, Dh, dtn, causal, layout="bshd") -> dict:
     case = {"label": label, "B": B, "S": S, "H": H, "Dh": Dh, "dtype": dtn,
             "causal": causal, "layout": layout,
             "route": None if f32 else FA.copy_route(q, k, v, g),
-            # the dQ body and the route its q, k, v, o, dO take
-            "dq_body": "dq_kernel (fma)" if f32 else "dq_wgmma",
+            # the route dQ's q, k, v, o, dO take
             "dq_route": None if f32 else FA.copy_route(q, k, v, o, g),
             "dkv_bit_equal": True, "dq_bit_equal": True, "errors": errs}
+    case["body"] = flash_bodies({
+        "flash_fwd": lambda: FA.flash_fwd(q, k, v, causal=causal,
+                                          with_lse=True),
+        "flash_dq": lambda: FA.flash_dq(q, k, v, o, g, lse, causal=causal),
+        "flash_dkv": lambda: FA.flash_dkv(q, k, v, g, lse, delta,
+                                          causal=causal)})
+    want = (("fwd_tf32x3", "dq_kernel", "dkv_tf32x3") if f32
+            else ("fwd_wgmma", "dq_wgmma", "dkv_wgmma"))
+    for name, body in zip(FLASH_KERNELS, want):
+        if body not in case["body"][name]:
+            fail(f"flash {label}: {name} ran {case['body'][name]}, not "
+                 f"{body}")
     case["ms"] = {
         "flash_fwd": event_ms(lambda i: FA.flash_fwd(
             q, k, v, causal=causal, with_lse=True), 10),
@@ -554,8 +604,11 @@ def flash_case(dev, label, B, S, H, Dh, dtn, causal, layout="bshd") -> dict:
         p_out, pq, g, retain_graph=True), 3)
     del p_out
     torch.cuda.empty_cache()
-    # the library yardstick, timed only: SDPA on (B, H, S, Dh) views
-    lq = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    # the library yardstick, timed only: SDPA on (B, H, S, Dh) views (of
+    # contiguous copies for the offset layout, whose rows its f32 kernel
+    # refuses)
+    lq = [(t.contiguous() if layout == "offset" else t).detach()
+          .transpose(1, 2).requires_grad_() for t in (q, k, v)]
     gl = g.transpose(1, 2)
     case["library_fwd_ms"] = event_ms(
         lambda i: Fn.scaled_dot_product_attention(*lq, is_causal=causal), 10)
@@ -565,23 +618,29 @@ def flash_case(dev, label, B, S, H, Dh, dtn, causal, layout="bshd") -> dict:
     case["library_fwd_bwd_ms"] = event_ms(lambda i: torch.autograd.grad(
         Fn.scaled_dot_product_attention(*lq, is_causal=causal), lq, gl), 10)
     # bounds: each input read once, each output written once; the
-    # operations this run's mask needs (causal: the visible pairs)
+    # operations this run's mask needs (causal: the visible pairs) at the
+    # card's peak for the type (f32: 3xTF32; the FMA units' bound kept
+    # beside it)
     pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     n, rows, es = B * S * H * Dh, B * H * S, q.element_size()
-    peak = FP32_FLOPS if f32 else BF16_FLOPS
-    case["bound"] = {
-        "flash_fwd": bound_ms(4 * n * es + 4 * rows, 4.0 * pairs * Dh, peak),
-        "flash_dq": bound_ms(6 * n * es + 8 * rows,
-                             6.0 * pairs * Dh + 2.0 * n, peak),
-        "flash_dkv": bound_ms(6 * n * es + 8 * rows, 8.0 * pairs * Dh,
-                              peak)}
+    work = {"flash_fwd": (4 * n * es + 4 * rows, 4.0 * pairs * Dh),
+            "flash_dq": (6 * n * es + 8 * rows, 6.0 * pairs * Dh + 2.0 * n),
+            "flash_dkv": (6 * n * es + 8 * rows, 8.0 * pairs * Dh)}
+    case["bound"] = {k: bound_ms(*w, TF32X3_FLOPS if f32 else BF16_FLOPS)
+                     for k, w in work.items()}
+    if f32:
+        case["bound_fma"] = {k: bound_ms(*w, FP32_FLOPS)
+                             for k, w in work.items()}
     ms = case["ms"]
     log(f"  flash {label} {dtn} B{B} S{S} H{H} Dh{Dh} causal={causal} "
-        f"{layout} route={case['route']} dq {case['dq_body']} route="
+        f"{layout} route={case['route']} bodies "
+        + " / ".join(case["body"][k] for k in FLASH_KERNELS) + " dq route="
         f"{case['dq_route']}: "
         f"fwd {ms['flash_fwd']:.4f} / dq {ms['flash_dq']:.4f} / dkv "
         f"{ms['flash_dkv']:.4f} ms  bounds "
         + "/".join(f"{case['bound'][k][0]:.4f}" for k in FLASH_KERNELS)
+        + ("  (fma " + "/".join(f"{case['bound_fma'][k][0]:.4f}"
+                                for k in FLASH_KERNELS) + ")" if f32 else "")
         + f" ms  plain fwd {case['plain_fwd_ms']:.3f} bwd "
         f"{case['plain_bwd_ms']:.3f} ms  sdpa fwd "
         f"{case['library_fwd_ms']:.4f} bwd {case['library_bwd_ms']:.4f} "
@@ -1318,6 +1377,12 @@ def main() -> int:
             "per": "one call at the scoring shape (f32, B 128, S 128, H 12, "
                    "Dh 64); backward rows: plain_ms and library_ms are the "
                    "whole backward (dq, dk, dv)",
+            # the bodies the profiler saw at the scoring and retrain shapes
+            "body": {"float32": score["body"][name],
+                     "bfloat16": next(c["body"][name] for c in fl
+                                      if c["label"] == "retrain")},
+            # bound_ms is at 3xTF32's f32 rate; the FMA units' beside it
+            "bound_fma_ms": score["bound_fma"][name][0],
             "launches_retrain": rt["launches"][name],
             "launches_causal": ca["launches"][name],
             # the bf16 training shapes (the wgmma forward and dK/dV)

@@ -11,11 +11,15 @@ must never reach the plain version.
 Tolerances: f32 agrees to rtol 1e-5 of the output scale (the same math,
 sums in other orders); on the card the kernels' gradients agree to 1e-4,
 since their sums run over 64-key tiles in another order than a single
-matrix product.  bf16 agrees to 2**-7 of the scale: both round
-their inputs to bf16 identically, but the Pallas kernel keeps the
-softmax weights in f32 where the plain version (the einsum path's
-semantics) rounds them to bf16 before the value product, and the
-gradients pass through bf16 products in the plain version.
+matrix product.  The f32 forward and dK/dV compute their products in
+3xTF32 on the tensor cores; a single TF32 pass (2**-11 a product) would
+fail these f32 tolerances, which the CPU test
+``test_tf32x3_error_budget_fits_the_f32_tolerance`` shows by emulation.
+bf16 agrees to 2**-7 of the scale: both round their inputs to bf16
+identically, but the Pallas kernel keeps the softmax weights in f32
+where the plain version (the einsum path's semantics) rounds them to
+bf16 before the value product, and the gradients pass through bf16
+products in the plain version.
 
 The JAX package is imported inside the CPU tests, so the file collects
 without it; on the GPU machine run only the card's tests, with
@@ -220,6 +224,139 @@ def test_copy_route_for_dq_tensors():
                          .transpose(1, 2)) == "tma"
 
 
+# ------------------------------------------ the f32 kernels' plan (CPU)
+
+
+def _tf32(x: torch.Tensor, rounded: bool = True) -> torch.Tensor:
+    """``x`` as a TF32 value, on the int32 view: ``cvt.rna.tf32.f32``
+    (add 0x1000, mask 0xffffe000: nearest, ties away from zero), or, with
+    ``rounded=False``, the 13 low mantissa bits dropped, as the tensor
+    core reads an f32 register given as a TF32 operand."""
+    i = x.view(torch.int32)
+    return (((i + 0x1000) if rounded else i) & -0x2000).view(torch.float32)
+
+
+def _tf32_mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as the kernels' tensor cores take it: one TF32 pass (operands
+    rounded), or three (small * big + big * small + big * big, each
+    operand split into big = tf32(x) and small = x - big, which the tensor
+    core truncates); products of TF32 values are exact in f32, sums in
+    f32."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    return (_tf32(a - ab, False) @ bb + ab @ _tf32(b - bb, False)
+            + ab @ bb)
+
+
+def test_tf32x3_error_budget_fits_the_f32_tolerance():
+    """The arithmetic the f32 forward rests on, emulated on the CPU at the
+    scoring shape's S 128 and Dh 64 (B * H cut to 4): logits and P V in
+    3xTF32 land at least 10x inside the port's f32 tolerance (1e-5 of the
+    output's scale, and of the LSE's) against f64; one TF32 pass does
+    not."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.tensor(rng.normal(size=(4, 128, 64)).astype(np.float32))
+               for _ in range(3))
+    scale = 1.0 / 8.0
+    s64 = q.double() @ k.double().transpose(1, 2) * scale
+    o64 = torch.softmax(s64, -1) @ v.double()
+    lse64 = torch.logsumexp(s64, -1)
+    errs = {}
+    for passes in (1, 3):
+        s = _tf32_mm(q, k.transpose(1, 2).contiguous(), passes) * scale
+        p = torch.softmax(s, -1)
+        o = _tf32_mm(p, v, passes)
+        errs[passes] = (
+            float((o.double() - o64).abs().max() / o64.abs().max()),
+            float((torch.logsumexp(s, -1).double() - lse64).abs().max()
+                  / lse64.abs().max()))
+    assert max(errs[3]) <= F32_RTOL / 10, errs
+    assert errs[1][0] > F32_RTOL, errs
+
+
+def test_f32_smem_fits_two_ctas_an_sm_and_pitches_align():
+    card = 232448  # bytes of shared memory a block may use on an H100
+    for Dh in range(8, PF.MAX_HEAD_DIM + 1, 8):
+        # two kernel copies, tiles 64 and 128 columns wide
+        w = 64 if Dh <= 64 else 128
+        p = PF.f32_pitches(Dh)
+        assert p["qk"] >= w and p["qk"] % 32 == 8 and p["qk"] - w < 32
+        assert p["v"] == w + 4 and p["v"] % 8 == 4
+        for kernel in ("fwd", "dkv"):
+            assert 0 < PF.f32_smem_bytes(kernel, Dh) <= card
+    # at BERT's Dh 64 two CTAs share an SM (228 KB, 1 KB reserved each):
+    # Q, K, K, V, V at 72 and 68 floats; K, V and two stages of Q and dO
+    # at 68 floats with 2 x 64 LSE and delta rows
+    assert PF.f32_smem_bytes("fwd", 64) == 4 * 64 * (3 * 72 + 2 * 68)
+    assert PF.f32_smem_bytes("dkv", 64) == 4 * 64 * (6 * 68 + 4)
+    for kernel in ("fwd", "dkv"):
+        assert 2 * (PF.f32_smem_bytes(kernel, 64) + 1024) <= 233472
+    with pytest.raises(ValueError):
+        PF.f32_smem_bytes("dq", 64)
+
+
+def _banks_distinct(words, width=1):
+    """A warp's shared read of ``width`` consecutive 4-byte words from
+    each lane's ``words[lane]`` runs in phases of 32 / width lanes; True
+    when each phase hits 32 distinct banks."""
+    lanes = 32 // width
+    for p0 in range(0, 32, lanes):
+        banks = [(w + i) % 32 for w in words[p0:p0 + lanes]
+                 for i in range(width)]
+        if len(set(banks)) != 32:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("Dh", range(8, 129, 8))
+def test_f32_fragment_reads_hit_distinct_banks(Dh):
+    """Every shared-memory fragment read of the f32 kernels, lane by lane
+    (g = lane // 4, t = lane % 4), at the pitches of ``f32_pitches``."""
+    p = PF.f32_pitches(Dh)
+    lanes = [(lane // 4, lane % 4) for lane in range(32)]
+    for kk in range(Dh // 8):
+        # forward: Q (A) and K (B^T), columns 8 kk + 2t and + 1 in one
+        # 8-byte load of rows g (+ 8 n)
+        assert _banks_distinct([g * p["qk"] + 8 * kk + 2 * t
+                                for g, t in lanes], 2)
+        # dK/dV: K, V (A) and Q^T, dO^T (B^T), rows g, columns 8 kk + t
+        assert _banks_distinct([g * p["v"] + 8 * kk + t for g, t in lanes])
+    for c in range(Dh // 8):
+        # forward V and dK/dV's dO and Q as B: rows 2t (and 2t + 1),
+        # columns 8 c + g
+        for row in (0, 1):
+            assert _banks_distinct([(2 * t + row) * p["v"] + 8 * c + g
+                                    for g, t in lanes])
+
+
+def test_flash_ab_plain_route_swaps_only_the_attention_core():
+    """``flash_ab.py``'s scoring leg holds the kernels' Sensitivity
+    scores against the model with every attention layer on the plain
+    einsum core (``impl="xla"``): the same layers otherwise, and on the
+    CPU, where flash attention is its plain version, the same output."""
+    from torchpruner_tpu_torch.core import layers as L
+    from torchpruner_tpu_torch.core.segment import init_model
+    from torchpruner_tpu_torch.experiments.flash_ab import plain_attention
+    from torchpruner_tpu_torch.models import bert_tiny
+
+    model = bert_tiny()
+    plain = plain_attention(model)
+
+    def attn(m):
+        return [c for spec in m.layers if isinstance(spec, L.Residual)
+                for c in spec.body if isinstance(c, L.MultiHeadAttention)]
+
+    assert [a.impl for a in attn(model)] == ["auto"] * 2
+    assert [a.impl for a in attn(plain)] == ["xla"] * 2
+    assert plain.names == model.names
+    params, _ = init_model(model, seed=0, device="cpu")
+    x = torch.randint(0, 128, (2, 16))
+    want, _ = model.apply(params, x)
+    got, _ = plain.apply(params, x)
+    _close(got.detach().numpy(), want.detach().numpy(), F32_RTOL)
+
+
 # ------------------------------------------------------------- on the card
 
 
@@ -287,6 +424,11 @@ def _kernel_vs_plain(dev, B, S, H, Dh, dtype, causal, layout="bshd"):
     (1, 257, 2, 128, torch.bfloat16, False),   # one row past two tiles
     (3, 1, 2, 64, torch.bfloat16, True),       # S = 1
     (2, 1, 2, 128, torch.bfloat16, False),     # S = 1, Dh 128
+    (3, 1, 2, 64, torch.float32, True),        # S = 1, f32 (3xTF32)
+    (2, 256, 2, 128, torch.float32, False),    # f32 Dh 128, non-causal
+    (2, 333, 4, 64, torch.float32, True),      # f32 ragged causal S 333
+    (2, 160, 3, 72, torch.float32, True),      # f32 Dh 72: 9 of 16 blocks
+    (3, 77, 2, 8, torch.float32, False),       # f32 Dh 8: 1 of 8 blocks
 ])
 def test_flash_kernels_match_plain(dev, B, S, H, Dh, dtype, causal):
     _kernel_vs_plain(dev, B, S, H, Dh, dtype, causal)
@@ -295,6 +437,15 @@ def test_flash_kernels_match_plain(dev, B, S, H, Dh, dtype, causal):
 @pytest.mark.cuda
 def test_flash_kernels_read_strided_layout(dev):
     _kernel_vs_plain(dev, 2, 96, 4, 32, torch.float32, True, layout="bhsd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh,causal", [(64, True), (40, False)])
+def test_flash_f32_rows_only_4_byte_aligned(dev, Dh, causal):
+    """Rows one element past a 16-byte boundary: the f32 kernels copy
+    4 bytes at a time and store outputs element by element."""
+    _kernel_vs_plain(dev, 2, 96, 3, Dh, torch.float32, causal,
+                     layout="offset")
 
 
 @pytest.mark.cuda
@@ -309,9 +460,10 @@ def test_flash_bf16_layouts_take_their_route(dev, layout, route, Dh, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_dkv_bit_equal_across_runs(dev, causal):
-    q, k, v, g = (torch.tensor(a, device=dev).to(torch.bfloat16)
+def test_flash_dkv_bit_equal_across_runs(dev, causal, dtype):
+    q, k, v, g = (torch.tensor(a, device=dev).to(dtype)
                   for a in _qkv(2, 384, 4, 128, seed=7))
     o, lse = PF.flash_fwd(q, k, v, causal=causal, with_lse=True)
     _, delta = PF.flash_dq(q, k, v, o, g, lse, causal=causal)
@@ -391,6 +543,9 @@ def test_flash_host_mirrors_match_the_library(dev):
         for code, kernel in ((0, "fwd"), (1, "dkv"), (2, "dq")):
             assert lib.tp_flash_smem_bytes(code, Dh) == \
                 PF.smem_bytes(kernel, Dh)
+        for code, kernel in ((3, "fwd"), (4, "dkv")):
+            assert lib.tp_flash_smem_bytes(code, Dh) == \
+                PF.f32_smem_bytes(kernel, Dh)
     route = lib.tp_flash_tma_route
     route.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                       ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4

@@ -14,15 +14,18 @@
 // reads, far above the card's ~20 f32 (~295 bf16) operations per byte,
 // and the (S, S) score matrix, the one large intermediate, never leaves
 // the chip.  Design against that bound:
-//   - f32 (the scoring path) runs on the FMA units, which is all the
-//     card has for f32 without TF32 rounding: one CTA per (b, h, 64-row
-//     tile) of 256 threads, tiles staged through shared memory padded to
-//     an odd row length so the 16 threads of a row group hit 16 distinct
-//     banks, each thread a 4 x 4 block of the 64 x 64 score tile and 4
-//     rows x Dh/16 output columns; the forward and dQ tile queries and
-//     loop over key tiles, dK/dV tiles keys and loops over query tiles;
-//     blocks run in parallel, so each loop carries its own f32
-//     accumulators (the TPU carried them across sequential grid steps);
+//   - f32 (the scoring path): the forward and dK/dV run on the tensor
+//     cores in 3xTF32, three TF32 mma.sync products a product, which
+//     keeps f32's accuracy (see "f32 kernels: 3xTF32" below): one CTA of
+//     4 warps per (b, h, 64-row tile), a 2-stage cp.async ring; dQ runs
+//     on the FMA units: one CTA per (b, h, 64-row tile) of 256 threads,
+//     tiles staged through shared memory padded to an odd row length so
+//     the 16 threads of a row group hit 16 distinct banks, each thread a
+//     4 x 4 block of the 64 x 64 score tile and 4 rows x Dh/16 output
+//     columns; the forward and dQ tile queries and loop over key tiles,
+//     dK/dV tiles keys and loops over query tiles; blocks run in
+//     parallel, so each loop carries its own f32 accumulators (the TPU
+//     carried them across sequential grid steps);
 //   - bf16 (training) runs all three kernels on Hopper's wgmma with
 //     TMA-fed rings and the scores in registers (see "bf16 kernels:
 //     wgmma" below): the forward and dQ one CTA per 128 query rows, dK/dV
@@ -67,16 +70,10 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// sum / max over the 16 lanes of a row group (lanes 0-15 or 16-31)
+// sum over the 16 lanes of a row group (lanes 0-15 or 16-31)
 __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
@@ -119,122 +116,8 @@ __device__ __forceinline__ int key_tiles(int q0, int S, int causal) {
   return causal ? min(n, (q0 + BT - 1) / BT + 1) : n;
 }
 
-// ------------------------------------------- f32: FMA kernels
+// --------------------------------------------------------- f32 dQ: FMA
 // (templated on the element type; launched for float)
-
-// ---------------------------------------------------------------- forward
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ o,
-           float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
-           Strides so, int H, int S, int Dh, float scale, int causal, int vec) {
-  extern __shared__ float smem[];
-  const int ld = Dh + 1;
-  float* Qs = smem;
-  float* Ks = Qs + BT * ld;
-  float* Vs = Ks + BT * ld;
-  float* Ps = Vs + BT * ld;  // (64, LDP)
-  const int n_qt = (S + BT - 1) / BT;
-  const int q0 = (blockIdx.x % n_qt) * BT;
-  const int b = blockIdx.x / n_qt / H;
-  const int h = blockIdx.x / n_qt % H;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile(Qs, ld, q, sq, b, h, q0, S, Dh, vec);
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-  const int n_kt = key_tiles(q0, S, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    load_tile(Ks, ld, k, sk, b, h, k0, S, Dh, vec);
-    load_tile(Vs, ld, v, sv, b, h, k0, S, Dh, vec);
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < Dh; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      bool ok[4];
-      float rmax = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        ok[j] = kp < S && (!causal || kp <= qp);
-        s[i][j] = ok[j] ? s[i][j] * scale : NEG;
-        rmax = fmaxf(rmax, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(rmax));
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
-        rsum += p;
-      }
-      l[i] = l[i] * alpha + group_sum(rsum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    const int live = min(BT, S - k0);  // rows of V past S hold zeros
-    for (int j = 0; j < live; ++j) {
-      float vv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = tx + 16 * c;
-        vv[c] = col < Dh ? Vs[j * ld + col] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[(ty + 16 * i) * LDP + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    if (qp >= S) continue;
-    const float inv = 1.f / l[i];
-    T* orow = o + b * so.b + (long long)qp * so.s + h * so.h;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < Dh) put(orow + col, acc[i][c] * inv);
-    }
-    if (lse != nullptr && tx == 0)
-      lse[((long long)b * H + h) * S + qp] = m[i] + logf(l[i]);
-  }
-}
-
-// ------------------------------------------------------------------- dQ
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -345,126 +228,6 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DC; ++c) {
       const int col = tx + 16 * c;
       if (col < Dh) put(row + col, acc[i][c]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- dK/dV
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           T* __restrict__ dk, T* __restrict__ dv, Strides sq, Strides sk,
-           Strides sv, Strides sdo, Strides sdk, Strides sdv, int H, int S,
-           int Dh, float scale, int causal, int vec) {
-  extern __shared__ float smem[];
-  const int ld = Dh + 1;
-  float* Ks = smem;
-  float* Vs = Ks + BT * ld;
-  float* Qs = Vs + BT * ld;
-  float* dOs = Qs + BT * ld;
-  float* Ps = dOs + BT * ld;  // (64, LDP)
-  float* dSs = Ps + BT * LDP;  // (64, LDP)
-  const int n_t = (S + BT - 1) / BT;
-  const int kt = blockIdx.x % n_t;
-  const int k0 = kt * BT;
-  const int b = blockIdx.x / n_t / H;
-  const int h = blockIdx.x / n_t % H;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const long long row_bh = ((long long)b * H + h) * S;
-
-  load_tile(Ks, ld, k, sk, b, h, k0, S, Dh, vec);
-  load_tile(Vs, ld, v, sv, b, h, k0, S, Dh, vec);
-  float gk[4][DC], gv[4][DC];  // key rows ty + 16 i, columns tx + 16 c
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) gk[i][c] = gv[i][c] = 0.f;
-  // causal: query tiles wholly above this key tile's diagonal see none
-  // of its keys
-  for (int qt = causal ? kt : 0; qt < n_t; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();
-    load_tile(Qs, ld, q, sq, b, h, q0, S, Dh, vec);
-    load_tile(dOs, ld, dout, sdo, b, h, q0, S, Dh, vec);
-    __syncthreads();
-    float s[4][4], dp[4][4];  // query rows ty + 16 i, keys tx + 16 j
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < Dh; ++d) {
-      float qv[4], gd[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * ld + d];
-        gd[i] = dOs[(ty + 16 * i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * ld + d];
-        vv[j] = Vs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gd[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      const float lr = qp < S ? lse[row_bh + qp] : 0.f;
-      const float dr = qp < S ? delta[row_bh + qp] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const bool ok = qp < S && kp < S && (!causal || kp <= qp);
-        const float p = ok ? expf(s[i][j] * scale - lr) : 0.f;
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = p;
-        dSs[(ty + 16 * i) * LDP + tx + 16 * j] = p * (dp[i][j] - dr) * scale;
-      }
-    }
-    __syncthreads();
-    const int live = min(BT, S - q0);
-    for (int r = 0; r < live; ++r) {
-      float go[DC], qq[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = tx + 16 * c;
-        go[c] = col < Dh ? dOs[r * ld + col] : 0.f;
-        qq[c] = col < Dh ? Qs[r * ld + col] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[r * LDP + ty + 16 * i];
-        const float ds = dSs[r * LDP + ty + 16 * i];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          gv[i][c] = fmaf(p, go[c], gv[i][c]);
-          gk[i][c] = fmaf(ds, qq[c], gk[i][c]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty + 16 * i;
-    if (kp >= S) continue;
-    T* krow = dk + b * sdk.b + (long long)kp * sdk.s + h * sdk.h;
-    T* vrow = dv + b * sdv.b + (long long)kp * sdv.s + h * sdv.h;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < Dh) {
-        put(krow + col, gk[i][c]);
-        put(vrow + col, gv[i][c]);
-      }
     }
   }
 }
@@ -1154,15 +917,531 @@ dq_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------ f32 kernels: 3xTF32 mma.sync
+//
+// `fwd_tf32x3<NTM, EXACT>` and `dkv_tf32x3<NTM, EXACT>` run the f32
+// forward and dK/dV on the tensor cores at f32 accuracy, for Dh up to
+// 8 NTM (NTM 8 for Dh <= 64, 16 up to 128); EXACT copies serve Dh = 8 NTM
+// (BERT's 64, and 128), the others any smaller Dh.  Each f32 operand x is
+// split into big = tf32(x) (rounded to nearest) and small = x - big, and
+// each product is the sum of three TF32 products, small big + big small
+// + big big (the small terms first), on mma.sync.m16n8k8 with f32 sums.
+// What the split drops, small small and the low bits of small that the
+// tensor core truncates, is below 2^-21 of each term, near f32's own
+// rounding; one TF32 pass carries 2^-11 and misses the f32 tolerances
+// (the CPU test
+// `test_tf32x3_error_budget_fits_the_f32_tolerance` holds the budget).
+// mma.sync and not wgmma: wgmma takes TF32 operands from shared memory
+// K-major only, and V (forward), dO and Q (dK/dV) enter their products
+// MN-major, which TMA cannot transpose for f32.
+//   - one CTA of 4 warps per 64 rows (queries in the forward, keys in
+//     dK/dV); warp w owns rows 16 w .. 16 w + 15, an m16 tile, so its
+//     scores against a 64-row tile are one accumulator fragment in
+//     registers, and the online softmax (forward), P^T and dS^T (dK/dV)
+//     run on it with quad shuffles; the nt = Dh / 8 blocks of 8 columns
+//     in use guard each unrolled block loop, so the accumulators'
+//     indices stay fixed at compile time (in registers) and no block
+//     past Dh is loaded or multiplied; in an EXACT copy nt = NTM is a
+//     constant and the guards fold away (run-time guards made the
+//     forward and dK/dV 1.3-2.2x slower at Dh 64 and 128, and a test
+//     left around each copy of copy_rows 1.1-1.5x);
+//   - the streamed tiles (the forward's K and V; dK/dV's Q and dO with
+//     their LSE and delta rows) come through a 2-stage cp.async ring,
+//     16-byte copies where every row is 16-byte aligned, else 4-byte
+//     ones, zeros past S; the resident tiles (Q; K and V) come the same
+//     way, in the first stage's group;
+//   - the weights go from the accumulator to the A operand of the next
+//     product (P V; P^T dO and dS^T Q) with no shuffle: an accumulator
+//     holds columns 2t and 2t + 1 of each block of 8, an A fragment
+//     k-indices t and t + 4, so the sum over keys (queries) runs in the
+//     order 2t -> t, 2t + 1 -> t + 4 inside each block of 8 and the B
+//     operand is read from rows 2t and 2t + 1; the forward's Q K^T takes
+//     its sum over Dh in the same order, so a thread's two columns of Q
+//     or K are one 8-byte load;
+//   - row pitches, fixed by NTM, give every fragment read 32 distinct
+//     banks: the forward's Q and K = 8 (mod 32) floats (8-byte loads of
+//     rows g), its V and every dK/dV tile 8 NTM + 4 = 4 (mod 8) (4-byte
+//     loads of rows g, or of rows 2t and 2t + 1);
+//   - the forward keeps Q's split fragments in registers across the key
+//     loop at Dh <= 64 and re-reads them from shared memory above;
+//   - causal: tiles past the diagonal are never loaded; only the
+//     diagonal and the ragged S tile test elements; dK/dV's query rows
+//     past S carry LSE = +inf, so their weights are 0.
+// Deterministic: one CTA per output tile, every sum in a fixed order, no
+// atomics.
+
+constexpr int TC_THREADS = 128;  // 4 warps of 16 rows
+
+// the forward's Q and K pitch: the least >= Dh that is 8 (mod 32)
+__host__ __device__ constexpr int pitch_qk(int dh) {
+  return dh + ((8 - dh) % 32 + 32) % 32;
+}
+template <int NTM>
+constexpr size_t fwd_tf32x3_smem() {  // Q, then 2 stages of K and of V
+  return (size_t)BT * (3 * pitch_qk(8 * NTM) + 2 * (8 * NTM + 4)) * 4;
+}
+template <int NTM>
+constexpr size_t dkv_tf32x3_smem() {
+  // K and V, then 2 stages of Q, dO and the LSE and delta rows
+  return (size_t)BT * (6 * (8 * NTM + 4) + 4) * 4;
+}
+
+// one cp.async of W (16 or 4) bytes; zeros in place of the source when
+// !ok
+template <int W>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool ok) {
+  if constexpr (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(ok ? 4 : 0)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows row0 .. row0 + 63, columns 0 .. dh - 1, of one (b, h) slice of a
+// (B, S, H, dh) f32 tensor into dst (pitch P floats) by cp.async: 16-byte
+// copies when `vec`, else 4-byte ones; zeros past S.  The loop runs over
+// DHM >= dh columns, fixed at compile time; those past dh are skipped,
+// unless EXACT (dh = DHM), where no test is made.
+template <int DHM, int P, bool EXACT>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          Strides st, int b, int h,
+                                          int row0, int S, int dh,
+                                          int vec) {
+  const float* base = src + b * st.b + h * st.h;
+  if (vec) {
+    constexpr int U = DHM / 4;  // 16-byte units of a row
+#pragma unroll
+    for (int it = 0; it < BT * U / TC_THREADS; ++it) {
+      const int i = threadIdx.x + it * TC_THREADS;
+      const int r = i / U, c = (i - r * U) * 4, s = row0 + r;
+      if (EXACT || c < dh)
+        cp_async<16>(dst + r * P + c,
+                     base + (long long)min(s, S - 1) * st.s + c, s < S);
+    }
+    return;
+  }
+  for (int it = 0; it < BT * DHM / TC_THREADS; ++it) {
+    const int i = threadIdx.x + it * TC_THREADS;
+    const int r = i / DHM, c = i - r * DHM, s = row0 + r;
+    if (EXACT || c < dh)
+      cp_async<4>(dst + r * P + c,
+                  base + (long long)min(s, S - 1) * st.s + c, s < S);
+  }
+}
+
+// x = big + small + (below 2^-21 |x|): big is x rounded to TF32,
+// nearest with ties away (cvt.rna.tf32's bit trick without its Inf/NaN
+// guard, 2 instructions for its 4), small = x - big, exact in f32, whose
+// low 13 bits the tensor core drops
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+// d += a b, one m16n8k8 product of TF32 operands
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a b in 3xTF32, a = (ab, as) and b = (bb, bs) split, small terms
+// first
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4],
+                                     const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  mma_tf32(d, as, bb[0], bb[1]);
+  mma_tf32(d, ab, bs[0], bs[1]);
+  mma_tf32(d, ab, bb[0], bb[1]);
+}
+// the A fragment of an accumulator block c (rows g, g, g + 8, g + 8 by
+// columns 2t, 2t + 1, 2t, 2t + 1), split: k-index t <- column 2t,
+// t + 4 <- 2t + 1
+__device__ __forceinline__ void split_acc(const float (&c)[4],
+                                          uint32_t (&ab)[4],
+                                          uint32_t (&as)[4]) {
+  split(c[0], ab[0], as[0]);
+  split(c[2], ab[1], as[1]);
+  split(c[1], ab[2], as[2]);
+  split(c[3], ab[3], as[3]);
+}
+// the A fragment of a row-major tile A (pitch P), split: rows r and
+// r + 8, columns c and c + 4
+template <int P>
+__device__ __forceinline__ void a_frag(const float* A, int r, int c,
+                                       uint32_t (&ab)[4], uint32_t (&as)[4]) {
+  split(A[r * P + c], ab[0], as[0]);
+  split(A[(r + 8) * P + c], ab[1], as[1]);
+  split(A[r * P + c + 4], ab[2], as[2]);
+  split(A[(r + 8) * P + c + 4], ab[3], as[3]);
+}
+// the forward's A fragment of Q at k-step kk, split: rows r and r + 8,
+// columns 8 kk + 2t (k-index t) and 8 kk + 2t + 1 (t + 4)
+template <int P>
+__device__ __forceinline__ void q_frag(const float* Qs, int r, int kk, int t,
+                                       uint32_t (&ab)[4], uint32_t (&as)[4]) {
+  const float2 x0 =
+      *reinterpret_cast<const float2*>(Qs + r * P + 8 * kk + 2 * t);
+  const float2 x1 =
+      *reinterpret_cast<const float2*>(Qs + (r + 8) * P + 8 * kk + 2 * t);
+  split(x0.x, ab[0], as[0]);
+  split(x1.x, ab[1], as[1]);
+  split(x0.y, ab[2], as[2]);
+  split(x1.y, ab[3], as[3]);
+}
+// two adjacent outputs: one 8-byte store when `vec`
+__device__ __forceinline__ void put2(float* p, float x, float y, int vec) {
+  if (vec) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  } else {
+    p[0] = x;
+    p[1] = y;
+  }
+}
+
+// This CTA's 64-row tile and b * H + h.  Causal: the heaviest tiles of
+// every (b, h) first (the forward's last query tiles, dK/dV's first key
+// tiles); else the tiles of one (b, h) side by side, so they find its
+// streamed tiles in L2.
+__device__ __forceinline__ void cta_tile(int n_t, int BH, int causal,
+                                         bool last_first, int& tile,
+                                         int& bh) {
+  if (causal) {
+    const int i = blockIdx.x / BH;
+    tile = last_first ? n_t - 1 - i : i;
+    bh = blockIdx.x % BH;
+  } else {
+    tile = blockIdx.x % n_t;
+    bh = blockIdx.x / n_t;
+  }
+}
+
+template <int NTM, bool EXACT>
+__global__ void __launch_bounds__(TC_THREADS)
+fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o,
+           float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+           Strides so, int B, int H, int S, int n_blocks, float scale,
+           int causal, int vec) {
+  constexpr int DHM = 8 * NTM, PQ = pitch_qk(DHM), PV = DHM + 4;
+  constexpr bool QREG = NTM <= 8;  // Q's split fragments in registers
+  const int nt = EXACT ? NTM : n_blocks, dh = 8 * nt;
+  extern __shared__ float4 smem_tc[];
+  float* Qs = reinterpret_cast<float*>(smem_tc);
+  float* Ks = Qs + BT * PQ;      // 2 stages
+  float* Vs = Ks + 2 * BT * PQ;  // 2 stages
+  const int n_t = (S + BT - 1) / BT;
+  int qt, bh;
+  cta_tile(n_t, B * H, causal, true, qt, bh);
+  const int b = bh / H, h = bh % H, q0 = qt * BT;
+  const int n_kt = key_tiles(q0, S, causal);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16 + g;  // rows q0 + r0, q0 + r0 + 8
+  const float sl2 = scale * LOG2E;
+
+  copy_rows<DHM, PQ, EXACT>(Qs, q, sq, b, h, q0, S, dh, vec);
+  copy_rows<DHM, PQ, EXACT>(Ks, k, sk, b, h, 0, S, dh, vec);
+  copy_rows<DHM, PV, EXACT>(Vs, v, sv, b, h, 0, S, dh, vec);
+  cp_commit();
+  uint32_t qb[QREG ? NTM : 1][4], qs[QREG ? NTM : 1][4];
+  float oacc[NTM][4];
+#pragma unroll
+  for (int c = 0; c < NTM; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[c][e] = 0.f;
+  float m2[2] = {NEG, NEG}, lsum[2] = {0.f, 0.f};  // base-2 max, row sums
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j & 1, k0 = j * BT;
+    if (j + 1 < n_kt) {  // the next K and V into the other stage
+      copy_rows<DHM, PQ, EXACT>(Ks + (st ^ 1) * BT * PQ, k, sk, b, h,
+                                k0 + BT, S, dh, vec);
+      copy_rows<DHM, PV, EXACT>(Vs + (st ^ 1) * BT * PV, v, sv, b, h,
+                                k0 + BT, S, dh, vec);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (QREG) {
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < NTM; ++kk)
+          if (kk < nt) q_frag<PQ>(Qs, r0, kk, t, qb[kk], qs[kk]);
+      }
+    }
+    const float* Kt = Ks + st * BT * PQ;
+    const float* Vt = Vs + st * BT * PV;
+    // S = Q K^T: rows r0 (+ 8), keys 8 n + 2t (+ 1)
+    float sacc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NTM; ++kk) {
+      if (kk < nt) {
+        uint32_t ab[4], as[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ab[e] = qb[kk][e];
+            as[e] = qs[kk][e];
+          }
+        } else {
+          q_frag<PQ>(Qs, r0, kk, t, ab, as);
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {  // B = K^T: keys 8 n + g
+          const float2 x = *reinterpret_cast<const float2*>(
+              Kt + (8 * n + g) * PQ + 8 * kk + 2 * t);
+          uint32_t bb[2], bs[2];
+          split(x.x, bb[0], bs[0]);
+          split(x.y, bb[1], bs[1]);
+          mma3(sacc[n], ab, as, bb, bs);
+        }
+      }
+    }
+    // the online softmax in base 2, the diagonal and ragged tiles masked
+    const bool masked = (causal && j == qt) || k0 + BT > S;
+    float mx[2] = {m2[0], m2[1]}, alpha[2];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sacc[n][e] * sl2;
+        if (masked) {
+          const int kp = k0 + 8 * n + 2 * t + (e & 1);
+          const int qp = q0 + r0 + 8 * (e >> 1);
+          if (kp >= S || (causal && kp > qp)) x = NEG;
+        }
+        sacc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = fast_exp2(m2[r] - mx[r]);
+      m2[r] = mx[r];
+      lsum[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int c = 0; c < NTM; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[c][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = fast_exp2(sacc[n][e] - m2[e >> 1]);
+        lsum[e >> 1] += p;
+        sacc[n][e] = p;
+      }
+    // O += P V: the keys of block n in the order 2t -> t, 2t + 1 -> t + 4
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t ab[4], as[4];
+      split_acc(sacc[n], ab, as);
+      const float* vr = Vt + (8 * n + 2 * t) * PV + g;
+#pragma unroll
+      for (int c = 0; c < NTM; ++c) {  // B = V: columns 8 c + g
+        if (c < nt) {
+          uint32_t bb[2], bs[2];
+          split(vr[8 * c], bb[0], bs[0]);
+          split(vr[PV + 8 * c], bb[1], bs[1]);
+          mma3(oacc[c], ab, as, bb, bs);
+        }
+      }
+    }
+    __syncthreads();  // this stage is free for tile j + 2
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = q0 + r0 + 8 * r;
+    const float l = quad_sum(lsum[r]);
+    if (qp >= S) continue;
+    const float inv = 1.f / l;
+    float* row = o + b * so.b + (long long)qp * so.s + h * so.h + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NTM; ++c)
+      if (c < nt)
+        put2(row + 8 * c, oacc[c][2 * r] * inv, oacc[c][2 * r + 1] * inv,
+             vec);
+    if (lse != nullptr && t == 0)
+      lse[((long long)b * H + h) * S + qp] = (m2[r] + log2f(l)) * LN2;
+  }
+}
+
+template <int NTM, bool EXACT>
+__global__ void __launch_bounds__(TC_THREADS)
+dkv_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           float* __restrict__ dk, float* __restrict__ dv, Strides sq,
+           Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
+           int B, int H, int S, int n_blocks, float scale, int causal,
+           int vec) {
+  constexpr int DHM = 8 * NTM, P = DHM + 4, TILE = BT * P;
+  const int nt = EXACT ? NTM : n_blocks, dh = 8 * nt;
+  extern __shared__ float4 smem_tc[];
+  float* Ks = reinterpret_cast<float*>(smem_tc);
+  float* Vs = Ks + TILE;
+  float* Qs = Vs + TILE;      // 2 stages
+  float* Gs = Qs + 2 * TILE;  // dO, 2 stages
+  float* Ls = Gs + 2 * TILE;  // LSE rows, 2 stages
+  float* Ds = Ls + 2 * BT;    // delta rows, 2 stages
+  const int n_t = (S + BT - 1) / BT;
+  int kt, bh;
+  cta_tile(n_t, B * H, causal, false, kt, bh);
+  const int b = bh / H, h = bh % H, k0 = kt * BT;
+  const int qt0 = causal ? kt : 0;  // earlier queries see no key here
+  const int n_q = n_t - qt0;
+  const long long row_bh = ((long long)b * H + h) * S;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16 + g;  // keys k0 + r0, k0 + r0 + 8
+  const float sl2 = scale * LOG2E;
+
+  // a query tile's Q, dO, LSE and delta rows into stage `st`, one group;
+  // rows past S: LSE +inf (their weights are 0), delta 0
+  auto load_q = [&](int st, int q0) {
+    copy_rows<DHM, P, EXACT>(Qs + st * TILE, q, sq, b, h, q0, S, dh, vec);
+    copy_rows<DHM, P, EXACT>(Gs + st * TILE, dout, sdo, b, h, q0, S, dh,
+                             vec);
+    if (threadIdx.x < BT) {
+      const int qp = q0 + threadIdx.x, i = st * BT + threadIdx.x;
+      if (qp < S)
+        cp_async<4>(Ls + i, lse + row_bh + qp, true);
+      else
+        Ls[i] = __int_as_float(0x7f800000);
+      cp_async<4>(Ds + i, delta + row_bh + min(qp, S - 1), qp < S);
+    }
+    cp_commit();
+  };
+  copy_rows<DHM, P, EXACT>(Ks, k, sk, b, h, k0, S, dh, vec);
+  copy_rows<DHM, P, EXACT>(Vs, v, sv, b, h, k0, S, dh, vec);
+  load_q(0, qt0 * BT);
+  // dK, dV: keys r0 (+ 8), columns 8 c + 2t (+ 1)
+  float gk[NTM][4], gv[NTM][4];
+#pragma unroll
+  for (int c = 0; c < NTM; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[c][e] = gv[c][e] = 0.f;
+  for (int j = 0; j < n_q; ++j) {
+    const int st = j & 1, q0 = (qt0 + j) * BT;
+    if (j + 1 < n_q) {
+      load_q(st ^ 1, q0 + BT);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* Qt = Qs + st * TILE;
+    const float* Gt = Gs + st * TILE;
+    const float* L = Ls + st * BT;
+    const float* D = Ds + st * BT;
+    // S^T = K Q^T and dP^T = V dO^T: keys r0 (+ 8), queries 8 n + 2t (+ 1)
+    float sacc[8][4], pacc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = pacc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NTM; ++kk) {
+      if (kk < nt) {
+        uint32_t kb[4], ks[4], vb[4], vs[4];
+        a_frag<P>(Ks, r0, 8 * kk + t, kb, ks);
+        a_frag<P>(Vs, r0, 8 * kk + t, vb, vs);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {  // B = Q^T, dO^T: queries 8 n + g
+          const float* qr = Qt + (8 * n + g) * P + 8 * kk + t;
+          const float* gr = Gt + (8 * n + g) * P + 8 * kk + t;
+          uint32_t bb[2], bs[2];
+          split(qr[0], bb[0], bs[0]);
+          split(qr[4], bb[1], bs[1]);
+          mma3(sacc[n], kb, ks, bb, bs);
+          split(gr[0], bb[0], bs[0]);
+          split(gr[4], bb[1], bs[1]);
+          mma3(pacc[n], vb, vs, bb, bs);
+        }
+      }
+    }
+    // P^T = exp(S^T scale - LSE), dS^T = P^T (dP^T - delta) scale; the
+    // diagonal and ragged tiles masked
+    const bool diag = causal && q0 == k0;
+    const bool masked = diag || k0 + BT > S;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * n + 2 * t + (e & 1), kr = r0 + 8 * (e >> 1);
+        float p = fast_exp2(fmaf(sacc[n][e], sl2, -L[qc] * LOG2E));
+        if (masked && (k0 + kr >= S || (diag && kr > qc))) p = 0.f;
+        sacc[n][e] = p;
+        pacc[n][e] = p * (pacc[n][e] - D[qc]) * scale;
+      }
+    // dV += P^T dO, dK += dS^T Q: the queries of block n in the order
+    // 2t -> t, 2t + 1 -> t + 4
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t pb[4], ps[4], sb[4], ss[4];
+      split_acc(sacc[n], pb, ps);
+      split_acc(pacc[n], sb, ss);
+      const float* gr = Gt + (8 * n + 2 * t) * P + g;
+      const float* qr = Qt + (8 * n + 2 * t) * P + g;
+#pragma unroll
+      for (int c = 0; c < NTM; ++c) {  // B = dO, Q: columns 8 c + g
+        if (c < nt) {
+          uint32_t bb[2], bs[2];
+          split(gr[8 * c], bb[0], bs[0]);
+          split(gr[P + 8 * c], bb[1], bs[1]);
+          mma3(gv[c], pb, ps, bb, bs);
+          split(qr[8 * c], bb[0], bs[0]);
+          split(qr[P + 8 * c], bb[1], bs[1]);
+          mma3(gk[c], sb, ss, bb, bs);
+        }
+      }
+    }
+    __syncthreads();  // this stage is free for tile j + 2
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = k0 + r0 + 8 * r;
+    if (kp >= S) continue;
+    float* krow = dk + b * sdk.b + (long long)kp * sdk.s + h * sdk.h + 2 * t;
+    float* vrow = dv + b * sdv.b + (long long)kp * sdv.s + h * sdv.h + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NTM; ++c) {
+      if (c < nt) {
+        put2(krow + 8 * c, gk[c][2 * r], gk[c][2 * r + 1], vec);
+        put2(vrow + 8 * c, gv[c][2 * r], gv[c][2 * r + 1], vec);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 Strides strides_at(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
 
-size_t fwd_smem(int Dh) { return (3 * BT * (Dh + 1) + BT * LDP) * sizeof(float); }
 size_t dq_smem(int Dh) { return (4 * BT * (Dh + 1) + BT * LDP) * sizeof(float); }
-size_t dkv_smem(int Dh) { return (4 * BT * (Dh + 1) + 2 * BT * LDP) * sizeof(float); }
 
 // 16-byte loads: every pointer 16-byte aligned and every stride a
 // multiple of 16 bytes
@@ -1267,11 +1546,19 @@ extern "C" int tp_flash_fwd(const void* q, const void* k, const void* v,
                 c = strides_at(st, 2), d = strides_at(st, 3);
   float* l = static_cast<float*>(lse);
   const void* ptrs[] = {q, k, v, o};
-  if (dtype == 0)
-    return (int)launch(fwd_kernel<float>, THREADS, fwd_smem(Dh), B, H, S, s,
-                       in<float>(q), in<float>(k), in<float>(v),
-                       out<float>(o), l, a, b, c, d, H, S, Dh, scale, causal,
-                       vec_ok(ptrs, 4, st, 4));
+  if (dtype == 0) {
+    const int vec = vec_ok(ptrs, 4, st, 4);
+    auto go = [&](auto kernel, size_t smem) {
+      return (int)launch(kernel, TC_THREADS, smem, B, H, S, s, in<float>(q),
+                         in<float>(k), in<float>(v), out<float>(o), l, a, b,
+                         c, d, B, H, S, Dh / 8, scale, causal, vec);
+    };
+    if (Dh <= 64)
+      return go(Dh == 64 ? fwd_tf32x3<8, true> : fwd_tf32x3<8, false>,
+                fwd_tf32x3_smem<8>());
+    return go(Dh == 128 ? fwd_tf32x3<16, true> : fwd_tf32x3<16, false>,
+              fwd_tf32x3_smem<16>());
+  }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int tma = tma_ok(ptrs, 3, st, B, H, S);
   CUtensorMap mq{}, mk{}, mv{};  // unread on the copy route
@@ -1360,12 +1647,20 @@ extern "C" int tp_flash_dkv(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const void* ptrs[] = {q, k, v, dout, dk, dv};
-  if (dtype == 0)
-    return (int)launch(dkv_kernel<float>, THREADS, dkv_smem(Dh), B, H, S, s,
-                       in<float>(q), in<float>(k), in<float>(v),
-                       in<float>(dout), l, dl, out<float>(dk), out<float>(dv),
-                       a, b, c, d, e, f, H, S, Dh, scale, causal,
-                       vec_ok(ptrs, 6, st, 4));
+  if (dtype == 0) {
+    const int vec = vec_ok(ptrs, 6, st, 4);
+    auto go = [&](auto kernel, size_t smem) {
+      return (int)launch(kernel, TC_THREADS, smem, B, H, S, s, in<float>(q),
+                         in<float>(k), in<float>(v), in<float>(dout), l, dl,
+                         out<float>(dk), out<float>(dv), a, b, c, d, e, f, B,
+                         H, S, Dh / 8, scale, causal, vec);
+    };
+    if (Dh <= 64)
+      return go(Dh == 64 ? dkv_tf32x3<8, true> : dkv_tf32x3<8, false>,
+                dkv_tf32x3_smem<8>());
+    return go(Dh == 128 ? dkv_tf32x3<16, true> : dkv_tf32x3<16, false>,
+              dkv_tf32x3_smem<16>());
+  }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int tma = tma_ok(ptrs, 4, st, B, H, S);
   CUtensorMap mq{}, mk{}, mv{}, mg{};  // unread on the copy route
@@ -1399,8 +1694,12 @@ extern "C" int tp_flash_tma_route(const void* const* ptrs,
 }
 
 // Dynamic shared memory of the bf16 forward (kernel 0), dK/dV (1) or dQ
-// (2) at Dh.
+// (2), or of the f32 forward (3) or dK/dV (4), at Dh.
 extern "C" long long tp_flash_smem_bytes(int kernel, int Dh) {
+  if (kernel == 3)
+    return (long long)(Dh <= 64 ? fwd_tf32x3_smem<8>() : fwd_tf32x3_smem<16>());
+  if (kernel == 4)
+    return (long long)(Dh <= 64 ? dkv_tf32x3_smem<8>() : dkv_tf32x3_smem<16>());
   if (kernel == 0)
     return (long long)(Dh <= 64 ? fwd_wgmma_smem<64>() : fwd_wgmma_smem<128>());
   if (kernel == 2)

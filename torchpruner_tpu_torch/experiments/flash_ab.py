@@ -16,7 +16,16 @@ process on one card:
   ``torch.profiler``, the kernel ms per step, the flash kernels' ms and
   the device's idle share;
 - phase 8: the BERT-base bf16 retrain step (B 32) of the
-  ``bert_glue_sensitivity`` preset, measured the same way.
+  ``bert_glue_sensitivity`` preset, measured the same way;
+- phase 7's scoring: ``prune_trace.py``'s f32 scoring batch of that
+  preset (B 128, Sensitivity on ``SCORING_TARGET``) measured the same
+  way, and the Sensitivity scores of ``SCORING_TARGET`` over the
+  preset's score examples through each library and through the plain
+  attention route
+  (``impl="xla"``): the largest score difference relative to the plain
+  route's largest score, whether the fraction policy's drop set equals
+  the plain route's, and for each unit that differs its distance from
+  the plain route's cut, relative to the same scale.
 
 Writes the whole result to ``--out`` (JSON) and prints a summary: for
 each case and kernel the median of the new library's turns over the
@@ -46,6 +55,8 @@ from torchpruner_tpu_torch.experiments._ab import (
 )
 
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+#: the ``fc1`` whose scores the scoring leg compares
+SCORING_TARGET = "block6_mlp/fc1"
 
 
 def kernel_cases(dev, libs) -> list:
@@ -193,6 +204,105 @@ def retrain_steps(dev, libs, steps: int) -> list:
     return out
 
 
+def plain_attention(model):
+    """``model`` with every attention layer on the plain einsum core
+    (``impl="xla"``), which launches no flash kernel."""
+    import dataclasses
+
+    from torchpruner_tpu_torch.core import layers as L
+
+    def fix(spec):
+        if isinstance(spec, L.MultiHeadAttention):
+            return dataclasses.replace(spec, impl="xla")
+        if isinstance(spec, L.Residual):
+            return dataclasses.replace(
+                spec, body=tuple(map(fix, spec.body)),
+                shortcut=tuple(map(fix, spec.shortcut)))
+        return spec
+
+    return dataclasses.replace(model, layers=tuple(map(fix, model.layers)))
+
+
+def scoring_leg(dev, libs, steps: int) -> dict:
+    """Phase 7's scoring (the preset's model, f32): the scoring batch in
+    turns, then ``SCORING_TARGET``'s Sensitivity scores and drop set
+    through each library against the plain attention route."""
+    import numpy as np
+    import torch
+
+    from torchpruner_tpu_torch.attributions.activation import grad_rows_fn
+    from torchpruner_tpu_torch.core.pruner import score_drop_indices
+    from torchpruner_tpu_torch.core.segment import init_model
+    from torchpruner_tpu_torch.experiments.presets import get_preset
+    from torchpruner_tpu_torch.experiments.prune_retrain import (
+        LOSS_REGISTRY,
+        build_metric,
+        resolve_model_and_data,
+    )
+    from torchpruner_tpu_torch.experiments.prune_trace import _profile
+    from torchpruner_tpu_torch.train.loop import to_device
+
+    cfg = get_preset("bert_glue_sensitivity")
+    model, (_, val, _) = resolve_model_and_data(cfg)
+    loss_fn = LOSS_REGISTRY[cfg.loss]
+    params, _ = init_model(model, cfg.seed, device=dev)
+    val_b = val.batches(cfg.eval_batch_size)
+    rows = grad_rows_fn(model, SCORING_TARGET, loss_fn, cfg.method)
+    xs, ys = (to_device(a, dev) for a in val_b[0])
+    batch = []
+    for name in ORDER:
+        with bound_library("flash_attention", libs[name]):
+            prof = _profile(lambda: rows(params, {}, xs, ys), steps)
+        batch.append({"kernel": name, "wall_ms": prof["wall_ms"],
+                      "kernel_ms": prof["kernel_ms"],
+                      "device_idle_share": prof["device_idle_share"],
+                      "flash_ms": {g: prof["by_group"].get(g, {}).get(
+                          "ms", 0.0) for g in KERNELS}})
+        t = batch[-1]
+        print(f"    {name}: scoring batch {t['wall_ms']:.2f} ms, kernels "
+              f"{t['kernel_ms']:.2f} ms, idle {t['device_idle_share']:.3f}, "
+              "flash " + " / ".join(f"{v:.3f}" for v in t["flash_ms"].values())
+              + " ms", flush=True)
+
+    def scores(m, lib=None) -> np.ndarray:
+        metric = build_metric(cfg.method, m, params, val_b, loss_fn)
+        run = lambda: metric.run(  # noqa: E731
+            SCORING_TARGET,
+            find_best_evaluation_layer=cfg.find_best_evaluation_layer)
+        if lib is None:
+            return np.asarray(run(), np.float64)
+        with bound_library("flash_attention", lib):
+            return np.asarray(run(), np.float64)
+
+    plain = scores(plain_attention(model))
+    scale = float(np.abs(plain).max())
+    drop = set(score_drop_indices(plain, policy=cfg.policy,
+                                  fraction=cfg.fraction).tolist())
+    ranked = np.sort(plain)
+    cut = 0.5 * (ranked[len(drop) - 1] + ranked[len(drop)])
+    out = {"target": SCORING_TARGET, "batch": batch,
+           "plain_drop": len(drop), "score_scale": scale}
+    for name in ("new", "old"):
+        got = scores(model, libs[name])
+        d = set(score_drop_indices(got, policy=cfg.policy,
+                                   fraction=cfg.fraction).tolist())
+        differ = sorted(d ^ drop)
+        out[name] = {
+            "max_rel_score_diff": float(np.abs(got - plain).max()) / scale,
+            "drop_set_equal": not differ,
+            "differing_units": {int(u): float(abs(plain[u] - cut)) / scale
+                                for u in differ}}
+        print(f"    {name}: {SCORING_TARGET} Sensitivity vs plain route: "
+              f"max rel diff {out[name]['max_rel_score_diff']:.3g}, drop set "
+              f"{'equal' if not differ else 'differs'}"
+              + "".join(f", unit {u} {r:.3g} from the cut"
+                        for u, r in out[name]["differing_units"].items()),
+              flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True,
@@ -203,7 +313,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=6,
                     help="timed training steps per turn")
     ap.add_argument("--no-steps", action="store_true",
-                    help="skip the phase 8 and 9 step turns")
+                    help="skip the phase 8 and 9 step turns and the "
+                         "scoring leg")
     args = ap.parse_args(argv)
 
     import torch
@@ -229,6 +340,8 @@ def main(argv=None) -> int:
         result["causal_steps"] = causal_steps(dev, libs, args.steps)
         print("  phase 8 retrain steps:", flush=True)
         result["retrain_steps"] = retrain_steps(dev, libs, args.steps)
+        print("  phase 7 scoring:", flush=True)
+        result["scoring"] = scoring_leg(dev, libs, args.steps)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(result, fh, indent=1)

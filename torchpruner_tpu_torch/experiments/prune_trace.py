@@ -46,12 +46,13 @@ import time
 from torchpruner_tpu_torch.experiments.step_trace import _device_us
 
 #: kernel-name fragments by group: the port's flash kernels
-#: (csrc/flash_attention.cu; ``fwd_tc`` / ``dq_tc`` / ``dkv_tc``: the
-#: earlier wmma bodies, which ``flash_ab.py`` builds from an older
-#: source) and the library's matrix products
-GROUPS = {"flash_fwd": ("fwd_kernel", "fwd_wgmma", "fwd_tc"),
+#: (csrc/flash_attention.cu; ``fwd_kernel`` / ``dkv_kernel``: the f32 FMA
+#: bodies before ``*_tf32x3``, and ``fwd_tc`` / ``dq_tc`` / ``dkv_tc``:
+#: the earlier bf16 wmma bodies, which ``flash_ab.py`` builds from older
+#: sources) and the library's matrix products
+GROUPS = {"flash_fwd": ("fwd_kernel", "fwd_tf32x3", "fwd_wgmma", "fwd_tc"),
           "flash_dq": ("dq_kernel", "dq_wgmma", "dq_tc"),
-          "flash_dkv": ("dkv_kernel", "dkv_wgmma", "dkv_tc"),
+          "flash_dkv": ("dkv_kernel", "dkv_tf32x3", "dkv_wgmma", "dkv_tc"),
           "matmul": ("gemm", "sm90_xmma", "cutlass", "nvjet")}
 #: csrc/blocksparse_matmul.cu: ``bs_kernel<T, MODE, ...>`` and
 #: ``bs_wgmma<MODE, ...>``, MODE 0 forward, 1 dx, 2 dW

@@ -18,8 +18,11 @@ gradient skips the LSE writes.  q/k/v stay in the JAX layout
 transpose is made.  In bf16 all three run on Hopper's wgmma with their
 tiles copied by TMA, or by the kernel's producer threads where a base or
 stride breaks TMA's 16-byte rules (:func:`copy_route`); dQ stores its
-result by TMA.  Their shared memory (:func:`smem_bytes`) is mirrored here
-for the tests.  CPU
+result by TMA.  In f32 the forward and dK/dV run on the tensor cores in
+3xTF32 (three TF32 ``mma.sync`` products a product, f32-accurate) and dQ
+on the FMA units.  The kernels' shared memory (:func:`smem_bytes`,
+:func:`f32_smem_bytes`, :func:`f32_pitches`) is mirrored here for the
+tests.  CPU
 tensors run :func:`flash_attention_plain` (the ``_xla_attention`` math)
 under autograd.  A CUDA tensor whose head
 dimension or dtype the kernels do not take raises: there is no fallback.
@@ -35,7 +38,9 @@ from typing import Optional, Tuple
 
 import torch
 
-#: the kernels keep Dh / 16 head-dim columns per thread, Dh a multiple of 8
+#: the kernels take Dh a multiple of 8 up to 128: the f32 forward and
+#: dK/dV step over it in 8-column mma tiles, f32 dQ keeps Dh / 16
+#: columns a thread, the bf16 kernels pad it to 64 or 128
 MAX_HEAD_DIM = 128
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
@@ -129,6 +134,42 @@ def smem_bytes(kernel: str, Dh: int) -> int:
         return (3 * TILE_ROWS + 2 * stages * RING_ROWS) * row + extra
     return (2 * TILE_ROWS * row
             + stages * (2 * RING_ROWS * row + 2 * RING_ROWS * 4) + extra)
+
+
+# ------------------------------------- the f32 kernels' tiles and memory
+# Mirrors of ``csrc/flash_attention.cu`` (``pitch_qk``, ``*_tf32x3_smem``);
+# the card tests hold them equal to the library's ``tp_flash_smem_bytes``
+# (kernels 3 and 4).
+
+#: rows of an f32 forward query tile or dK/dV key tile (a CTA of 4 warps,
+#: 16 rows each) and of each stage of its 2-stage cp.async ring
+F32_TILE_ROWS = 64
+
+
+def f32_pitches(Dh: int) -> dict:
+    """Row pitches, in floats, of the f32 forward and dK/dV tiles, fixed
+    by the width w of the kernel copies that run ``Dh`` (64, the copies
+    ``*_tf32x3<8, EXACT>``, up to Dh 64, else 128, ``*_tf32x3<16,
+    EXACT>``): ``"qk"``, the forward's Q
+    and K, the least >= w that is 8 (mod 32), read two columns at a time
+    by fragment rows g; ``"v"``, the forward's V and every dK/dV tile,
+    w + 4 (4 mod 8), read a column at a time by rows g or by rows 2t and
+    2t + 1.  Either way a warp's read hits 32 distinct banks, and every
+    row starts 16-byte aligned."""
+    w = 64 if Dh <= 64 else 128
+    return {"qk": w + (8 - w) % 32, "v": w + 4}
+
+
+def f32_smem_bytes(kernel: str, Dh: int) -> int:
+    """Dynamic shared memory of the f32 ``kernel`` at head dim ``Dh``:
+    forward, a Q tile and 2 stages of K and V; dK/dV, K and V and 2
+    stages of Q and dO with their LSE and delta rows."""
+    p, rows = f32_pitches(Dh), F32_TILE_ROWS
+    if kernel == "fwd":
+        return 4 * rows * (3 * p["qk"] + 2 * p["v"])
+    if kernel == "dkv":
+        return 4 * rows * (6 * p["v"] + 4)
+    raise ValueError(f"kernel {kernel!r}: 'fwd' or 'dkv'")
 
 
 # ---------------------------------------------------------------- kernels
