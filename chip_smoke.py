@@ -36,9 +36,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    rows only 2-byte aligned (the copy route) and S 1, and f32 rows only
    4-byte aligned (4-byte copies); dQ (with delta) and dK/dV run twice
    must be bit-equal; f32 cases at Dh 128 and 72 (the 128-wide copies
-   of the f32 bodies, exact and guarded); the bodies that ran, as the profiler names them, must be
-   the dtype's (f32: ``fwd_tf32x3`` / ``dq_kernel`` / ``dkv_tf32x3``,
-   bf16 the three ``*_wgmma``) and are printed with the route;
+   of the f32 bodies, exact and guarded); the bodies that ran, as the
+   profiler names them, must be the dtype's (f32: ``fwd_tf32x3`` /
+   ``dq_tf32x3`` / ``dkv_tf32x3``, bf16 the three ``*_wgmma``) and are
+   printed with the route;
    CUDA-event times of each kernel, the plain version and
    ``scaled_dot_product_attention`` (timed only), and the bound (f32 at
    3xTF32's rate, the FMA units' bound printed beside it).
@@ -60,10 +61,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
     blocks exactly 0; dW bit-equal across two runs; each call's launch
     plan from the library's ``tp_bs_plan`` equal to ``ops/blocksparse.py
     plan`` and printed (body: ``wgmma`` for bf16 on multiple-of-64
-    blocks, ``wmma`` for bf16 block 32, ``fma`` for f32; tile, ring
-    stages, dW split); CUDA-event times of each kernel, of the same kernel
-    with every block kept, of the plain version and of ``torch.matmul``
-    on the dense masked weight (timed only), and the bound.
+    blocks, ``wmma`` for bf16 block 32, ``tf32x3`` for f32: the library
+    dispatches on that plan alone; tile, ring stages, dW split);
+    CUDA-event times of each kernel, of the same kernel with every block
+    kept, of the plain version and of ``torch.matmul`` on the dense
+    masked weight (timed only), and the bound (f32 at 3xTF32's rate, the
+    FMA units' bound printed beside it).
 11. Masked block-sparse retraining at full width: BERT-base, Sensitivity
     on every ``block{i}_mlp/fc1``, ``score_drop_indices(fraction=0.5,
     granularity=128)``, ``drop_masks`` / ``apply_masks``, Adam chained
@@ -514,13 +517,16 @@ def flash_bodies(calls) -> dict:
             fn()
         torch.cuda.synchronize()
     ran = {kernel: set() for kernel in calls}
+    seen = set()
     for e in prof.events():
+        seen.add(e.name)
         if _group(e.name) in ran:
             m = re.search(r"(\w+(?:<[^()]*>)?)\(", e.name)
             ran[_group(e.name)].add(m.group(1) if m else e.name)
     for kernel, names in ran.items():
         if len(names) != 1:
-            fail(f"flash {kernel}: the profiler saw kernels {sorted(names)}")
+            fail(f"flash {kernel}: the profiler saw kernels "
+                 f"{sorted(names)} (events {sorted(seen)[:12]})")
     return {kernel: names.pop() for kernel, names in ran.items()}
 
 
@@ -583,7 +589,7 @@ def flash_case(dev, label, B, S, H, Dh, dtn, causal, layout="bshd") -> dict:
         "flash_dq": lambda: FA.flash_dq(q, k, v, o, g, lse, causal=causal),
         "flash_dkv": lambda: FA.flash_dkv(q, k, v, g, lse, delta,
                                           causal=causal)})
-    want = (("fwd_tf32x3", "dq_kernel", "dkv_tf32x3") if f32
+    want = (("fwd_tf32x3", "dq_tf32x3", "dkv_tf32x3") if f32
             else ("fwd_wgmma", "dq_wgmma", "dkv_wgmma"))
     for name, body in zip(FLASH_KERNELS, want):
         if body not in case["body"][name]:
@@ -877,6 +883,13 @@ def blocksparse_case(dev, label, R, D, F, block, half_in, half_out,
             fail(f"blocksparse {label} {dtn} {name}: tp_bs_plan "
                  f"{got_plan} != plan() {BS.plan(*args)}")
         plans[name] = dataclasses.asdict(got_plan)
+    # the library dispatches on its own plan alone: the plan's body is
+    # the one that runs (the profiler, asked after phases 7-9, saw no
+    # kernel events on the H100)
+    want_body = "tf32x3" if f32 else "wgmma" if block % 64 == 0 else "wmma"
+    if any(p["body"] != want_body for p in plans.values()):
+        fail(f"blocksparse {label} {dtn}: plan bodies "
+             f"{[p['body'] for p in plans.values()]}, not {want_body}")
     rel = 1e-5 if f32 else 2 ** -7
     errs = {}
     for name, got, want in (("blocksparse_fwd", y, yr.detach()),
@@ -936,18 +949,19 @@ def blocksparse_case(dev, label, R, D, F, block, half_in, half_out,
         "blocksparse_dw": event_ms(lambda i: torch.matmul(x.t(), g), 20)}
     # bounds: the kept columns of the inputs and the kept blocks of the
     # weight read once, the whole output (its zeros too) written once;
-    # the operations of the kept blocks
+    # the operations of the kept blocks at the card's peak for the type
+    # (f32: 3xTF32; the FMA units' bound kept beside it)
     es = x.element_size()
     kd, kf = len(ik) * block, len(ok) * block
     ops = 2.0 * R * kd * kf
-    peak = FP32_FLOPS if f32 else BF16_FLOPS
-    case["bound"] = {
-        "blocksparse_fwd": bound_ms((R * kd + kd * kf + R * F) * es, ops,
-                                    peak),
-        "blocksparse_dx": bound_ms((R * kf + kd * kf + R * D) * es, ops,
-                                   peak),
-        "blocksparse_dw": bound_ms((R * kd + R * kf + D * F) * es, ops,
-                                   peak)}
+    nbytes = {"blocksparse_fwd": (R * kd + kd * kf + R * F) * es,
+              "blocksparse_dx": (R * kf + kd * kf + R * D) * es,
+              "blocksparse_dw": (R * kd + R * kf + D * F) * es}
+    case["bound"] = {k: bound_ms(b, ops, TF32X3_FLOPS if f32 else BF16_FLOPS)
+                     for k, b in nbytes.items()}
+    if f32:
+        case["bound_fma"] = {k: bound_ms(b, ops, FP32_FLOPS)
+                             for k, b in nbytes.items()}
     log(f"  blocksparse {label} {dtn} R{R} D{D} F{F} block {block} kept "
         f"{len(ik)}/{D // block} x {len(ok)}/{F // block}, plan "
         + " / ".join(f"{p['body']} {p['tile_m']}x{p['tile_n']} "
@@ -957,8 +971,9 @@ def blocksparse_case(dev, label, R, D, F, block, half_in, half_out,
             f"{k[12:]} {case['ms'][k]:.4f} ms (all kept "
             f"{case['all_kept_ms'][k]:.4f}, plain {case['plain_ms'][k]:.4f}, "
             f"matmul {case['library_ms'][k]:.4f}, bound "
-            f"{case['bound'][k][0]:.4f} {case['bound'][k][1]}, err "
-            f"{errs[k]['max_abs_err']:.3g})" for k in BS_KERNELS))
+            f"{case['bound'][k][0]:.4f} {case['bound'][k][1]}"
+            + (f" (fma {case['bound_fma'][k][0]:.4f})" if f32 else "")
+            + f", err {errs[k]['max_abs_err']:.3g})" for k in BS_KERNELS))
     del x, w, g, y, dx, dw
     torch.cuda.empty_cache()
     return case
@@ -1397,6 +1412,10 @@ def main() -> int:
                 and c["dtype"] == "bfloat16")
     fc2 = next(c for c in bs if c["label"] == "fc2"
                and c["dtype"] == "bfloat16")
+    f32_cases = {c["label"]: c for c in bs if c["dtype"] == "float32"
+                 and c["label"] in ("fc1", "fc2")}
+    b32 = next(c for c in bs if c["label"] == "block32"
+               and c["dtype"] == "bfloat16")
     for name in BS_KERNELS:
         kernels.append({
             "name": name, "route": "cuda",
@@ -1421,6 +1440,22 @@ def main() -> int:
                    "D 768, F 3072, 12 of 24 output blocks kept); "
                    "library_ms: torch.matmul on the dense masked weight",
             "launches_gated": gd["launches"][name],
+            "body": path["plan"][name]["body"],
+            # the f32 body (the documented masked-retraining recipe's
+            # dtype) at fc1 and fc2; bound_ms at 3xTF32's rate, the FMA
+            # units' beside it
+            "f32": {label: {
+                "ms": c["ms"][name], "bound_ms": c["bound"][name][0],
+                "bound_by": c["bound"][name][1],
+                "bound_fma_ms": c["bound_fma"][name][0],
+                "library_ms": c["library_ms"][name],
+                "plain_ms": c["plain_ms"][name], "plan": c["plan"][name]}
+                for label, c in f32_cases.items()},
+            # bf16 at block 32 (the wmma body, off every main path)
+            "block32_bf16": {k: b32[k][name] for k in ("ms", "library_ms",
+                                                        "plan")}
+            | {"bound_ms": b32["bound"][name][0],
+               "bound_by": b32["bound"][name][1]},
             **({"cases": bs, "masked_retrain": mr, "simulate": sim,
                 "gated": gd} if name == "blocksparse_fwd" else {}),
         })

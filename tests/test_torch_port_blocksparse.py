@@ -697,7 +697,8 @@ def test_simulate_with_finetune_still_raises():
 
 #: phase 10's shapes and mfu_llama's GatedDense sites at B 8 x S 1024
 #: (wg / wu: 1024 -> 4096 half the outputs kept; down: 4096 -> 1024 half
-#: the inputs kept): (R, D, F, block, kept in-blocks, kept out-blocks)
+#: the inputs kept): (R, D, F, block, kept in-blocks, kept out-blocks);
+#: bf16, and f32 (the 3xTF32 body) for the shapes named ``*_f32``
 PLAN_SHAPES = {
     "fc1": (4096, 768, 3072, 128, 6, 12),
     "fc2": (4096, 3072, 768, 128, 12, 6),
@@ -707,6 +708,8 @@ PLAN_SHAPES = {
     "mfu_gate": (8192, 1024, 4096, 128, 8, 16),
     "mfu_down": (8192, 4096, 1024, 128, 16, 8),
 }
+PLAN_SHAPES.update({f"{k}_f32": PLAN_SHAPES[k]
+                    for k in ("fc1", "fc2", "ragged", "block32")})
 #: (body, tile_m, tile_n, stages, split, kept tiles) per shape and mode
 PLAN_WANT = {
     ("fc1", "fwd"): ("wgmma", 128, 192, 4, 1, 256),
@@ -730,34 +733,61 @@ PLAN_WANT = {
     ("mfu_down", "fwd"): ("wgmma", 128, 192, 4, 1, 384),
     ("mfu_down", "dx"): ("wgmma", 128, 192, 4, 1, 704),
     ("mfu_down", "dw"): ("wgmma", 128, 128, 6, 1, 128),
+    ("fc1_f32", "fwd"): ("tf32x3", 128, 128, 3, 1, 384),
+    ("fc1_f32", "dx"): ("tf32x3", 128, 128, 3, 1, 192),
+    ("fc1_f32", "dw"): ("tf32x3", 128, 128, 3, 8, 72),
+    ("fc2_f32", "fwd"): ("tf32x3", 128, 128, 3, 1, 192),
+    ("fc2_f32", "dx"): ("tf32x3", 128, 128, 3, 1, 384),
+    ("fc2_f32", "dw"): ("tf32x3", 128, 128, 3, 8, 72),
+    ("ragged_f32", "fwd"): ("tf32x3", 128, 128, 3, 1, 396),
+    ("ragged_f32", "dx"): ("tf32x3", 128, 128, 3, 1, 198),
+    ("ragged_f32", "dw"): ("tf32x3", 128, 128, 3, 8, 72),
+    ("block32_f32", "fwd"): ("tf32x3", 128, 32, 3, 1, 48),
+    ("block32_f32", "dx"): ("tf32x3", 128, 32, 3, 1, 32),
+    ("block32_f32", "dw"): ("tf32x3", 32, 32, 3, 4, 24),
 }
 
 
 @pytest.mark.parametrize("shape,mode", sorted(PLAN_WANT))
 def test_plan_at_the_path_shapes(shape, mode):
-    """The plan a bf16 call takes at phase 10's and mfu_llama's shapes,
-    and what holds for every plan: tiles cover the kept output, the
-    ring fits in 227 KB, fwd / dx run at most 132 CTAs, dW one cluster
-    (of 1, 2, 4 or 8) per tile with at least 4 ring stages a rank."""
+    """The plan a call takes at phase 10's and mfu_llama's shapes (bf16,
+    and f32 for the ``*_f32`` shapes), and what holds for every plan:
+    tiles cover the kept output, the ring fits in 227 KB, wgmma's fwd /
+    dx run at most 132 CTAs, dW one cluster (of 1, 2, 4 or 8) per tile
+    with at least 4 ring stages a rank; the 3xTF32 body one CTA (dW: one
+    cluster) per output tile of the whole output, inside one block."""
     R, D, F, block, n_in, n_out = PLAN_SHAPES[shape]
-    p = PBS.plan(mode, R, D, F, block, n_in, n_out)
+    dtype = torch.float32 if shape.endswith("_f32") else torch.bfloat16
+    p = PBS.plan(mode, R, D, F, block, n_in, n_out, dtype)
     assert (p.body, p.tile_m, p.tile_n, p.stages, p.split, p.tiles) \
         == PLAN_WANT[(shape, mode)]
-    if p.body != "wgmma":  # the earlier wmma body: static shared memory
+    rows = D if mode == "dw" else R
+    cols = D if mode == "dx" else F
+    if p.body == "wmma":  # the earlier wmma body: static shared memory
         assert p.smem_bytes == 0 and p.ctas == p.tiles
-        rows = D if mode == "dw" else R
-        cols = D if mode == "dx" else F
         assert p.tiles == -(-rows // p.tile_m) * (cols // p.tile_n)
         return
-    rows = n_in * block if mode == "dw" else R
-    cols = (n_in if mode == "dx" else n_out) * block
-    assert p.tiles == -(-rows // p.tile_m) * -(-cols // p.tile_n)
-    assert p.smem_bytes <= 232448 and 2 <= p.stages <= 8
+    kept_rows = n_in * block if mode == "dw" else R
+    kept_cols = (n_in if mode == "dx" else n_out) * block
+    assert p.tiles == -(-kept_rows // p.tile_m) * -(-kept_cols // p.tile_n)
+    assert p.smem_bytes <= 232448
+    if mode == "dw":
+        assert p.split in (1, 2, 4, 8)
+        steps = -(-R // (64 if p.body == "wgmma" else 32))
+        assert steps >= 4 * p.split or p.split == 1
+    if p.body == "tf32x3":
+        assert block % p.tile_n == 0 and p.stages == 3
+        assert mode != "dw" or block % p.tile_m == 0
+        assert p.ctas == -(-rows // p.tile_m) * (cols // p.tile_n) * p.split
+        assert p.smem_bytes == 4 * 3 * PBS.tf_stage_floats(
+            mode, p.tile_m, p.tile_n)
+        assert p.smem_bytes >= p.tile_m * p.tile_n * 4  # dW's partial
+        return
+    assert 2 <= p.stages <= 8
     stage = (p.tile_m + p.tile_n) * 64 * 2
     assert p.smem_bytes >= p.stages * stage + p.tile_m * p.tile_n * 2
     if mode == "dw":
-        assert p.split in (1, 2, 4, 8) and p.ctas == p.tiles * p.split
-        assert -(-R // 64) >= 4 * p.split or p.split == 1
+        assert p.ctas == p.tiles * p.split
         assert p.stages * stage >= p.tile_m * p.tile_n * 4  # the partial
     else:
         assert p.split == 1 and p.ctas == 132
@@ -765,13 +795,20 @@ def test_plan_at_the_path_shapes(shape, mode):
 
 @pytest.mark.parametrize("mode", ["fwd", "dx", "dw"])
 def test_plan_bodies_by_dtype_and_block(mode):
-    """f32 keeps its FMA body and tiles at every block; bf16 takes the
-    wgmma body on every multiple of 64 (64, 192: 64-wide chunks) and the
-    wmma body on odd multiples of 32; a shape no body takes raises."""
+    """f32 takes the 3xTF32 body at every block that is a multiple of 32,
+    its tiles inside one block (128 x 128 at fc1; at most 64 or 32
+    columns on blocks that 128 or 64 does not divide); bf16 takes the wgmma body on every
+    multiple of 64 (64, 192: 64-wide chunks) and the wmma body on odd
+    multiples of 32; a shape no body takes raises."""
     f32 = PBS.plan(mode, 4096, 768, 3072, 128, 6, 12, torch.float32)
-    assert f32.body == "fma" and f32.stages == 1 and f32.split == 1
-    assert (f32.tile_m, f32.tile_n) == ((64, 64) if mode == "dw"
-                                        else (128, 128))
+    assert f32.body == "tf32x3" and f32.stages == 3
+    assert (f32.tile_m, f32.tile_n) == (128, 128)
+    assert f32.split == (8 if mode == "dw" else 1)
+    for block, width in ((64, 64), (192, 64), (32, 32), (96, 32)):
+        p = PBS.plan(mode, 300, 768, 1536, block, 1, 2, torch.float32)
+        assert p.body == "tf32x3" and p.tile_n <= width
+        assert block % p.tile_n == 0
+        assert block % p.tile_m == 0 if mode == "dw" else p.tile_m == 128
     for block in (64, 192, 256):
         p = PBS.plan(mode, 300, 768, 1536, block, 1, 2)
         assert p.body == "wgmma" and p.tile_m == 128
@@ -782,8 +819,9 @@ def test_plan_bodies_by_dtype_and_block(mode):
                                         else (64, 32))
     for bad in ((0, 768, 1536, 128, 1, 1), (64, 768, 1536, 48, 1, 1),
                 (64, 768, 1536, 128, 7, 1), (64, 768, 1000, 128, 1, 1)):
-        with pytest.raises(ValueError, match="no block-sparse body"):
-            PBS.plan(mode, *bad)
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match="no block-sparse body"):
+                PBS.plan(mode, *bad, dtype)
 
 
 def test_plan_width_and_split_follow_the_cost_model():
@@ -803,6 +841,83 @@ def test_plan_width_and_split_follow_the_cost_model():
     assert best == (192, 2) == (p.tile_n, p.split)
     # a row count too short to give each of two ranks 4 stages is not split
     assert PBS.plan("dw", 64 * 7, 768, 3072, 128, 6, 12).split == 1
+
+
+def test_f32_plan_tile_and_split_follow_the_cost_model():
+    """The 3xTF32 body's tile and dW split minimize the same cost as the
+    wgmma body's, over stages of 32 contracted elements: spelled out at
+    fc1's dW, where 72 tiles of 128 x 128 split 8 (5 rounds of 132 CTAs
+    of 16 stages) beat split 4 (3 rounds of 32) and no split (1 round of
+    128); a 64-wide block leaves only the 64 x 64 tile."""
+    steps, fixed = 4096 // 32, 6 * 256
+    cost = {}
+    for bm, bn in ((128, 128), (128, 64), (64, 64), (32, 32)):
+        tiles = (768 // bm) * (1536 // bn)
+        for s in (1, 2, 4, 8):
+            cost[(bm, bn, s)] = -(-tiles * s // 132) * (
+                -(-steps // s) * (bm + bn) + fixed)
+    best = min(cost, key=lambda k: (cost[k], -k[0], -k[1], k[2]))
+    p = PBS.plan("dw", 4096, 768, 3072, 128, 6, 12, torch.float32)
+    assert best == (128, 128, 8) == (p.tile_m, p.tile_n, p.split)
+    p = PBS.plan("dw", 4096, 768, 3072, 64, 12, 24, torch.float32)
+    assert (p.tile_m, p.tile_n) == (64, 64)
+    # a row count too short to give each of two ranks 4 stages is not split
+    assert PBS.plan("dw", 32 * 7, 768, 3072, 128, 6, 12,
+                    torch.float32).split == 1
+
+
+def _banks_distinct(words, width=1):
+    """A warp's shared read of ``width`` consecutive 4-byte words from
+    each lane's ``words[lane]`` runs in phases of 32 / width lanes; True
+    when each phase hits 32 distinct banks."""
+    lanes = 32 // width
+    for p0 in range(0, 32, lanes):
+        banks = [(w + i) % 32 for w in words[p0:p0 + lanes]
+                 for i in range(width)]
+        if len(set(banks)) != 32:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("mode", ["fwd", "dx", "dw"])
+@pytest.mark.parametrize("tile", [(128, 128), (128, 64), (128, 32),
+                                  (64, 64), (32, 32)])
+def test_tf32x3_fragment_reads_hit_distinct_banks(mode, tile):
+    """Every shared-memory fragment read of the 3xTF32 body, lane by lane
+    (g = lane // 4, t = lane % 4; contracted elements k2 = 8 kk + 2t and
+    k2 + 1 are k-indices t and t + 4), at the pitches of
+    ``tf_pitches``: a K-contiguous operand (fwd / dx A, dx B) as one
+    8-byte load of rows g (+ 8), the others (dW A, fwd / dW B) as 4-byte
+    loads of rows k2 and k2 + 1."""
+    bm, bn = tile
+    pa, pb = PBS.tf_pitches(mode, bm, bn)
+    assert PBS.tf_stage_floats(mode, bm, bn) == (
+        (32 if mode == "dw" else bm) * pa + (bn if mode == "dx" else 32) * pb)
+    lanes = [(lane // 4, lane % 4) for lane in range(32)]
+    for kk in range(4):
+        for g8 in (0, 8):  # rows g and g + 8 of each m16 tile
+            wtm = 64 if min(bm, bn) >= 64 else 32  # a warp's rows
+            for m in range(0, wtm, 16):  # a warp's m16 tiles
+                if mode == "dw":
+                    for e in (0, 1):
+                        assert _banks_distinct(
+                            [(8 * kk + 2 * t + e) * pa + m + g + g8
+                             for g, t in lanes])
+                else:
+                    assert _banks_distinct(
+                        [(m + g + g8) * pa + 8 * kk + 2 * t
+                         for g, t in lanes], 2)
+        for n in range(0, 32, 8):  # a warp's n8 tiles: columns n + g
+            if mode == "dx":
+                assert _banks_distinct([(n + g) * pb + 8 * kk + 2 * t
+                                        for g, t in lanes], 2)
+            else:
+                for e in (0, 1):
+                    assert _banks_distinct(
+                        [(8 * kk + 2 * t + e) * pb + n + g
+                         for g, t in lanes])
+    # every row starts 16-byte aligned (whole 16-byte cp.async copies)
+    assert pa % 4 == 0 and pb % 4 == 0
 
 
 def test_build_digest_covers_the_shared_headers(tmp_path, monkeypatch):

@@ -356,18 +356,22 @@ def _bs_case_keep(R, D, F, block, ik, ok, dtype, dev, seed=5):
     return x, w * torch.from_numpy(keep).to(dev, dtype), g
 
 
-@pytest.mark.parametrize("R", [4096, 4099])
-def test_blocksparse_dw_bit_equal_across_runs(dev, R):
-    """dW sums its cluster's partials in rank order, with no atomics: two
-    runs at BERT-base's fc1 (split 2) give the same bits."""
+@pytest.mark.parametrize("R,dtype,block", [
+    (4096, torch.bfloat16, 128), (4099, torch.bfloat16, 128),
+    (4096, torch.float32, 128), (4099, torch.float32, 128),
+    (1000, torch.float32, 32)])
+def test_blocksparse_dw_bit_equal_across_runs(dev, R, dtype, block):
+    """dW sums its cluster's partials in rank order, with no atomics: runs
+    at BERT-base's fc1 (bf16 split 2, f32 split 8), a ragged R and f32
+    block 32 (split 2) give the same bits."""
     from torchpruner_tpu_torch.ops import blocksparse as BS
 
-    x, w, g, ik, ok = _bs_case(R, 768, 3072, 128, 0, 0.5, torch.bfloat16,
-                               dev)
-    assert BS.plan("dw", R, 768, 3072, 128, len(ik), len(ok)).split > 1
-    first = BS.blocksparse_dw(x, g, ik, ok, 128)
+    D, F = (768, 3072) if block == 128 else (256, 384)
+    x, w, g, ik, ok = _bs_case(R, D, F, block, 0, 0.5, dtype, dev)
+    assert BS.plan("dw", R, D, F, block, len(ik), len(ok), dtype).split > 1
+    first = BS.blocksparse_dw(x, g, ik, ok, block)
     for _ in range(3):
-        assert torch.equal(BS.blocksparse_dw(x, g, ik, ok, 128), first)
+        assert torch.equal(BS.blocksparse_dw(x, g, ik, ok, block), first)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -424,3 +428,29 @@ def test_blocksparse_wgmma_single_kept_block(dev, ik, ok):
     x, w, g = _bs_case_keep(4099, 768, 3072, 128, ik, ok, torch.bfloat16,
                             dev)
     _bs_check(x, w, g, ik, ok, 128)
+
+
+# -- the f32 3xTF32 body ----------------------------------------------------
+
+
+@pytest.mark.parametrize("R,D,F,block,in_frac,out_frac", [
+    (4096, 768, 3072, 128, 0, 0.5),    # BERT-base fc1 (dW split 8)
+    (4096, 3072, 768, 128, 0.5, 0),    # BERT-base fc2
+    (4099, 768, 3072, 128, 0, 0.5),    # fc1 at a ragged row count
+    (1000, 256, 384, 32, 0.5, 0.5),    # block 32: (128, 32) / (32, 32) tiles
+    (131, 192, 320, 64, 0.5, 0.5),     # block 64: 64-wide tiles
+    (64, 192, 96, 96, 0.5, 0),         # a block that is 3 x 32
+])
+def test_blocksparse_tf32x3_matches_plain(dev, R, D, F, block, in_frac,
+                                          out_frac):
+    """The f32 body at the path's shapes and where its tiles change:
+    the plain version's products to 1e-5 of their scale, dropped columns
+    and blocks exactly 0, the plan's body ``tf32x3``."""
+    from torchpruner_tpu_torch.ops import blocksparse as BS
+
+    x, w, g, ik, ok = _bs_case(R, D, F, block, in_frac, out_frac,
+                               torch.float32, dev)
+    for mode in ("fwd", "dx", "dw"):
+        assert BS.plan(mode, R, D, F, block, len(ik), len(ok),
+                       torch.float32).body == "tf32x3"
+    _bs_check(x, w, g, ik, ok, block)

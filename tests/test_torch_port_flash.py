@@ -250,19 +250,28 @@ def _tf32_mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
 
 
 def test_tf32x3_error_budget_fits_the_f32_tolerance():
-    """The arithmetic the f32 forward rests on, emulated on the CPU at the
-    scoring shape's S 128 and Dh 64 (B * H cut to 4): logits and P V in
-    3xTF32 land at least 10x inside the port's f32 tolerance (1e-5 of the
-    output's scale, and of the LSE's) against f64; one TF32 pass does
-    not."""
+    """The arithmetic the f32 kernels rest on, emulated on the CPU at the
+    scoring shape's S 128 and Dh 64 (B * H cut to 4), against f64.  The
+    forward: logits and P V in 3xTF32 land at least 10x inside the port's
+    f32 tolerance (1e-5 of the output's scale, and of the LSE's); one
+    TF32 pass does not.  dQ's chain (S = Q K^T, P = exp(S scale - LSE),
+    dP = dO V^T, dS = P (dP - delta) scale, dQ = dS K, where dP - delta
+    cancels, so dS itself is split): in 3xTF32 at least 10x inside the
+    gradients' tolerance (1e-4 of max|dQ|); one TF32 pass does not."""
     rng = np.random.default_rng(0)
-    q, k, v = (torch.tensor(rng.normal(size=(4, 128, 64)).astype(np.float32))
-               for _ in range(3))
+    q, k, v, do = (torch.tensor(rng.normal(size=(4, 128, 64))
+                                .astype(np.float32)) for _ in range(4))
     scale = 1.0 / 8.0
     s64 = q.double() @ k.double().transpose(1, 2) * scale
-    o64 = torch.softmax(s64, -1) @ v.double()
+    p64 = torch.softmax(s64, -1)
+    o64 = p64 @ v.double()
     lse64 = torch.logsumexp(s64, -1)
-    errs = {}
+    delta64 = (do.double() * o64).sum(-1, keepdim=True)
+    dq64 = (p64 * (do.double() @ v.double().transpose(1, 2) - delta64)
+            * scale) @ k.double()
+    # dQ's kernel takes the forward's LSE and delta as given
+    lse, delta = lse64.float()[..., None], delta64.float()
+    errs, dq_errs = {}, {}
     for passes in (1, 3):
         s = _tf32_mm(q, k.transpose(1, 2).contiguous(), passes) * scale
         p = torch.softmax(s, -1)
@@ -271,8 +280,31 @@ def test_tf32x3_error_budget_fits_the_f32_tolerance():
             float((o.double() - o64).abs().max() / o64.abs().max()),
             float((torch.logsumexp(s, -1).double() - lse64).abs().max()
                   / lse64.abs().max()))
+        dp = _tf32_mm(do, v.transpose(1, 2).contiguous(), passes)
+        ds = torch.exp(s - lse) * (dp - delta) * scale
+        dq = _tf32_mm(ds, k, passes)
+        dq_errs[passes] = float((dq.double() - dq64).abs().max()
+                                / dq64.abs().max())
     assert max(errs[3]) <= F32_RTOL / 10, errs
     assert errs[1][0] > F32_RTOL, errs
+    assert dq_errs[3] <= 1e-4 / 10, dq_errs
+    assert dq_errs[1] > 1e-4, dq_errs
+
+
+def test_tf32x3_error_budget_fits_the_blocksparse_dw_tolerance():
+    """The f32 block-sparse dW (``bs_tf32x3``) contracts all of R in
+    3xTF32: emulated on the CPU at BERT-base's R 4096 for a (128, 128)
+    tile, against f64, it lands at least 10x inside the kernels' f32
+    tolerance (1e-5 of max|dW|); one TF32 pass does not."""
+    rng = np.random.default_rng(1)
+    x, g = (torch.tensor(rng.normal(size=(4096, 128)).astype(np.float32))
+            for _ in range(2))
+    dw64 = x.double().t() @ g.double()
+    xt = x.t().contiguous()
+    errs = {p: float((_tf32_mm(xt, g, p).double() - dw64).abs().max()
+                     / dw64.abs().max()) for p in (1, 3)}
+    assert errs[3] <= 1e-5 / 10, errs
+    assert errs[1] > 1e-5, errs
 
 
 def test_f32_smem_fits_two_ctas_an_sm_and_pitches_align():
@@ -283,17 +315,22 @@ def test_f32_smem_fits_two_ctas_an_sm_and_pitches_align():
         p = PF.f32_pitches(Dh)
         assert p["qk"] >= w and p["qk"] % 32 == 8 and p["qk"] - w < 32
         assert p["v"] == w + 4 and p["v"] % 8 == 4
-        for kernel in ("fwd", "dkv"):
+        for kernel in ("fwd", "dq", "dkv"):
             assert 0 < PF.f32_smem_bytes(kernel, Dh) <= card
     # at BERT's Dh 64 two CTAs share an SM (228 KB, 1 KB reserved each):
     # Q, K, K, V, V at 72 and 68 floats; K, V and two stages of Q and dO
-    # at 68 floats with 2 x 64 LSE and delta rows
+    # at 68 floats with 2 x 64 LSE and delta rows; three dQ CTAs: Q, dO
+    # and one stage of K and V at 68 floats (O is never staged), two
+    # stages above Dh 64
     assert PF.f32_smem_bytes("fwd", 64) == 4 * 64 * (3 * 72 + 2 * 68)
+    assert PF.f32_smem_bytes("dq", 64) == 4 * 64 * 4 * 68
+    assert PF.f32_smem_bytes("dq", 128) == 4 * 64 * 6 * 132
     assert PF.f32_smem_bytes("dkv", 64) == 4 * 64 * (6 * 68 + 4)
-    for kernel in ("fwd", "dkv"):
+    for kernel in ("fwd", "dq", "dkv"):
         assert 2 * (PF.f32_smem_bytes(kernel, 64) + 1024) <= 233472
+    assert 3 * (PF.f32_smem_bytes("dq", 64) + 1024) <= 233472
     with pytest.raises(ValueError):
-        PF.f32_smem_bytes("dq", 64)
+        PF.f32_smem_bytes("dx", 64)
 
 
 def _banks_distinct(words, width=1):
@@ -320,14 +357,19 @@ def test_f32_fragment_reads_hit_distinct_banks(Dh):
         # 8-byte load of rows g (+ 8 n)
         assert _banks_distinct([g * p["qk"] + 8 * kk + 2 * t
                                 for g, t in lanes], 2)
-        # dK/dV: K, V (A) and Q^T, dO^T (B^T), rows g, columns 8 kk + t
-        assert _banks_distinct([g * p["v"] + 8 * kk + t for g, t in lanes])
-    for c in range(Dh // 8):
-        # forward V and dK/dV's dO and Q as B: rows 2t (and 2t + 1),
-        # columns 8 c + g
-        for row in (0, 1):
-            assert _banks_distinct([(2 * t + row) * p["v"] + 8 * c + g
+        # dQ: Q, dO (A) and K^T, V^T (B^T); dK/dV: K, V (A) and Q^T,
+        # dO^T (B^T): rows g (+ 8, + 8 n), columns 8 kk + t (and + 4)
+        for col in (0, 4):
+            assert _banks_distinct([g * p["v"] + 8 * kk + t + col
                                     for g, t in lanes])
+    for c in range(Dh // 8):
+        # forward V, dQ's K (its second role) and dK/dV's dO and Q as B:
+        # rows 2t (and 2t + 1) of each block of 8 keys (queries), columns
+        # 8 c + g
+        for n in range(8):
+            for row in (0, 1):
+                assert _banks_distinct([(8 * n + 2 * t + row) * p["v"]
+                                        + 8 * c + g for g, t in lanes])
 
 
 def test_flash_ab_plain_route_swaps_only_the_attention_core():
@@ -497,7 +539,36 @@ def test_flash_dq_bf16_delta_bit_equal_and_feeds_dkv(dev, B, S, H, Dh,
     dK/dV computed from the kernel's delta equal, to 2**-7 of the plain
     version's gradient scale, to dK/dV computed from that reference
     delta."""
-    ts = _layout([torch.tensor(a, device=dev).to(torch.bfloat16)
+    _dq_delta_and_dkv(dev, B, S, H, Dh, causal, layout, torch.bfloat16)
+
+
+#: the f32 dQ kernel's cases (``dq_tf32x3``): the scoring shape (B cut
+#: to 4), a ragged causal S, Dh 72 and 128 (the guarded and the 128-wide
+#: exact copies), rows only 4-byte aligned (4-byte copies), S 1
+DQ_CASES_F32 = [
+    (4, 128, 12, 64, False, "bshd"),
+    (2, 333, 4, 64, True, "bshd"),
+    (2, 256, 4, 72, True, "bshd"),
+    (2, 256, 4, 128, False, "bshd"),
+    (2, 256, 3, 64, True, "offset"),
+    (3, 1, 2, 64, True, "bshd"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Dh,causal,layout", DQ_CASES_F32)
+def test_flash_dq_f32_delta_bit_equal_and_feeds_dkv(dev, B, S, H, Dh,
+                                                    causal, layout):
+    """The f32 twin: dQ to 1e-4 of its scale, delta to rtol 1e-5, both
+    bit-equal across runs, and dK/dV from the kernel's delta equal to
+    dK/dV from the reference delta to 1e-4 of the gradient scale."""
+    _dq_delta_and_dkv(dev, B, S, H, Dh, causal, layout, torch.float32)
+
+
+def _dq_delta_and_dkv(dev, B, S, H, Dh, causal, layout, dtype):
+    f32 = dtype == torch.float32
+    grel = 1e-4 if f32 else BF16_REL
+    ts = _layout([torch.tensor(a, device=dev).to(dtype)
                   for a in _qkv(B, S, H, Dh, seed=S + Dh)], layout)
     qt, kt, vt, gt = ts
     ref = [t.detach().float().requires_grad_() for t in (qt, kt, vt)]
@@ -505,15 +576,16 @@ def test_flash_dq_bf16_delta_bit_equal_and_feeds_dkv(dev, B, S, H, Dh,
         PF.flash_attention_plain(*ref, causal=causal), ref, gt.float())
     dv_scale = float(r_grads[2].abs().max())
     o, lse = PF.flash_fwd(qt, kt, vt, causal=causal, with_lse=True)
-    assert PF.copy_route(qt, kt, vt, o, gt) == (
-        "copy" if layout == "offset" else "tma")
+    if not f32:
+        assert PF.copy_route(qt, kt, vt, o, gt) == (
+            "copy" if layout == "offset" else "tma")
     n0 = PF.flash_dq.launches
     dq, delta = PF.flash_dq(qt, kt, vt, o, gt, lse, causal=causal)
     torch.cuda.synchronize()
     assert PF.flash_dq.launches == n0 + 1
-    assert dq.dtype == torch.bfloat16 and dq.shape == (B, S, H, Dh)
+    assert dq.dtype == dtype and dq.shape == (B, S, H, Dh)
     assert delta.dtype == torch.float32 and delta.shape == (B, H, S)
-    _close(dq.float().cpu(), r_grads[0].cpu(), BF16_REL, zero_scale=dv_scale)
+    _close(dq.float().cpu(), r_grads[0].cpu(), grel, zero_scale=dv_scale)
     want_delta = (gt.float() * o.float()).sum(-1).transpose(1, 2)
     _close(delta.cpu(), want_delta.cpu(), F32_RTOL)
     for _ in range(2):
@@ -525,10 +597,8 @@ def test_flash_dq_bf16_delta_bit_equal_and_feeds_dkv(dev, B, S, H, Dh,
     dk_r, dv_r = PF.flash_dkv(qt, kt, vt, gt, lse, want_delta.contiguous(),
                               causal=causal)
     dk_scale = float(r_grads[1].abs().max()) or dv_scale
-    assert float((dk.float() - dk_r.float()).abs().max()) \
-        <= BF16_REL * dk_scale
-    assert float((dv.float() - dv_r.float()).abs().max()) \
-        <= BF16_REL * dv_scale
+    assert float((dk.float() - dk_r.float()).abs().max()) <= grel * dk_scale
+    assert float((dv.float() - dv_r.float()).abs().max()) <= grel * dv_scale
 
 
 @pytest.mark.cuda
@@ -543,7 +613,7 @@ def test_flash_host_mirrors_match_the_library(dev):
         for code, kernel in ((0, "fwd"), (1, "dkv"), (2, "dq")):
             assert lib.tp_flash_smem_bytes(code, Dh) == \
                 PF.smem_bytes(kernel, Dh)
-        for code, kernel in ((3, "fwd"), (4, "dkv")):
+        for code, kernel in ((3, "fwd"), (4, "dkv"), (5, "dq")):
             assert lib.tp_flash_smem_bytes(code, Dh) == \
                 PF.f32_smem_bytes(kernel, Dh)
     route = lib.tp_flash_tma_route

@@ -57,13 +57,17 @@
 // bf16, block an odd multiple of 32 (32, 96, ...): `bs_kernel` with
 // `MmaTile`, the earlier wmma body (16x16x16 fragments, register-staged
 // single-buffered copies), since a wgmma tile is 64 rows.
-// f32: `bs_kernel` with `FmaTile` on the FMA units at full f32 (no TF32),
-// each thread a strided micro-tile of the output, tiles staged through
-// registers into shared memory.  In both `bs_kernel` bodies one CTA owns
-// one output tile of the whole output and loops over the contraction
-// (the TPU carried the accumulator across a sequential grid axis), a CTA
-// whose tile lies in a dropped block writes zeros and leaves, and dW is
-// not split over R.
+// f32, every block: `bs_tf32x3`, on the tensor cores in 3xTF32
+// (tf32x3.cuh: three TF32 mma.sync.m16n8k8 products a product, which
+// keeps f32's accuracy) with the same operand major-ness, fed by a
+// 3-stage cp.async ring of 32 contracted elements (see "f32: 3xTF32
+// body" below); wgmma is not used, as it takes TF32 operands K-major
+// only, and W (fwd), x (dW) and g (dW) enter MN-major.
+// In `bs_kernel` and `bs_tf32x3` one CTA owns one output tile of the
+// whole output grid and loops over the contraction (the TPU carried the
+// accumulator across a sequential grid axis), and a CTA whose tile lies
+// in a dropped block writes zeros and leaves; `bs_tf32x3` splits dW's R
+// over a cluster like `bs_wgmma`, `bs_kernel` does not.
 //
 // `tp_bs_plan` returns the plan a call takes (body, tile, stages, split,
 // CTAs, dynamic shared memory), a function of (mode, R, D, F, block,
@@ -78,6 +82,7 @@
 #include <type_traits>
 
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 using namespace nvcuda;
 namespace cg = cooperative_groups;
@@ -88,67 +93,57 @@ typedef __nv_bfloat16 bf16;
 
 enum Mode { FWD = 0, DX = 1, DW = 2 };
 
-// per element type: contraction step (DW_BK for dW), elements per 16-byte
-// chunk, and the padding of a shared-memory row (f32: odd row length, so the 16
-// lanes of a column group hit distinct banks; bf16: 16 bytes, which
-// keeps rows 16-byte aligned and fragments 32-byte aligned)
-template <typename T>
-struct Elem;
-template <>
-struct Elem<float> {
-  static constexpr int BK = 16, DW_BK = 64, VEC = 4, PAD = 1;
-};
-template <>
-struct Elem<bf16> {
-  static constexpr int BK = 32, DW_BK = 32, VEC = 8, PAD = 8;
-};
+__device__ __forceinline__ bool listed(const int* __restrict__ keep, int n,
+                                       int blk) {
+  bool hit = false;
+  for (int i = 0; i < n; ++i) hit = hit || keep[i] == blk;
+  return hit;
+}
+
+// element v of the gathered axis whose kept blocks are keep[0 .. n)
+__device__ __forceinline__ int gathered(const int* keep, int v, int block) {
+  return keep[v / block] * block + v % block;
+}
+
+// ------------------------------------------- bf16, odd blocks: wmma body
+
+// the contraction step, bf16 elements a 16-byte chunk, and the padding of
+// a shared-memory row (16 bytes: rows stay 16-byte aligned, fragments
+// 32-byte aligned)
+constexpr int W_BK = 32, W_VEC = 8, W_PAD = 8;
+constexpr int W_THREADS = 128;
 
 // Operand tiles as stored in shared memory.  With C (TM, TN) = A B:
 //   FWD: A = x tile (TM, BK),        B = W tile (BK, TN)
 //   DX:  A = g tile (TM, BK),        B^T = W tile (TN, BK)
 //   DW:  A^T = x tile (BK, TM),      B = g tile (BK, TN)
-// dW contracts the rows, thousands of short steps for one small tile.
-// In f32 a 4x longer step (a quarter as many waits on global memory)
-// measured 1.7x faster at BERT-base's shapes on the H100; in bf16 it
-// measured no faster at fc1 and 16 % slower at R 1024, so bf16 keeps BK.
-template <typename T, int MODE, int TM, int TN>
+template <int MODE, int TM, int TN>
 struct Shape {
-  static constexpr int BK = MODE == DW ? Elem<T>::DW_BK : Elem<T>::BK;
+  static constexpr int BK = W_BK;
   static constexpr int AR = MODE == DW ? BK : TM;
   static constexpr int AC = MODE == DW ? TM : BK;
   static constexpr int BR = MODE == DX ? TN : BK;
   static constexpr int BC = MODE == DX ? BK : TN;
-  static constexpr int LDA = AC + Elem<T>::PAD;
-  static constexpr int LDB = BC + Elem<T>::PAD;
+  static constexpr int LDA = AC + W_PAD;
+  static constexpr int LDB = BC + W_PAD;
 };
 
-__device__ __forceinline__ void put_chunk(float* p, uint4 v) {
-  p[0] = __uint_as_float(v.x);
-  p[1] = __uint_as_float(v.y);
-  p[2] = __uint_as_float(v.z);
-  p[3] = __uint_as_float(v.w);
-}
-__device__ __forceinline__ void put_chunk(bf16* p, uint4 v) {
-  *reinterpret_cast<uint4*>(p) = v;
-}
-
-// One (NR, NC) tile on its way from global to shared memory, held in
-// registers as 16-byte chunks (rows at or past `row_limit` are zeros).
-template <typename T, int NR, int NC, int THREADS>
+// One (NR, NC) bf16 tile on its way from global to shared memory, held
+// in registers as 16-byte chunks (rows at or past `row_limit` are zeros).
+template <int NR, int NC>
 struct Stage {
-  static constexpr int VEC = Elem<T>::VEC;
-  static constexpr int CPR = NC / VEC;  // chunks per row
+  static constexpr int CPR = NC / W_VEC;  // chunks per row
   static constexpr int CH = NR * CPR;
-  static constexpr int N = (CH + THREADS - 1) / THREADS;
+  static constexpr int N = (CH + W_THREADS - 1) / W_THREADS;
   uint4 v[N];
 
-  __device__ __forceinline__ void fetch(const T* __restrict__ src, int ld,
+  __device__ __forceinline__ void fetch(const bf16* __restrict__ src, int ld,
                                         int row0, int col0, int row_limit) {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const int c = threadIdx.x + i * THREADS;
+      const int c = threadIdx.x + i * W_THREADS;
       const int r = c / CPR;
-      const int col = (c - r * CPR) * VEC;
+      const int col = (c - r * CPR) * W_VEC;
       if (c < CH && row0 + r < row_limit)
         v[i] = *reinterpret_cast<const uint4*>(
             src + (long long)(row0 + r) * ld + col0 + col);
@@ -157,76 +152,25 @@ struct Stage {
     }
   }
 
-  __device__ __forceinline__ void store(T* dst, int ldd) const {
+  __device__ __forceinline__ void store(bf16* dst, int ldd) const {
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      const int c = threadIdx.x + i * THREADS;
+      const int c = threadIdx.x + i * W_THREADS;
       if (c < CH) {
         const int r = c / CPR;
-        const int col = (c - r * CPR) * VEC;
-        put_chunk(dst + r * ldd + col, v[i]);
+        const int col = (c - r * CPR) * W_VEC;
+        *reinterpret_cast<uint4*>(dst + r * ldd + col) = v[i];
       }
     }
   }
 };
 
-// f32 on the FMA units: 256 threads as 16 x 16, thread (ty, tx) owns the
-// output entries (ty + 16 i, tx + 16 j)
-template <int MODE, int TM, int TN, int THREADS>
-struct FmaTile {
-  static_assert(THREADS == 256, "the f32 tile is 16 x 16 threads");
-  using S = Shape<float, MODE, TM, TN>;
-  static constexpr int MI = TM / 16, NJ = TN / 16;
-  float acc[MI][NJ];
-
-  __device__ __forceinline__ void init() {
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  __device__ __forceinline__ void step(const float* As, const float* Bs) {
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-    for (int k = 0; k < S::BK; ++k) {
-      float av[MI], bv[NJ];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        av[i] = MODE == DW ? As[k * S::LDA + ty + 16 * i]
-                           : As[(ty + 16 * i) * S::LDA + k];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        bv[j] = MODE == DX ? Bs[(tx + 16 * j) * S::LDB + k]
-                           : Bs[k * S::LDB + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-
-  __device__ __forceinline__ void write(float* __restrict__ out, int ld,
-                                        int m0, int n0, int row_limit,
-                                        float* /*patch*/) {
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int row = m0 + ty + 16 * i;
-      if (row >= row_limit) continue;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        out[(long long)row * ld + n0 + tx + 16 * j] = acc[i][j];
-    }
-  }
-};
-
-// bf16 on the tensor cores: the warps as 2 x (WARPS / 2), each warp a
-// (TM / 2, TN / (WARPS / 2)) part of the tile in 16 x 16 fragments
-template <int MODE, int TM, int TN, int THREADS>
+// the warps as 2 x (WARPS / 2), each warp a (TM / 2, TN / (WARPS / 2))
+// part of the tile in 16 x 16 fragments
+template <int MODE, int TM, int TN>
 struct MmaTile {
-  using S = Shape<bf16, MODE, TM, TN>;
-  static constexpr int WARPS = THREADS / 32;
+  using S = Shape<MODE, TM, TN>;
+  static constexpr int WARPS = W_THREADS / 32;
   static constexpr int WR = 2, WC = WARPS / 2;
   static constexpr int WTM = TM / WR, WTN = TN / WC;
   static constexpr int FM = WTM / 16, FN = WTN / 16;
@@ -309,41 +253,22 @@ struct MmaTile {
   }
 };
 
-template <typename T, int MODE, int TM, int TN, int THREADS>
-struct Pick {
-  typedef typename std::conditional<
-      std::is_same<T, float>::value, FmaTile<MODE, TM, TN, THREADS>,
-      MmaTile<MODE, TM, TN, THREADS> >::type type;
-};
-
-__device__ __forceinline__ bool listed(const int* __restrict__ keep, int n,
-                                       int blk) {
-  bool hit = false;
-  for (int i = 0; i < n; ++i) hit = hit || keep[i] == blk;
-  return hit;
-}
-
 // a, b, out per mode:
 //   FWD: x (R, D), W (D, F) -> y (R, F)
 //   DX:  g (R, F), W (D, F) -> dx (R, D)
 //   DW:  x (R, D), g (R, F) -> dW (D, F)
 // 1-D grid: row tile x column tile of the whole output, columns fastest.
-template <typename T, int MODE, int TM, int TN, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-bs_kernel(const T* __restrict__ a, const T* __restrict__ b,
-          T* __restrict__ out, const int* __restrict__ ii,
+template <int MODE, int TM, int TN>
+__global__ void __launch_bounds__(W_THREADS)
+bs_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+          bf16* __restrict__ out, const int* __restrict__ ii,
           const int* __restrict__ oo, int n_in, int n_out, int R, int D,
           int F, int block) {
-  using S = Shape<T, MODE, TM, TN>;
-  using Tile = typename Pick<T, MODE, TM, TN, THREADS>::type;
+  using S = Shape<MODE, TM, TN>;
   constexpr int BK = S::BK;
-  constexpr int VEC = Elem<T>::VEC;
-  constexpr bool TC = !std::is_same<T, float>::value;
-  __shared__ __align__(32) unsigned char a_raw[S::AR * S::LDA * sizeof(T)];
-  __shared__ __align__(32) unsigned char b_raw[S::BR * S::LDB * sizeof(T)];
-  __shared__ __align__(32) float patch[TC ? (THREADS / 32) * 256 : 8];
-  T* As = reinterpret_cast<T*>(a_raw);
-  T* Bs = reinterpret_cast<T*>(b_raw);
+  __shared__ __align__(32) bf16 As[S::AR * S::LDA];
+  __shared__ __align__(32) bf16 Bs[S::BR * S::LDB];
+  __shared__ __align__(32) float patch[(W_THREADS / 32) * 256];
 
   const int out_ld = MODE == DX ? D : F;
   const int n_ct = out_ld / TN;
@@ -355,10 +280,10 @@ bs_kernel(const T* __restrict__ a, const T* __restrict__ b,
                          : listed(oo, n_out, n0 / block);
   if (MODE == DW) kept = kept && listed(ii, n_in, m0 / block);
   if (!kept) {  // the whole CTA: a tile of a dropped block is zeros
-    constexpr int CPR = TN / VEC;
-    for (int c = threadIdx.x; c < TM * CPR; c += THREADS) {
+    constexpr int CPR = TN / W_VEC;
+    for (int c = threadIdx.x; c < TM * CPR; c += W_THREADS) {
       const int r = c / CPR;
-      const int col = (c - r * CPR) * VEC;
+      const int col = (c - r * CPR) * W_VEC;
       if (m0 + r < row_limit)
         *reinterpret_cast<uint4*>(out + (long long)(m0 + r) * out_ld + n0 +
                                   col) = make_uint4(0u, 0u, 0u, 0u);
@@ -370,8 +295,8 @@ bs_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const int steps = MODE == FWD  ? n_in * spb
                     : MODE == DX ? n_out * spb
                                  : (R + BK - 1) / BK;
-  Stage<T, S::AR, S::AC, THREADS> ra;
-  Stage<T, S::BR, S::BC, THREADS> rb;
+  Stage<S::AR, S::AC> ra;
+  Stage<S::BR, S::BC> rb;
   auto fetch = [&](int s) {
     if (MODE == DW) {
       const int r0 = s * BK;
@@ -391,7 +316,7 @@ bs_kernel(const T* __restrict__ a, const T* __restrict__ b,
     }
   };
 
-  Tile tile;
+  MmaTile<MODE, TM, TN> tile;
   tile.init();
   fetch(0);
   ra.store(As, S::LDA);
@@ -411,17 +336,275 @@ bs_kernel(const T* __restrict__ a, const T* __restrict__ b,
   tile.write(out, out_ld, m0, n0, row_limit, patch);
 }
 
-template <typename T, int MODE, int TM, int TN, int THREADS>
-cudaError_t launch(const void* a, const void* b, void* out, const int* ii,
-                   const int* oo, int n_in, int n_out, int R, int D, int F,
-                   int block, cudaStream_t s) {
+template <int MODE, int TM, int TN>
+cudaError_t launch_wmma(const void* a, const void* b, void* out,
+                        const int* ii, const int* oo, int n_in, int n_out,
+                        int R, int D, int F, int block, cudaStream_t s) {
   const long long n_rt = MODE == DW ? D / TM : (R + TM - 1) / TM;
   const long long grid = n_rt * ((MODE == DX ? D : F) / TN);
   if (grid <= 0 || grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  bs_kernel<T, MODE, TM, TN, THREADS><<<(unsigned)grid, THREADS, 0, s>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<T*>(out), ii, oo, n_in, n_out, R, D, F, block);
+  bs_kernel<MODE, TM, TN><<<(unsigned)grid, W_THREADS, 0, s>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<bf16*>(out), ii, oo, n_in, n_out, R, D, F, block);
   return cudaGetLastError();
+}
+
+// ------------------------------------------------- f32: 3xTF32 body
+//
+// `bs_tf32x3<MODE, BM, BN>`: one CTA per (BM, BN) output tile of the
+// whole output (fwd / dx: BM 128 rows of R by BN 32-128 columns; dW: BM
+// rows of D by BN of F), a tile of a dropped block written as zeros;
+// warps of WTM x 32 outputs (WTM 64, or 32 in a tile 32 wide or 32
+// tall), MT = WTM / 16 m16 tiles by 4 n8 tiles, 16 MT sums a thread in
+// registers (at 128 x 128: 8 warps, 64 sums).  Per stage of 32
+// contracted elements (a 32-wide piece of one kept block, or 32 rows of
+// R), a 3-stage cp.async ring of whole 16-byte copies (D and F are
+// multiples of 32 floats, so rows stay aligned; rows past R are
+// zero-filled) holds
+//   fwd: A = x (BM, 32) K-contiguous,  B = W (32, BN) N-contiguous
+//   dx:  A = g (BM, 32) K-contiguous,  B = W as (BN, 32) K-contiguous
+//   dW:  A = x (32, BM) M-contiguous,  B = g (32, BN) N-contiguous
+// so no transpose is made.  Each block of 8 contracted elements is summed
+// in the order 2t -> k-index t, 2t + 1 -> t + 4, so a K-contiguous
+// operand gives a thread's two elements in one 8-byte load (pitch
+// 32 + 8 = 8 mod 32: rows g hit 32 distinct banks) and the others are
+// read at rows 2t and 2t + 1 (pitch width + 4 = 4 mod 16: 32 distinct
+// banks).  Each warp splits the operands it reads (the A elements of
+// its rows, the B elements of its columns) into TF32 halves in registers
+// and runs 3 mma.sync per m16n8k8 product.  The tensor core truncates the
+// f32 sums it accumulates, and along a long contraction that drifts one
+// way: dx at fc1 (576 mma.sync into each accumulator) missed the f32
+// tolerance by 1.2x.  So each stage's 12 products a fragment start from
+// 0, and join the running sums by an f32 add, rounded to nearest.  dW
+// contracts all of R for few tiles (72 of 128 x 128 at BERT-base), so
+// `plan` splits R over a thread-block cluster of `ranks` CTAs of one
+// tile; each rank writes its f32 partial into its drained ring, and rank
+// q sums pairs q, q + ranks, ... over the ranks' partials in rank order
+// 0, 1, ... through distributed shared memory and stores them (no
+// atomics: bit-equal from run to run).
+
+constexpr int TK = 32;        // contracted elements of a ring stage
+constexpr int TF_STAGES = 3;  // the cp.async ring
+
+// floats of one ring stage of mode `mode` at tile (bm, bn): A then B,
+// K-contiguous tiles at pitch TK + 8, the others at their width + 4
+__host__ __device__ constexpr int tf_stage_floats(int mode, int bm, int bn) {
+  return (mode == DW ? TK * (bm + 4) : bm * (TK + 8)) +
+         (mode == DX ? bn * (TK + 8) : TK * (bn + 4));
+}
+
+template <int MODE, int BM, int BN>
+struct Tf {
+  // 64 rows a warp where the tile has 64 rows and 64 columns, else 32
+  // (a 32-wide tile keeps 4 warps: 1.4-1.6x faster at block 32)
+  static constexpr int WTM = BM < 64 || BN < 64 ? 32 : 64, MT = WTM / 16;
+  static constexpr int WARPS_N = BN / 32;
+  static constexpr int THREADS = 32 * (BM / WTM) * WARPS_N;
+  static constexpr int PA = MODE == DW ? BM + 4 : TK + 8;
+  static constexpr int PB = MODE == DX ? TK + 8 : BN + 4;
+  static constexpr int A_FLOATS = (MODE == DW ? TK : BM) * PA;
+  static constexpr int STAGE = tf_stage_floats(MODE, BM, BN);
+  static_assert(TF_STAGES * STAGE >= BM * BN, "dW's partial fits the ring");
+};
+
+// rows row0 .. row0 + NR - 1, columns col0 .. col0 + NC - 1 of a
+// row-major f32 matrix (ld floats a row) into dst (pitch P) by 16-byte
+// cp.async, zeros for rows at or past `limit`
+template <int NR, int NC, int P, int THREADS>
+__device__ __forceinline__ void tf_copy(float* dst,
+                                        const float* __restrict__ src, int ld,
+                                        int row0, int col0, int limit) {
+  constexpr int CPR = NC / 4, N = NR * CPR;
+  static_assert(N % THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int it = 0; it < N / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    const int r = i / CPR, c = (i - r * CPR) * 4, row = row0 + r;
+    cp_async<16>(dst + r * P + c,
+                 src + (long long)min(row, limit - 1) * ld + col0 + c,
+                 row < limit);
+  }
+}
+
+// a, b, out as for bs_kernel.  Grid: every (BM, BN) output tile, columns
+// fastest, `ranks` CTAs (a cluster) a tile.
+template <int MODE, int BM, int BN>
+__global__ void __launch_bounds__(Tf<MODE, BM, BN>::THREADS)
+bs_tf32x3(const float* __restrict__ a, const float* __restrict__ b,
+          float* __restrict__ out, const int* __restrict__ ii,
+          const int* __restrict__ oo, int n_in, int n_out, int R, int D,
+          int F, int block, int ranks) {
+  using T = Tf<MODE, BM, BN>;
+  constexpr int THREADS = T::THREADS, MT = T::MT, PA = T::PA, PB = T::PB;
+  extern __shared__ float4 smem_tf[];
+  float* ring = reinterpret_cast<float*>(smem_tf);
+  const int tid = threadIdx.x;
+  const int out_ld = MODE == DX ? D : F;
+  const int row_limit = MODE == DW ? D : R;
+  const int n_ct = out_ld / BN;
+  const int tile = blockIdx.x / ranks, rank = blockIdx.x % ranks;
+  const int m0 = tile / n_ct * BM, n0 = tile % n_ct * BN;
+
+  bool kept = MODE == DX ? listed(ii, n_in, n0 / block)
+                         : listed(oo, n_out, n0 / block);
+  if (MODE == DW) kept = kept && listed(ii, n_in, m0 / block);
+  if (!kept) {  // exact zeros; the ranks of a cluster share the rows
+    constexpr int CPR = BN / 4;
+    const int rows = (BM - rank + ranks - 1) / ranks;
+    for (int i = tid; i < rows * CPR; i += THREADS) {
+      const int row = m0 + rank + i / CPR * ranks, c = i % CPR * 4;
+      if (row < row_limit)
+        *reinterpret_cast<float4*>(out + (long long)row * out_ld + n0 + c) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+
+  // this CTA's stages [kb, ke): fwd / dx every kept block's 32-wide
+  // pieces, dW its rank's share of R
+  int kb = 0, ke;
+  if (MODE == DW) {
+    const int steps = (R + TK - 1) / TK, per = (steps + ranks - 1) / ranks;
+    kb = min(steps, rank * per);
+    ke = min(steps, kb + per);
+  } else {
+    ke = (MODE == FWD ? n_in : n_out) * (block / TK);
+  }
+  const int* k_keep = MODE == FWD ? ii : oo;
+  auto load = [&](int k) {
+    float* As = ring + (k - kb) % TF_STAGES * T::STAGE;
+    float* Bs = As + T::A_FLOATS;
+    if constexpr (MODE == DW) {  // x and g rows k TK ..
+      tf_copy<TK, BM, PA, THREADS>(As, a, D, k * TK, m0, R);
+      tf_copy<TK, BN, PB, THREADS>(Bs, b, F, k * TK, n0, R);
+    } else {
+      const int kc = gathered(k_keep, k * TK, block);
+      if constexpr (MODE == FWD) {  // x columns kc .., W rows kc ..
+        tf_copy<BM, TK, PA, THREADS>(As, a, D, m0, kc, R);
+        tf_copy<TK, BN, PB, THREADS>(Bs, b, F, kc, n0, D);
+      } else {  // g columns kc .., W rows n0 .., columns kc ..
+        tf_copy<BM, TK, PA, THREADS>(As, a, F, m0, kc, R);
+        tf_copy<BN, TK, PB, THREADS>(Bs, b, F, n0, kc, D);
+      }
+    }
+  };
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
+  // rows 16 mi + g (+ 8) of the warp's WTM, columns 8 ni + 2t (+ 1) of
+  // its 32
+  float acc[MT][4][4];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TF_STAGES - 1; ++i) {
+    if (kb + i < ke) load(kb + i);
+    cp_commit();
+  }
+  for (int k = kb; k < ke; ++k) {
+    cp_wait<TF_STAGES - 2>();  // stage k has landed
+    __syncthreads();           // and stage k - 1 is read by every warp
+    if (k + TF_STAGES - 1 < ke) load(k + TF_STAGES - 1);
+    cp_commit();
+    const float* As = ring + (k - kb) % TF_STAGES * T::STAGE;
+    const float* Bs = As + T::A_FLOATS;
+    // this stage's sums start from 0 and join acc by a rounded f32 add
+    float part[MT][4][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < TK / 8; ++kk) {
+      const int k2 = 8 * kk + 2 * t;  // k-index t; k2 + 1: t + 4
+      uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {  // B: columns 8 ni + g
+        const int n = wn * 32 + 8 * ni + g;
+        if constexpr (MODE == DX) {
+          const float2 x = *reinterpret_cast<const float2*>(Bs + n * PB + k2);
+          split(x.x, bb[ni][0], bs[ni][0]);
+          split(x.y, bb[ni][1], bs[ni][1]);
+        } else {
+          split(Bs[k2 * PB + n], bb[ni][0], bs[ni][0]);
+          split(Bs[(k2 + 1) * PB + n], bb[ni][1], bs[ni][1]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {  // A: rows 16 mi + g (+ 8)
+        const int m = wm * T::WTM + 16 * mi + g;
+        uint32_t ab[4], as[4];
+        if constexpr (MODE == DW) {
+          const float* p = As + k2 * PA + m;
+          split(p[0], ab[0], as[0]);
+          split(p[8], ab[1], as[1]);
+          split(p[PA], ab[2], as[2]);
+          split(p[PA + 8], ab[3], as[3]);
+        } else {
+          a_frag_pair<PA>(As, m, k2, ab, as);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma3(part[mi][ni], ab, as, bb[ni], bs[ni]);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+  }
+  cp_wait<0>();
+  const int row0 = m0 + wm * T::WTM + g, col0 = n0 + wn * 32 + 2 * t;
+  if (ranks == 1) {
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 16 * mi + 8 * h;
+        if (row >= row_limit) continue;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          *reinterpret_cast<float2*>(out + (long long)row * out_ld + col0 +
+                                     8 * ni) =
+              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+    return;
+  }
+  // dW over a cluster: pair j = (mi, ni, h) of thread tid at
+  // part[j * THREADS + tid] of each rank's drained ring
+  __syncthreads();  // every warp is done with the ring
+  float2* part = reinterpret_cast<float2*>(ring);
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        part[((mi * 4 + ni) * 2 + h) * THREADS + tid] =
+            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int j = rank; j < MT * 8; j += ranks) {
+    const int p = j * THREADS + tid;
+    float2 sum = cluster.map_shared_rank(part, 0)[p];
+    for (int q = 1; q < ranks; ++q) {
+      const float2 v = cluster.map_shared_rank(part, q)[p];
+      sum.x += v.x;
+      sum.y += v.y;
+    }
+    const int row = row0 + 16 * (j / 8) + 8 * (j % 2);
+    *reinterpret_cast<float2*>(out + (long long)row * out_ld + col0 +
+                               8 * (j / 2 % 4)) = sum;
+  }
+  cluster.sync();  // no CTA leaves while another reads its partial
 }
 
 // ------------------------------------------------------ bf16: wgmma body
@@ -443,7 +626,8 @@ constexpr int MIN_SPLIT_STEPS = 4;  // ring stages a dW rank contracts, at least
 // first fill, its epilogue, a dW reduction) is about 6 stages of (128, 128)
 constexpr int FIXED_COST = 6 * 256;
 
-enum Body { BODY_FMA = 0, BODY_WMMA = 1, BODY_WGMMA = 2 };
+
+enum Body { BODY_WMMA = 1, BODY_WGMMA = 2, BODY_TF32X3 = 3 };
 
 struct Plan {
   int body, bm, bn, stages, split, ctas, tiles;
@@ -463,19 +647,22 @@ long long wgmma_smem(int bn, int stages, int n_in, int n_out, int D, int F,
          cdiv((long long)D / block + F / block, 16) * 16;
 }
 
-// The launch plan, from the shapes alone.  The wgmma body's tiles are
-// 128 rows by 64, 128 or 192 columns, both axes gathered in 64-wide
-// chunks through the keep lists (so a tile may span kept blocks); the
-// tile width, and dW's split of R over a cluster of 1, 2, 4 or 8 CTAs
-// (each at least MIN_SPLIT_STEPS stages), minimize rounds of 132 CTAs x
-// (stages x (128 + width) + FIXED_COST): the kernel is bound by what its
-// CTAs read from L2, and wider tiles read less per product.  fwd / dx run
-// min(132, units) persistent CTAs; dW one cluster per tile.  The ring
-// takes as many stages (at most 8) as 227 KB holds.  The `bs_kernel`
-// bodies (f32; bf16 on odd multiples of 32) take fixed tiles by block:
-// f32 fwd / dx (128, 128) on 128-blocks, (64, 64) on 64-blocks, (64, 32)
-// else, f32 dW (64, 64) or (32, 32); bf16 (64, 32), dW (32, 32); one CTA
-// per output tile, no ring (stages 1), static shared memory (0).
+// The launch plan, from the shapes alone.  The tiles of the wgmma body
+// (bf16, block a multiple of 64) are 128 rows by 64, 128 or 192 columns,
+// both axes gathered in 64-wide chunks through the keep lists (so a tile
+// may span kept blocks); those of the 3xTF32 body (f32) are 128 rows by
+// 128, 64 or 32 columns (fwd / dx), or 128 x 128, 128 x 64, 64 x 64 or
+// 32 x 32 (dW), inside one block of each gathered axis.  The tile, and
+// dW's split of R over a cluster of 1, 2, 4 or 8 CTAs (each at least
+// MIN_SPLIT_STEPS stages), minimize rounds of 132 CTAs x (stages x (tile
+// rows + width) + FIXED_COST): both bodies are bound by what their CTAs
+// read from L2, and wider tiles read less per product.  wgmma: fwd / dx
+// run min(132, units) persistent CTAs, dW one cluster per kept tile, and
+// the ring takes as many stages (at most 8) as 227 KB holds.  3xTF32: one
+// CTA (dW: one cluster) per output tile, kept or not, a 3-stage ring.
+// The wmma body (bf16 on odd multiples of 32) takes (64, 32) tiles, dW
+// (32, 32); one CTA per output tile, no ring (stages 1), static shared
+// memory (0).
 int make_plan(int mode, int R, int D, int F, int block, int n_in, int n_out,
               int dtype, Plan* p) {
   if (R < 1 || block < 32 || block % 32 || D < 1 || F < 1 || D % block ||
@@ -485,37 +672,44 @@ int make_plan(int mode, int R, int D, int F, int block, int n_in, int n_out,
   *p = Plan{};
   p->split = 1;
   p->stages = 1;
-  if (dtype == 0 || block % 64) {
-    const bool f32 = dtype == 0;
-    p->body = f32 ? BODY_FMA : BODY_WMMA;
-    if (mode == DW) {
-      p->bm = p->bn = (f32 && block % 64 == 0) ? 64 : 32;
-    } else if (f32 && block % 64 == 0) {
-      p->bm = p->bn = block % 128 == 0 ? 128 : 64;
-    } else {
-      p->bm = 64, p->bn = 32;
-    }
+  const long long out_cols = mode == DX ? D : F;
+  if (dtype == 1 && block % 64) {
+    p->body = BODY_WMMA;
+    p->bm = mode == DW ? 32 : 64;
+    p->bn = 32;
     const long long rows = mode == DW ? D / p->bm : cdiv(R, p->bm);
-    p->ctas = (int)(rows * ((mode == DX ? D : F) / p->bn));
+    p->ctas = (int)(rows * (out_cols / p->bn));
     p->tiles = p->ctas;
     return 0;
   }
-  p->body = BODY_WGMMA;
-  p->bm = BM;
+  const bool f32 = dtype == 0;
+  // the gathered rows and columns of the kept output, the stages of the
+  // contraction
   const long long rows = mode == DW ? (long long)n_in * block : R;
   const long long cols = (long long)(mode == DX ? n_in : n_out) * block;
-  const long long steps = mode == FWD  ? (long long)n_in * block / BK
-                          : mode == DX ? (long long)n_out * block / BK
-                                       : cdiv(R, BK);
+  const int kd = f32 ? TK : BK;
+  const long long steps = mode == FWD  ? (long long)n_in * block / kd
+                          : mode == DX ? (long long)n_out * block / kd
+                                       : cdiv(R, kd);
+  // candidate tiles (rows, columns)
+  static const int wg_tiles[3][2] = {{BM, CH}, {BM, 2 * CH}, {BM, 3 * CH}};
+  static const int tf_tiles[3][2] = {{128, 128}, {128, 64}, {128, 32}};
+  static const int tf_dw_tiles[4][2] = {
+      {128, 128}, {128, 64}, {64, 64}, {32, 32}};
+  const int(*cand)[2] = !f32 ? wg_tiles : mode == DW ? tf_dw_tiles : tf_tiles;
+  const int n_cand = !f32 ? 3 : mode == DW ? 4 : 3;
   long long best = -1;
-  for (int bn = CH; bn <= 3 * CH; bn += CH) {
-    const long long tiles = cdiv(rows, BM) * cdiv(cols, bn);
+  for (int i = 0; i < n_cand; ++i) {
+    const int bm = cand[i][0], bn = cand[i][1];
+    if (f32 && (block % bn || (mode == DW && block % bm))) continue;
+    const long long tiles = cdiv(rows, bm) * cdiv(cols, bn);
     for (int s = 1; s <= (mode == DW ? MAX_SPLIT : 1); s *= 2) {
       if (s > 1 && steps < (long long)s * MIN_SPLIT_STEPS) break;
       const long long c = cdiv(tiles * s, SMS) *
-                          (cdiv(steps, s) * (BM + bn) + FIXED_COST);
+                          (cdiv(steps, s) * (bm + bn) + FIXED_COST);
       if (best < 0 || c < best) {
         best = c;
+        p->bm = bm;
         p->bn = bn;
         p->split = s;
         p->tiles = (int)(tiles < 0x7fffffff ? tiles : 0x7fffffff);
@@ -524,6 +718,17 @@ int make_plan(int mode, int R, int D, int F, int block, int n_in, int n_out,
   }
   if (best < 0 || (long long)p->tiles * p->split > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  if (f32) {  // every output tile, kept or not
+    p->body = BODY_TF32X3;
+    p->stages = TF_STAGES;
+    const long long ctas = (mode == DW ? D / p->bm : cdiv(R, p->bm)) *
+                           (out_cols / p->bn) * p->split;
+    if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    p->ctas = (int)ctas;
+    p->smem = 4LL * TF_STAGES * tf_stage_floats(mode, p->bm, p->bn);
+    return 0;
+  }
+  p->body = BODY_WGMMA;
   if (mode == DW) {
     p->ctas = p->tiles * p->split;
   } else {  // the CTAs also write the dropped (64-row, block) units
@@ -554,10 +759,6 @@ struct TileAt {
   int mv, nv, kb, ke;
 };
 
-// element v of the gathered axis whose kept blocks are keep[0 .. n)
-__device__ __forceinline__ int gathered(const int* keep, int v, int block) {
-  return keep[v / block] * block + v % block;
-}
 
 // a: fwd x, dx g, dW x; b: fwd W, dx W, dW g (their tensor maps ta, tb:
 // boxes of 64 columns by 128 rows for the fwd / dx activations, by 64
@@ -829,6 +1030,30 @@ int make_map_2d(CUtensorMap* m, const void* ptr, int rows, int cols,
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
+// One launch of `kernel` (its arguments `args`) on `ctas` CTAs of
+// `threads`, in clusters of `split` CTAs when split > 1
+int launch_ex(const void* kernel, void** args, int ctas, int threads,
+              long long smem, int split, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)ctas);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  e = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <int MODE, int BN>
 int launch_wgmma(const Plan& p, const void* a, const void* b, void* out,
                  const int* ii, const int* oo, int n_in, int n_out, int R,
@@ -849,71 +1074,61 @@ int launch_wgmma(const Plan& p, const void* a, const void* b, void* out,
     if (!err) err = make_map_2d(&to, out, D, F, CH);
   }
   if (err) return err;
-  auto kernel = bs_wgmma<MODE, BN>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-  if (e != cudaSuccess) return (int)e;
   bf16* o = static_cast<bf16*>(out);
   int stages = p.stages, split = p.split, tiles = p.tiles;
   void* args[] = {&ta, &tb,    &to,     &o,     &ii,    &oo,   &n_in, &n_out,
                   &R,  &D,     &F,      &block, &stages, &split, &tiles};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)p.ctas);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = (size_t)p.smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)p.split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = p.split > 1 ? 1 : 0;
-  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_ex(reinterpret_cast<const void*>(bs_wgmma<MODE, BN>), args,
+                   p.ctas, THREADS, p.smem, p.split, s);
+}
+
+template <int MODE, int BM_, int BN_>
+int launch_tf32x3(const Plan& p, const void* a, const void* b, void* out,
+                  const int* ii, const int* oo, int n_in, int n_out, int R,
+                  int D, int F, int block, cudaStream_t s) {
+  const float* fa = static_cast<const float*>(a);
+  const float* fb = static_cast<const float*>(b);
+  float* fo = static_cast<float*>(out);
+  int split = p.split;
+  void* args[] = {&fa, &fb, &fo, &ii, &oo,    &n_in,
+                  &n_out, &R, &D,  &F,  &block, &split};
+  return launch_ex(reinterpret_cast<const void*>(bs_tf32x3<MODE, BM_, BN_>),
+                   args, p.ctas, Tf<MODE, BM_, BN_>::THREADS, p.smem,
+                   p.split, s);
 }
 
 // The launch of a plan: the body and tile make_plan chose, one template
-// instance each (f32 tiles 256 threads, bf16 wmma tiles 128)
+// instance each
 template <int MODE>
 int dispatch(const Plan& p, const void* a, const void* b, void* out,
              const int* ii, const int* oo, int n_in, int n_out, int R, int D,
              int F, int block, cudaStream_t s) {
+#define TP_BS_ARGS p, a, b, out, ii, oo, n_in, n_out, R, D, F, block, s
   if (p.body == BODY_WGMMA) {
-    if (p.bn == 64)
-      return launch_wgmma<MODE, 64>(p, a, b, out, ii, oo, n_in, n_out, R, D,
-                                    F, block, s);
-    if (p.bn == 128)
-      return launch_wgmma<MODE, 128>(p, a, b, out, ii, oo, n_in, n_out, R, D,
-                                     F, block, s);
-    return launch_wgmma<MODE, 192>(p, a, b, out, ii, oo, n_in, n_out, R, D,
-                                   F, block, s);
+    if (p.bn == 64) return launch_wgmma<MODE, 64>(TP_BS_ARGS);
+    if (p.bn == 128) return launch_wgmma<MODE, 128>(TP_BS_ARGS);
+    return launch_wgmma<MODE, 192>(TP_BS_ARGS);
   }
-  if (p.body == BODY_WMMA) {
-    if constexpr (MODE == DW)
-      return (int)launch<bf16, MODE, 32, 32, 128>(a, b, out, ii, oo, n_in,
-                                                  n_out, R, D, F, block, s);
-    else
-      return (int)launch<bf16, MODE, 64, 32, 128>(a, b, out, ii, oo, n_in,
-                                                  n_out, R, D, F, block, s);
+  if (p.body == BODY_TF32X3) {
+    if constexpr (MODE == DW) {
+      if (p.bm == 128)
+        return p.bn == 128 ? launch_tf32x3<MODE, 128, 128>(TP_BS_ARGS)
+                           : launch_tf32x3<MODE, 128, 64>(TP_BS_ARGS);
+      return p.bm == 64 ? launch_tf32x3<MODE, 64, 64>(TP_BS_ARGS)
+                        : launch_tf32x3<MODE, 32, 32>(TP_BS_ARGS);
+    } else {
+      if (p.bn == 128) return launch_tf32x3<MODE, 128, 128>(TP_BS_ARGS);
+      if (p.bn == 64) return launch_tf32x3<MODE, 128, 64>(TP_BS_ARGS);
+      return launch_tf32x3<MODE, 128, 32>(TP_BS_ARGS);
+    }
   }
-  if constexpr (MODE == DW) {
-    if (p.bm == 64)
-      return (int)launch<float, MODE, 64, 64, 256>(a, b, out, ii, oo, n_in,
-                                                   n_out, R, D, F, block, s);
-    return (int)launch<float, MODE, 32, 32, 256>(a, b, out, ii, oo, n_in,
-                                                 n_out, R, D, F, block, s);
-  } else {
-    if (p.bm == 128)
-      return (int)launch<float, MODE, 128, 128, 256>(
-          a, b, out, ii, oo, n_in, n_out, R, D, F, block, s);
-    if (p.bn == 64)
-      return (int)launch<float, MODE, 64, 64, 256>(a, b, out, ii, oo, n_in,
-                                                   n_out, R, D, F, block, s);
-    return (int)launch<float, MODE, 64, 32, 256>(a, b, out, ii, oo, n_in,
-                                                 n_out, R, D, F, block, s);
-  }
+#undef TP_BS_ARGS
+  if constexpr (MODE == DW)
+    return (int)launch_wmma<MODE, 32, 32>(a, b, out, ii, oo, n_in, n_out, R,
+                                          D, F, block, s);
+  else
+    return (int)launch_wmma<MODE, 64, 32>(a, b, out, ii, oo, n_in, n_out, R,
+                                          D, F, block, s);
 }
 
 bool args_ok(const void* a, const void* b, const void* out, const void* ii,
@@ -968,8 +1183,9 @@ extern "C" int tp_bs_dw(const void* x, const void* g, void* dw,
                    dtype, stream);
 }
 
-// The plan of a call (mode 0 fwd, 1 dx, 2 dW): out[] = body (0 f32 FMA,
-// 1 bf16 wmma, 2 bf16 wgmma), tile rows, tile columns, ring stages, dW
+// The plan of a call (mode 0 fwd, 1 dx, 2 dW): out[] = body (1 bf16
+// wmma, 2 bf16 wgmma, 3 f32 3xTF32; 0 was the f32 FMA body of earlier
+// sources), tile rows, tile columns, ring stages, dW
 // split, CTAs, kept tiles, dynamic shared memory bytes.  Returns 0, or
 // cudaErrorInvalidValue for shapes no body takes.
 extern "C" int tp_bs_plan(int mode, int R, int D, int F, int block, int n_in,

@@ -14,18 +14,14 @@
 // reads, far above the card's ~20 f32 (~295 bf16) operations per byte,
 // and the (S, S) score matrix, the one large intermediate, never leaves
 // the chip.  Design against that bound:
-//   - f32 (the scoring path): the forward and dK/dV run on the tensor
-//     cores in 3xTF32, three TF32 mma.sync products a product, which
-//     keeps f32's accuracy (see "f32 kernels: 3xTF32" below): one CTA of
-//     4 warps per (b, h, 64-row tile), a 2-stage cp.async ring; dQ runs
-//     on the FMA units: one CTA per (b, h, 64-row tile) of 256 threads,
-//     tiles staged through shared memory padded to an odd row length so
-//     the 16 threads of a row group hit 16 distinct banks, each thread a
-//     4 x 4 block of the 64 x 64 score tile and 4 rows x Dh/16 output
-//     columns; the forward and dQ tile queries and loop over key tiles,
-//     dK/dV tiles keys and loops over query tiles; blocks run in
-//     parallel, so each loop carries its own f32 accumulators (the TPU
-//     carried them across sequential grid steps);
+//   - f32 (the scoring path): all three kernels run on the tensor cores
+//     in 3xTF32, three TF32 mma.sync products a product, which keeps
+//     f32's accuracy (see "f32 kernels: 3xTF32" below): one CTA of 4
+//     warps per (b, h, 64-row tile), a 2-stage cp.async ring; the forward
+//     and dQ tile queries and loop over key tiles, dK/dV tiles keys and
+//     loops over query tiles; blocks run in parallel, so each loop
+//     carries its own f32 accumulators (the TPU carried them across
+//     sequential grid steps);
 //   - bf16 (training) runs all three kernels on Hopper's wgmma with
 //     TMA-fed rings and the scores in registers (see "bf16 kernels:
 //     wgmma" below): the forward and dQ one CTA per 128 query rows, dK/dV
@@ -47,189 +43,22 @@
 #include <utility>
 
 #include "sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 constexpr int BT = 64;            // rows of a query or key tile
-constexpr int THREADS = 256;      // 16 row groups x 16 column lanes
 constexpr int MAX_DH = 128;
-constexpr int DC = MAX_DH / 16;   // head-dim columns a thread owns
-constexpr int LDP = BT + 1;       // padded row of a (64, 64) tile
 constexpr float NEG = -1e30f;
 
 struct Strides {
   long long b, s, h;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// sum over the 16 lanes of a row group (lanes 0-15 or 16-31)
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// dst[r * ld + d] = src[b, row0 + r, h, d] as f32 for r < 64 (0 past S);
-// `vec`: every row starts 16-byte aligned, so 4 elements load at once
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          Strides st, int b, int h,
-                                          int row0, int S, int Dh,
-                                          int vec) {
-  const T* base = src + b * st.b + h * st.h;
-  if (vec && sizeof(T) == 4) {
-    const int n4 = Dh / 4;
-    for (int i = threadIdx.x; i < BT * n4; i += THREADS) {
-      const int r = i / n4;
-      const int d = (i - r * n4) * 4;
-      const int s = row0 + r;
-      const float4 x = s < S ? *reinterpret_cast<const float4*>(
-                                   base + (long long)s * st.s + d)
-                             : make_float4(0.f, 0.f, 0.f, 0.f);
-      float* o = dst + r * ld + d;
-      o[0] = x.x;
-      o[1] = x.y;
-      o[2] = x.z;
-      o[3] = x.w;
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < BT * Dh; i += THREADS) {
-    const int r = i / Dh;
-    const int d = i - r * Dh;
-    const int s = row0 + r;
-    dst[r * ld + d] = s < S ? to_f(base[(long long)s * st.s + d]) : 0.f;
-  }
-}
-
 // key tiles a query tile starting at q0 visits
 __device__ __forceinline__ int key_tiles(int q0, int S, int causal) {
   const int n = (S + BT - 1) / BT;
   return causal ? min(n, (q0 + BT - 1) / BT + 1) : n;
-}
-
-// --------------------------------------------------------- f32 dQ: FMA
-// (templated on the element type; launched for float)
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ o,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          T* __restrict__ dq, float* __restrict__ delta, Strides sq,
-          Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq,
-          int H, int S, int Dh, float scale, int causal, int vec) {
-  extern __shared__ float smem[];
-  const int ld = Dh + 1;
-  float* Qs = smem;
-  float* dOs = Qs + BT * ld;
-  float* Ks = dOs + BT * ld;
-  float* Vs = Ks + BT * ld;
-  float* dSs = Vs + BT * ld;  // (64, LDP)
-  const int n_qt = (S + BT - 1) / BT;
-  const int q0 = (blockIdx.x % n_qt) * BT;
-  const int b = blockIdx.x / n_qt / H;
-  const int h = blockIdx.x / n_qt % H;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const long long row_bh = ((long long)b * H + h) * S;
-
-  load_tile(Qs, ld, q, sq, b, h, q0, S, Dh, vec);
-  load_tile(dOs, ld, dout, sdo, b, h, q0, S, Dh, vec);
-  load_tile(Ks, ld, o, so, b, h, q0, S, Dh, vec);  // O, for delta only
-  __syncthreads();
-  float dl[4], lrow[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int qp = q0 + r;
-    float part = 0.f;
-    for (int d = tx; d < Dh; d += 16) part += dOs[r * ld + d] * Ks[r * ld + d];
-    dl[i] = group_sum(part);
-    lrow[i] = qp < S ? lse[row_bh + qp] : 0.f;
-    if (tx == 0 && qp < S) delta[row_bh + qp] = dl[i];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-  const int n_kt = key_tiles(q0, S, causal);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();
-    load_tile(Ks, ld, k, sk, b, h, k0, S, Dh, vec);
-    load_tile(Vs, ld, v, sv, b, h, k0, S, Dh, vec);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < Dh; ++d) {
-      float qv[4], gv[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * ld + d];
-        gv[i] = dOs[(ty + 16 * i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * ld + d];
-        vv[j] = Vs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const bool ok = qp < S && kp < S && (!causal || kp <= qp);
-        const float p = ok ? expf(s[i][j] * scale - lrow[i]) : 0.f;
-        dSs[(ty + 16 * i) * LDP + tx + 16 * j] = p * (dp[i][j] - dl[i]) * scale;
-      }
-    }
-    __syncthreads();
-    const int live = min(BT, S - k0);
-    for (int j = 0; j < live; ++j) {
-      float kk[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int col = tx + 16 * c;
-        kk[c] = col < Dh ? Ks[j * ld + col] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = dSs[(ty + 16 * i) * LDP + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(ds, kk[c], acc[i][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
-    if (qp >= S) continue;
-    T* row = dq + b * sdq.b + (long long)qp * sdq.s + h * sdq.h;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < Dh) put(row + col, acc[i][c]);
-    }
-  }
 }
 
 // ------------------------------------------------ bf16 kernels: wgmma
@@ -919,56 +748,59 @@ dq_wgmma(const __grid_constant__ CUtensorMap tq,
 
 // ------------------------------------------ f32 kernels: 3xTF32 mma.sync
 //
-// `fwd_tf32x3<NTM, EXACT>` and `dkv_tf32x3<NTM, EXACT>` run the f32
-// forward and dK/dV on the tensor cores at f32 accuracy, for Dh up to
-// 8 NTM (NTM 8 for Dh <= 64, 16 up to 128); EXACT copies serve Dh = 8 NTM
-// (BERT's 64, and 128), the others any smaller Dh.  Each f32 operand x is
-// split into big = tf32(x) (rounded to nearest) and small = x - big, and
-// each product is the sum of three TF32 products, small big + big small
-// + big big (the small terms first), on mma.sync.m16n8k8 with f32 sums.
-// What the split drops, small small and the low bits of small that the
-// tensor core truncates, is below 2^-21 of each term, near f32's own
-// rounding; one TF32 pass carries 2^-11 and misses the f32 tolerances
-// (the CPU test
-// `test_tf32x3_error_budget_fits_the_f32_tolerance` holds the budget).
-// mma.sync and not wgmma: wgmma takes TF32 operands from shared memory
-// K-major only, and V (forward), dO and Q (dK/dV) enter their products
-// MN-major, which TMA cannot transpose for f32.
-//   - one CTA of 4 warps per 64 rows (queries in the forward, keys in
-//     dK/dV); warp w owns rows 16 w .. 16 w + 15, an m16 tile, so its
+// `fwd_tf32x3<NTM, EXACT>`, `dq_tf32x3<NTM, EXACT>` and
+// `dkv_tf32x3<NTM, EXACT>` run the f32 forward, dQ and dK/dV on the
+// tensor cores at f32 accuracy (3xTF32, tf32x3.cuh), for Dh up to 8 NTM
+// (NTM 8 for Dh <= 64, 16 up to 128); EXACT copies serve Dh = 8 NTM
+// (BERT's 64, and 128), the others any smaller Dh.  One TF32 pass would
+// miss the f32 tolerances (the CPU test
+// `test_tf32x3_error_budget_fits_the_f32_tolerance` holds the budget of
+// each kernel's chain of products).  mma.sync and not wgmma: wgmma takes
+// TF32 operands from shared memory K-major only, and V (forward), K (dQ),
+// dO and Q (dK/dV) enter their products MN-major, which TMA cannot
+// transpose for f32.
+//   - one CTA of 4 warps per 64 rows (queries in the forward and dQ, keys
+//     in dK/dV); warp w owns rows 16 w .. 16 w + 15, an m16 tile, so its
 //     scores against a 64-row tile are one accumulator fragment in
-//     registers, and the online softmax (forward), P^T and dS^T (dK/dV)
-//     run on it with quad shuffles; the nt = Dh / 8 blocks of 8 columns
-//     in use guard each unrolled block loop, so the accumulators'
-//     indices stay fixed at compile time (in registers) and no block
-//     past Dh is loaded or multiplied; in an EXACT copy nt = NTM is a
-//     constant and the guards fold away (run-time guards made the
-//     forward and dK/dV 1.3-2.2x slower at Dh 64 and 128, and a test
-//     left around each copy of copy_rows 1.1-1.5x);
-//   - the streamed tiles (the forward's K and V; dK/dV's Q and dO with
-//     their LSE and delta rows) come through a 2-stage cp.async ring,
-//     16-byte copies where every row is 16-byte aligned, else 4-byte
-//     ones, zeros past S; the resident tiles (Q; K and V) come the same
-//     way, in the first stage's group;
+//     registers, and the online softmax (forward), P and dS (dQ), P^T and
+//     dS^T (dK/dV) run on it with quad shuffles; the nt = Dh / 8 blocks of
+//     8 columns in use guard each unrolled block loop, so the
+//     accumulators' indices stay fixed at compile time (in registers) and
+//     no block past Dh is loaded or multiplied; in an EXACT copy nt = NTM
+//     is a constant and the guards fold away (run-time guards made the
+//     forward and dK/dV 1.3-2.2x slower at Dh 64 and 128, and a test left
+//     around each copy of copy_rows 1.1-1.5x);
+//   - the streamed tiles (the forward's and dQ's K and V; dK/dV's Q and
+//     dO with their LSE and delta rows) come through a 2-stage cp.async
+//     ring, 16-byte copies where every row is 16-byte aligned, else
+//     4-byte ones, zeros past S; the resident tiles (Q; Q and dO; K and
+//     V) come the same way, in the first stage's group; dQ at Dh <= 64
+//     keeps one stage (69,632 bytes, 165 registers: three CTAs an SM,
+//     whose loads overlap each other's products), which measured 1.33x
+//     faster at the scoring shape than two stages at two CTAs an SM;
 //   - the weights go from the accumulator to the A operand of the next
-//     product (P V; P^T dO and dS^T Q) with no shuffle: an accumulator
-//     holds columns 2t and 2t + 1 of each block of 8, an A fragment
-//     k-indices t and t + 4, so the sum over keys (queries) runs in the
-//     order 2t -> t, 2t + 1 -> t + 4 inside each block of 8 and the B
-//     operand is read from rows 2t and 2t + 1; the forward's Q K^T takes
-//     its sum over Dh in the same order, so a thread's two columns of Q
-//     or K are one 8-byte load;
+//     product (P V; dS K; P^T dO and dS^T Q) with no shuffle
+//     (`split_acc`): the sum over keys (queries) runs in the order
+//     2t -> t, 2t + 1 -> t + 4 inside each block of 8 and the B operand is
+//     read from rows 2t and 2t + 1; the forward's Q K^T takes its sum over
+//     Dh in the same order, so a thread's two columns of Q or K are one
+//     8-byte load;
 //   - row pitches, fixed by NTM, give every fragment read 32 distinct
 //     banks: the forward's Q and K = 8 (mod 32) floats (8-byte loads of
-//     rows g), its V and every dK/dV tile 8 NTM + 4 = 4 (mod 8) (4-byte
-//     loads of rows g, or of rows 2t and 2t + 1);
+//     rows g), its V and every dQ and dK/dV tile 8 NTM + 4 = 4 (mod 8)
+//     (4-byte loads of rows g, or of rows 2t and 2t + 1: dQ's K is read
+//     both ways);
 //   - the forward keeps Q's split fragments in registers across the key
-//     loop at Dh <= 64 and re-reads them from shared memory above;
+//     loop at Dh <= 64 and re-reads them from shared memory above; dQ,
+//     with three accumulators (S, dP, dQ), re-reads Q and dO;
 //   - causal: tiles past the diagonal are never loaded; only the
-//     diagonal and the ragged S tile test elements; dK/dV's query rows
-//     past S carry LSE = +inf, so their weights are 0.
-// Deterministic: one CTA per output tile, every sum in a fixed order, no
-// atomics.
+//     diagonal and the ragged S tile test elements; dQ's and dK/dV's
+//     query rows past S carry LSE = +inf, so their weights are 0.
+// dQ computes delta = rowsum(dO * O) for its 64 rows first, from global
+// memory (a quad of threads per row, each a quarter of the columns),
+// writes it for dK/dV, and keeps its two rows' delta in registers; O is
+// never staged.  Deterministic: one CTA per output tile, every sum in a
+// fixed order, no atomics.
 
 constexpr int TC_THREADS = 128;  // 4 warps of 16 rows
 
@@ -980,34 +812,19 @@ template <int NTM>
 constexpr size_t fwd_tf32x3_smem() {  // Q, then 2 stages of K and of V
   return (size_t)BT * (3 * pitch_qk(8 * NTM) + 2 * (8 * NTM + 4)) * 4;
 }
+// dQ's K / V ring: one stage at Dh <= 64, so three CTAs share an SM
+// (their registers allow it), else two stages
+__host__ __device__ constexpr int dq_stages(int ntm) {
+  return ntm <= 8 ? 1 : 2;
+}
+template <int NTM>
+constexpr size_t dq_tf32x3_smem() {  // Q and dO, then the stages of K, V
+  return (size_t)BT * (2 + 2 * dq_stages(NTM)) * (8 * NTM + 4) * 4;
+}
 template <int NTM>
 constexpr size_t dkv_tf32x3_smem() {
   // K and V, then 2 stages of Q, dO and the LSE and delta rows
   return (size_t)BT * (6 * (8 * NTM + 4) + 4) * 4;
-}
-
-// one cp.async of W (16 or 4) bytes; zeros in place of the source when
-// !ok
-template <int W>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool ok) {
-  if constexpr (W == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "r"(ok ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "r"(ok ? 4 : 0)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // rows row0 .. row0 + 63, columns 0 .. dh - 1, of one (b, h) slice of a
@@ -1042,45 +859,6 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src,
   }
 }
 
-// x = big + small + (below 2^-21 |x|): big is x rounded to TF32,
-// nearest with ties away (cvt.rna.tf32's bit trick without its Inf/NaN
-// guard, 2 instructions for its 4), small = x - big, exact in f32, whose
-// low 13 bits the tensor core drops
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-// d += a b, one m16n8k8 product of TF32 operands
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// d += a b in 3xTF32, a = (ab, as) and b = (bb, bs) split, small terms
-// first
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4],
-                                     const uint32_t (&bb)[2],
-                                     const uint32_t (&bs)[2]) {
-  mma_tf32(d, as, bb[0], bb[1]);
-  mma_tf32(d, ab, bs[0], bs[1]);
-  mma_tf32(d, ab, bb[0], bb[1]);
-}
-// the A fragment of an accumulator block c (rows g, g, g + 8, g + 8 by
-// columns 2t, 2t + 1, 2t, 2t + 1), split: k-index t <- column 2t,
-// t + 4 <- 2t + 1
-__device__ __forceinline__ void split_acc(const float (&c)[4],
-                                          uint32_t (&ab)[4],
-                                          uint32_t (&as)[4]) {
-  split(c[0], ab[0], as[0]);
-  split(c[2], ab[1], as[1]);
-  split(c[1], ab[2], as[2]);
-  split(c[3], ab[3], as[3]);
-}
 // the A fragment of a row-major tile A (pitch P), split: rows r and
 // r + 8, columns c and c + 4
 template <int P>
@@ -1090,20 +868,6 @@ __device__ __forceinline__ void a_frag(const float* A, int r, int c,
   split(A[(r + 8) * P + c], ab[1], as[1]);
   split(A[r * P + c + 4], ab[2], as[2]);
   split(A[(r + 8) * P + c + 4], ab[3], as[3]);
-}
-// the forward's A fragment of Q at k-step kk, split: rows r and r + 8,
-// columns 8 kk + 2t (k-index t) and 8 kk + 2t + 1 (t + 4)
-template <int P>
-__device__ __forceinline__ void q_frag(const float* Qs, int r, int kk, int t,
-                                       uint32_t (&ab)[4], uint32_t (&as)[4]) {
-  const float2 x0 =
-      *reinterpret_cast<const float2*>(Qs + r * P + 8 * kk + 2 * t);
-  const float2 x1 =
-      *reinterpret_cast<const float2*>(Qs + (r + 8) * P + 8 * kk + 2 * t);
-  split(x0.x, ab[0], as[0]);
-  split(x1.x, ab[1], as[1]);
-  split(x0.y, ab[2], as[2]);
-  split(x1.y, ab[3], as[3]);
 }
 // two adjacent outputs: one 8-byte store when `vec`
 __device__ __forceinline__ void put2(float* p, float x, float y, int vec) {
@@ -1183,7 +947,8 @@ fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
       if (j == 0) {
 #pragma unroll
         for (int kk = 0; kk < NTM; ++kk)
-          if (kk < nt) q_frag<PQ>(Qs, r0, kk, t, qb[kk], qs[kk]);
+          if (kk < nt)
+            a_frag_pair<PQ>(Qs, r0, 8 * kk + 2 * t, qb[kk], qs[kk]);
       }
     }
     const float* Kt = Ks + st * BT * PQ;
@@ -1205,7 +970,7 @@ fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
             as[e] = qs[kk][e];
           }
         } else {
-          q_frag<PQ>(Qs, r0, kk, t, ab, as);
+          a_frag_pair<PQ>(Qs, r0, 8 * kk + 2 * t, ab, as);
         }
 #pragma unroll
         for (int n = 0; n < 8; ++n) {  // B = K^T: keys 8 n + g
@@ -1285,6 +1050,172 @@ fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
              vec);
     if (lse != nullptr && t == 0)
       lse[((long long)b * H + h) * S + qp] = (m2[r] + log2f(l)) * LN2;
+  }
+}
+
+template <int NTM, bool EXACT>
+__global__ void __launch_bounds__(TC_THREADS, NTM <= 8 ? 3 : 1)
+dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ o,
+          const float* __restrict__ dout, const float* __restrict__ lse,
+          float* __restrict__ dq, float* __restrict__ delta, Strides sq,
+          Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq,
+          int B, int H, int S, int n_blocks, float scale, int causal,
+          int vec) {
+  constexpr int DHM = 8 * NTM, P = DHM + 4, TILE = BT * P;
+  constexpr int STAGES = dq_stages(NTM);
+  const int nt = EXACT ? NTM : n_blocks, dh = 8 * nt;
+  extern __shared__ float4 smem_tc[];
+  float* Qs = reinterpret_cast<float*>(smem_tc);
+  float* Gs = Qs + TILE;           // dO
+  float* Ks = Gs + TILE;           // STAGES stages
+  float* Vs = Ks + STAGES * TILE;  // STAGES stages
+  const int n_t = (S + BT - 1) / BT;
+  int qt, bh;
+  cta_tile(n_t, B * H, causal, true, qt, bh);
+  const int b = bh / H, h = bh % H, q0 = qt * BT;
+  const int n_kt = key_tiles(q0, S, causal);
+  const long long row_bh = ((long long)b * H + h) * S;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16 + g;  // rows q0 + r0, q0 + r0 + 8
+  const float sl2 = scale * LOG2E;
+
+  copy_rows<DHM, P, EXACT>(Qs, q, sq, b, h, q0, S, dh, vec);
+  copy_rows<DHM, P, EXACT>(Gs, dout, sdo, b, h, q0, S, dh, vec);
+  copy_rows<DHM, P, EXACT>(Ks, k, sk, b, h, 0, S, dh, vec);
+  copy_rows<DHM, P, EXACT>(Vs, v, sv, b, h, 0, S, dh, vec);
+  cp_commit();
+  // while the copies fly: delta = rowsum(dO * O) of rows r0 and r0 + 8
+  // from global memory, the quad's thread t a quarter of the columns, in
+  // a fixed order; LSE in base 2 (rows past S: LSE +inf, so their weights
+  // are 0, and delta 0)
+  float dl[2], l2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = q0 + r0 + 8 * r;
+    float part = 0.f;
+    if (qp < S) {
+      const float* orow = o + b * so.b + (long long)qp * so.s + h * so.h;
+      const float* grow =
+          dout + b * sdo.b + (long long)qp * sdo.s + h * sdo.h;
+      if (vec) {
+#pragma unroll
+        for (int c = 4 * t; c < DHM; c += 16) {
+          if (EXACT || c < dh) {
+            const float4 x = __ldg(reinterpret_cast<const float4*>(grow + c));
+            const float4 y = __ldg(reinterpret_cast<const float4*>(orow + c));
+            part = fmaf(x.x, y.x, part);
+            part = fmaf(x.y, y.y, part);
+            part = fmaf(x.z, y.z, part);
+            part = fmaf(x.w, y.w, part);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int c = t; c < DHM; c += 4)
+          if (EXACT || c < dh)
+            part = fmaf(__ldg(grow + c), __ldg(orow + c), part);
+      }
+    }
+    dl[r] = quad_sum(part);
+    l2[r] = qp < S ? lse[row_bh + qp] * LOG2E : __int_as_float(0x7f800000);
+    if (t == 0 && qp < S) delta[row_bh + qp] = dl[r];
+  }
+  // dQ: rows r0 (+ 8), columns 8 c + 2t (+ 1)
+  float acc[NTM][4];
+#pragma unroll
+  for (int c = 0; c < NTM; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = STAGES == 2 ? j & 1 : 0, k0 = j * BT;
+    if constexpr (STAGES == 2) {
+      if (j + 1 < n_kt) {  // the next K and V into the other stage
+        copy_rows<DHM, P, EXACT>(Ks + (st ^ 1) * TILE, k, sk, b, h, k0 + BT,
+                                 S, dh, vec);
+        copy_rows<DHM, P, EXACT>(Vs + (st ^ 1) * TILE, v, sv, b, h, k0 + BT,
+                                 S, dh, vec);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+    } else {  // one stage: this tile's K and V once the last one is read
+      if (j > 0) {
+        copy_rows<DHM, P, EXACT>(Ks, k, sk, b, h, k0, S, dh, vec);
+        copy_rows<DHM, P, EXACT>(Vs, v, sv, b, h, k0, S, dh, vec);
+        cp_commit();
+      }
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const float* Kt = Ks + st * TILE;
+    const float* Vt = Vs + st * TILE;
+    // S = Q K^T and dP = dO V^T: rows r0 (+ 8), keys 8 n + 2t (+ 1)
+    float sacc[8][4], pacc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = pacc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NTM; ++kk) {
+      if (kk < nt) {
+        uint32_t qb[4], qs[4], gb[4], gs[4];
+        a_frag<P>(Qs, r0, 8 * kk + t, qb, qs);
+        a_frag<P>(Gs, r0, 8 * kk + t, gb, gs);
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {  // B = K^T, V^T: keys 8 n + g
+          const float* kr = Kt + (8 * n + g) * P + 8 * kk + t;
+          const float* vr = Vt + (8 * n + g) * P + 8 * kk + t;
+          uint32_t bb[2], bs[2];
+          split(kr[0], bb[0], bs[0]);
+          split(kr[4], bb[1], bs[1]);
+          mma3(sacc[n], qb, qs, bb, bs);
+          split(vr[0], bb[0], bs[0]);
+          split(vr[4], bb[1], bs[1]);
+          mma3(pacc[n], gb, gs, bb, bs);
+        }
+      }
+    }
+    // P = exp(S scale - LSE), dS = P (dP - delta) scale; the diagonal and
+    // ragged tiles masked
+    const bool diag = causal && j == qt;
+    const bool masked = diag || k0 + BT > S;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kc = 8 * n + 2 * t + (e & 1), qr = r0 + 8 * (e >> 1);
+        float p = fast_exp2(fmaf(sacc[n][e], sl2, -l2[e >> 1]));
+        if (masked && (k0 + kc >= S || (diag && kc > qr))) p = 0.f;
+        pacc[n][e] = p * (pacc[n][e] - dl[e >> 1]) * scale;
+      }
+    // dQ += dS K: the keys of block n in the order 2t -> t, 2t + 1 -> t + 4
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      uint32_t sb[4], ss[4];
+      split_acc(pacc[n], sb, ss);
+      const float* kr = Kt + (8 * n + 2 * t) * P + g;
+#pragma unroll
+      for (int c = 0; c < NTM; ++c) {  // B = K: columns 8 c + g
+        if (c < nt) {
+          uint32_t bb[2], bs[2];
+          split(kr[8 * c], bb[0], bs[0]);
+          split(kr[P + 8 * c], bb[1], bs[1]);
+          mma3(acc[c], sb, ss, bb, bs);
+        }
+      }
+    }
+    __syncthreads();  // this stage is free for tile j + STAGES
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = q0 + r0 + 8 * r;
+    if (qp >= S) continue;
+    float* row = dq + b * sdq.b + (long long)qp * sdq.s + h * sdq.h + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NTM; ++c)
+      if (c < nt) put2(row + 8 * c, acc[c][2 * r], acc[c][2 * r + 1], vec);
   }
 }
 
@@ -1441,8 +1372,6 @@ Strides strides_at(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
 }
 
-size_t dq_smem(int Dh) { return (4 * BT * (Dh + 1) + BT * LDP) * sizeof(float); }
-
 // 16-byte loads: every pointer 16-byte aligned and every stride a
 // multiple of 16 bytes
 int vec_ok(const void* const* ptrs, int n, const long long* st, int elem) {
@@ -1595,11 +1524,18 @@ extern "C" int tp_flash_dq(const void* q, const void* k, const void* v,
   float* dl = static_cast<float*>(delta);
   if (dtype == 0) {
     const void* ptrs[] = {q, k, v, o, dout, dq};
-    return (int)launch(dq_kernel<float>, THREADS, dq_smem(Dh), B, H, S, s,
-                       in<float>(q), in<float>(k), in<float>(v),
-                       in<float>(o), in<float>(dout), l, out<float>(dq), dl,
-                       a, b, c, d, e, f, H, S, Dh, scale, causal,
-                       vec_ok(ptrs, 6, st, 4));
+    const int vec = vec_ok(ptrs, 6, st, 4);
+    auto go = [&](auto kernel, size_t smem) {
+      return (int)launch(kernel, TC_THREADS, smem, B, H, S, s, in<float>(q),
+                         in<float>(k), in<float>(v), in<float>(o),
+                         in<float>(dout), l, out<float>(dq), dl, a, b, c, d,
+                         e, f, B, H, S, Dh / 8, scale, causal, vec);
+    };
+    if (Dh <= 64)
+      return go(Dh == 64 ? dq_tf32x3<8, true> : dq_tf32x3<8, false>,
+                dq_tf32x3_smem<8>());
+    return go(Dh == 128 ? dq_tf32x3<16, true> : dq_tf32x3<16, false>,
+              dq_tf32x3_smem<16>());
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   // dq is stored by TMA: its base and strides must be TMA's (the wrapper
@@ -1694,8 +1630,10 @@ extern "C" int tp_flash_tma_route(const void* const* ptrs,
 }
 
 // Dynamic shared memory of the bf16 forward (kernel 0), dK/dV (1) or dQ
-// (2), or of the f32 forward (3) or dK/dV (4), at Dh.
+// (2), or of the f32 forward (3), dK/dV (4) or dQ (5), at Dh.
 extern "C" long long tp_flash_smem_bytes(int kernel, int Dh) {
+  if (kernel == 5)
+    return (long long)(Dh <= 64 ? dq_tf32x3_smem<8>() : dq_tf32x3_smem<16>());
   if (kernel == 3)
     return (long long)(Dh <= 64 ? fwd_tf32x3_smem<8>() : fwd_tf32x3_smem<16>());
   if (kernel == 4)

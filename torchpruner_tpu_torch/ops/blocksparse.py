@@ -23,7 +23,9 @@ How a call runs is its launch plan, a function of the shapes alone
 block that is a multiple of 64 takes the wgmma body (TMA ring, tiles of
 128 rows by 64-192 columns gathered through the keep lists, dW's rows
 split over a thread-block cluster and summed in rank order), bf16 on an
-odd multiple of 32 the earlier wmma body, f32 the FMA body.
+odd multiple of 32 the earlier wmma body, f32 the 3xTF32 body (three
+TF32 ``mma.sync`` products a product, f32-accurate; a cp.async ring,
+dW's rows split over a cluster the same way).
 
 :func:`blocksparse_matmul` wraps them in a ``torch.autograd.Function``
 that mirrors the JAX custom VJP.  CPU tensors run
@@ -167,19 +169,27 @@ def _keep_tuple(keep: Optional[Sequence[int]], n: int) -> Tuple[int, ...]:
 
 
 _MODES = {"fwd": 0, "dx": 1, "dw": 2}
-_BODIES = ("fma", "wmma", "wgmma")
+#: body names by ``tp_bs_plan`` code; 0 is the f32 FMA body of sources
+#: before the 3xTF32 one, which an A/B may still load
+_BODIES = ("fma", "wmma", "wgmma", "tf32x3")
 #: the plan's constants, as in ``csrc/blocksparse_matmul.cu``
 _BK = _CH = 64
 _BM, _SMS, _SMEM_LIMIT, _MAX_STAGES, _MAX_SPLIT = 128, 132, 232448, 8, 8
 _MIN_SPLIT_STEPS, _FIXED_COST = 4, 6 * 256
+#: the 3xTF32 body: contracted elements of a ring stage, ring stages, and
+#: its tiles (rows, columns) in the order the plan tries them
+_TK, _TF_STAGES = 32, 3
+_TF_TILES = ((128, 128), (128, 64), (128, 32))
+_TF_DW_TILES = ((128, 128), (128, 64), (64, 64), (32, 32))
 
 
 @dataclass(frozen=True)
 class BlockSparsePlan:
-    """How a kernel call runs (``tp_bs_plan``): the body (``"fma"`` f32,
-    ``"wmma"`` bf16 on a block that is an odd multiple of 32, ``"wgmma"``
-    bf16 otherwise), its output tile, ring stages, the dW row split over a
-    cluster, CTAs, kept output tiles and dynamic shared-memory bytes."""
+    """How a kernel call runs (``tp_bs_plan``): the body (``"tf32x3"``
+    f32, ``"wmma"`` bf16 on a block that is an odd multiple of 32,
+    ``"wgmma"`` bf16 otherwise), its output tile, ring stages, the dW row
+    split over a cluster, CTAs, kept output tiles and dynamic
+    shared-memory bytes."""
 
     body: str
     tile_m: int
@@ -202,17 +212,40 @@ def _wgmma_smem(bn, stages, n_in, n_out, D, F, block) -> int:
             + _cdiv(D // block + F // block, 16) * 16)
 
 
+def tf_pitches(mode: str, bm: int, bn: int) -> Tuple[int, int]:
+    """Row pitches, in floats, of the 3xTF32 body's A and B tiles at
+    tile (bm, bn): a tile whose rows run along the contraction (fwd / dx
+    A, dx B) at 32 + 8 = 8 (mod 32), read two elements a row at a time;
+    the others (dW A, fwd / dW B) at their width + 4 = 4 (mod 16), read
+    at rows 2t and 2t + 1."""
+    m = _MODES[mode]
+    return (bm + 4 if m == 2 else _TK + 8), (_TK + 8 if m == 1 else bn + 4)
+
+
+def tf_stage_floats(mode: str, bm: int, bn: int) -> int:
+    """Floats of one ring stage of the 3xTF32 body: A (32 x bm for dW,
+    else bm x 32), then B (bn x 32 for dx, else 32 x bn), at
+    :func:`tf_pitches`."""
+    m = _MODES[mode]
+    pa, pb = tf_pitches(mode, bm, bn)
+    return (_TK if m == 2 else bm) * pa + (bn if m == 1 else _TK) * pb
+
+
 def plan(mode: str, R: int, D: int, F: int, block: int, n_in: int,
          n_out: int, dtype=torch.bfloat16) -> BlockSparsePlan:
     """The launch plan of ``mode`` (``"fwd"``, ``"dx"``, ``"dw"``) at
     these shapes: the mirror of the C entry ``tp_bs_plan``, a function of
     its arguments alone.  bf16 on a multiple-of-64 block takes the wgmma
     body: tiles of 128 rows by 64, 128 or 192 columns gathered through
-    the keep lists; the width, and dW's split of R over a cluster of 1,
-    2, 4 or 8 CTAs, minimize rounds of 132 CTAs x (ring stages x (128 +
-    width) + a fixed cost), what the CTAs read from L2; fwd / dx run at
-    most 132 persistent CTAs, dW one cluster per tile; as many ring
-    stages (at most 8) as 227 KB holds."""
+    the keep lists; f32 the 3xTF32 body: tiles of 128 rows by 128, 64 or
+    32 columns (dW: 128 x 128, 128 x 64, 64 x 64 or 32 x 32) inside one
+    block of each gathered axis.  The tile, and dW's split of R over a
+    cluster of 1, 2, 4 or 8 CTAs, minimize rounds of 132 CTAs x (ring
+    stages x (tile rows + width) + a fixed cost), what the CTAs read from
+    L2.  wgmma: fwd / dx run at most 132 persistent CTAs, dW one cluster
+    per kept tile, as many ring stages (at most 8) as 227 KB holds;
+    3xTF32: one CTA (dW: one cluster) per output tile, kept or not, 3
+    ring stages.  bf16 on an odd multiple of 32 takes the wmma body."""
     m = _MODES[mode]
     if not (R >= 1 and block >= 32 and block % 32 == 0 and D >= 1
             and F >= 1 and D % block == 0 and F % block == 0
@@ -221,35 +254,42 @@ def plan(mode: str, R: int, D: int, F: int, block: int, n_in: int,
         raise ValueError(f"no block-sparse body takes {mode} R {R} D {D} "
                          f"F {F} block {block} kept {n_in} x {n_out} "
                          f"{dtype}")
+    out_cols = D if m == 1 else F
     f32 = dtype == torch.float32
-    if f32 or block % 64:
-        if m == 2:
-            bm = bn = 64 if f32 and block % 64 == 0 else 32
-        elif f32 and block % 64 == 0:
-            bm = bn = 128 if block % 128 == 0 else 64
-        else:
-            bm, bn = 64, 32
-        rows = D // bm if m == 2 else _cdiv(R, bm)
-        ctas = rows * ((D if m == 1 else F) // bn)
-        return BlockSparsePlan("fma" if f32 else "wmma", bm, bn, 1, 1,
-                               ctas, ctas, 0)
+    if not f32 and block % 64:
+        bm, bn = (32 if m == 2 else 64), 32
+        ctas = (D // bm if m == 2 else _cdiv(R, bm)) * (out_cols // bn)
+        return BlockSparsePlan("wmma", bm, bn, 1, 1, ctas, ctas, 0)
     rows = n_in * block if m == 2 else R
     cols = (n_in if m == 1 else n_out) * block
-    steps = (n_in * block // _BK if m == 0 else
-             n_out * block // _BK if m == 1 else _cdiv(R, _BK))
+    kd = _TK if f32 else _BK
+    steps = (n_in * block // kd if m == 0 else
+             n_out * block // kd if m == 1 else _cdiv(R, kd))
+    if not f32:
+        cand = ((_BM, _CH), (_BM, 2 * _CH), (_BM, 3 * _CH))
+    else:
+        cand = [(bm, bn) for bm, bn in (_TF_DW_TILES if m == 2 else
+                                        _TF_TILES)
+                if block % bn == 0 and (m != 2 or block % bm == 0)]
     best = None
-    for bn in (_CH, 2 * _CH, 3 * _CH):
-        tiles = _cdiv(rows, _BM) * _cdiv(cols, bn)
+    for bm, bn in cand:
+        tiles = _cdiv(rows, bm) * _cdiv(cols, bn)
         s = 1
         while s <= (_MAX_SPLIT if m == 2 else 1):
             if s > 1 and steps < s * _MIN_SPLIT_STEPS:
                 break
             c = _cdiv(tiles * s, _SMS) * (
-                _cdiv(steps, s) * (_BM + bn) + _FIXED_COST)
+                _cdiv(steps, s) * (bm + bn) + _FIXED_COST)
             if best is None or c < best[0]:
-                best = (c, bn, s, tiles)
+                best = (c, bm, bn, s, tiles)
             s *= 2
-    _, bn, split, tiles = best
+    _, bm, bn, split, tiles = best
+    if f32:
+        ctas = ((D // bm if m == 2 else _cdiv(R, bm)) * (out_cols // bn)
+                * split)
+        return BlockSparsePlan("tf32x3", bm, bn, _TF_STAGES, split, ctas,
+                               tiles,
+                               4 * _TF_STAGES * tf_stage_floats(mode, bm, bn))
     if m == 2:
         ctas = tiles * split
     else:  # the CTAs also write the dropped (64-row, block) units
