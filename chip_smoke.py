@@ -36,7 +36,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    rows only 2-byte aligned (the copy route) and S 1, and f32 rows only
    4-byte aligned (4-byte copies); dQ (with delta) and dK/dV run twice
    must be bit-equal; f32 cases at Dh 128 and 72 (the 128-wide copies
-   of the f32 bodies, exact and guarded); the bodies that ran, as the
+   of the f32 bodies, exact and guarded); a ViT-B/16 scoring batch (f32,
+   B 64, S 197, H 12, Dh 64, not causal); the bodies that ran, as the
    profiler names them, must be the dtype's (f32: ``fwd_tf32x3`` /
    ``dq_tf32x3`` / ``dkv_tf32x3``, bf16 the three ``*_wgmma``) and are
    printed with the route;
@@ -84,6 +85,25 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 13. GatedDense: 3 masked block-sparse mfu_llama steps (phase 9's set-up,
     every ``block{i}_ffn/gate`` half dropped at granularity 128), so
     ``wg`` / ``wu`` and the down projection go through the kernels.
+
+14. Shapley on the MLP: ``--preset mnist_mlp_shapley`` in process at
+    full width (784-2024-2024-10 on ``mnist_flat``'s synthetic fallback,
+    sv_samples 5, 1000 scoring examples, one fine-tune epoch a target);
+    2 records with finite losses, each dropping exactly the units its own
+    scores put below 0; one ``fc2`` batch of Shapley rows (the fast path)
+    on the card equal to the CPU's for the same batch and permutations
+    within 1e-5 x the batch's loss; the scoring wall a target and a unit
+    step.
+15. Shapley on ViT-B/16 at full width and depth: the
+    ``vit_head_mlp_shapley`` recipe cut to its 12 head targets
+    (``target_filter=("_attn/",)``), 64 scoring examples, synthetic
+    ImageNet injected (train 256, test 512); 12 records with finite
+    losses and at most 12 heads each, drops exactly the negative scores,
+    flash forward launches > 0; ``block1_attn/attn``'s scores through the
+    kernel equal to those through the plain version within 1e-5 x the
+    batch's loss; one masking-path unit step of ``block12_mlp/fc1`` at
+    5 x 64 rows timed, and the full preset's scoring time estimated from
+    it (12 head targets + 12 x 3072 MLP unit steps a scoring batch).
 
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -437,7 +457,10 @@ def cli_phase() -> dict:
 #: tile — and the bf16 kernels where they break: a ragged causal S, a Dh
 #: that is not a multiple of 16, q/k/v as views of one fused (B, S, 3, H,
 #: Dh) tensor (TMA route), rows only 2-byte aligned (the copy route), S 1;
-#: and the f32 kernels' 4-byte copies (rows only 4-byte aligned)
+#: the f32 kernels' 4-byte copies (rows only 4-byte aligned); and a
+#: ViT-B/16 scoring batch (B 64, S 197 = 196 patches + CLS; phase 15's
+#: Shapley unit steps run 5 such copies at once), the f32 forward's ragged
+#: non-causal S on a main path
 FLASH_CASES = (
     ("scoring", 128, 128, 12, 64, "float32", False),
     ("retrain", 32, 128, 12, 64, "bfloat16", False),
@@ -451,6 +474,7 @@ FLASH_CASES = (
     ("unaligned_f32", 2, 256, 8, 64, "float32", True, "offset"),
     ("dh128_f32", 4, 512, 8, 128, "float32", False),
     ("dh72_f32", 4, 256, 8, 72, "float32", True),
+    ("vit_scoring", 64, 197, 12, 64, "float32", False),
 )
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 BS_KERNELS = ("blocksparse_fwd", "blocksparse_dx", "blocksparse_dw")
@@ -512,17 +536,23 @@ def flash_bodies(calls) -> dict:
 
     from torchpruner_tpu_torch.experiments.prune_trace import _group
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn in calls.values():
-            fn()
-        torch.cuda.synchronize()
-    ran = {kernel: set() for kernel in calls}
-    seen = set()
-    for e in prof.events():
-        seen.add(e.name)
-        if _group(e.name) in ran:
-            m = re.search(r"(\w+(?:<[^()]*>)?)\(", e.name)
-            ran[_group(e.name)].add(m.group(1) if m else e.name)
+    # a session that lost the kernel events (the profiler on the H100
+    # can, PERF.md section 7) is asked again, at most three times; the
+    # first session that sees the kernels decides
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in calls.values():
+                fn()
+            torch.cuda.synchronize()
+        ran = {kernel: set() for kernel in calls}
+        seen = set()
+        for e in prof.events():
+            seen.add(e.name)
+            if _group(e.name) in ran:
+                m = re.search(r"(\w+(?:<[^()]*>)?)\(", e.name)
+                ran[_group(e.name)].add(m.group(1) if m else e.name)
+        if any(ran.values()):
+            break
     for kernel, names in ran.items():
         if len(names) != 1:
             fail(f"flash {kernel}: the profiler saw kernels "
@@ -1249,6 +1279,283 @@ def gated_phase(dev) -> dict:
     return out
 
 
+# -- phases 14-15 -----------------------------------------------------------
+
+
+def _shapley_watch():
+    """While open: every Shapley scoring request (target, scores, wall to
+    the card's end, batches scored) and every structural prune (target,
+    units dropped) of the prune loop."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from torchpruner_tpu_torch.attributions.shapley import (
+        ShapleyAttributionMetric as SM,
+    )
+    from torchpruner_tpu_torch.experiments import prune_retrain as PR
+
+    seen = {"scored": [], "dropped": []}
+    orig_prune = PR.prune
+
+    def run(self, layer, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = super(SM, self).run(layer, **kw)
+        torch.cuda.synchronize()
+        seen["scored"].append({
+            "layer": layer, "scores": np.asarray(scores),
+            "wall_s": time.perf_counter() - t0,
+            "batches": sum(1 for _ in self.batches())})
+        return scores
+
+    def prune(model, params, layer, drop, **kw):
+        seen["dropped"].append((layer, np.asarray(drop)))
+        return orig_prune(model, params, layer, drop, **kw)
+
+    @contextlib.contextmanager
+    def ctx():
+        SM.run, PR.prune = run, prune
+        try:
+            yield seen
+        finally:
+            del SM.run
+            PR.prune = orig_prune
+
+    return ctx()
+
+
+def _negative_drops(seen, what) -> list:
+    """Each record's drops must be exactly the units its own scores put
+    below 0 (the ``negative`` policy, which keeps a layer's first unit
+    when every score is negative); the per-target scoring walls."""
+    import numpy as np
+
+    if len(seen["scored"]) != len(seen["dropped"]):
+        fail(f"{what}: {len(seen['scored'])} scorings, "
+             f"{len(seen['dropped'])} prunes")
+    out = []
+    for s, (layer, drop) in zip(seen["scored"], seen["dropped"]):
+        want = np.flatnonzero(s["scores"] < 0)[:len(s["scores"]) - 1]
+        if layer != s["layer"] or not np.array_equal(np.sort(drop), want):
+            fail(f"{what} {layer}: dropped {drop.tolist()[:16]}..., the "
+                 f"scores below 0 are {want.tolist()[:16]}...")
+        n = len(s["scores"])
+        out.append({"layer": layer, "units": n, "dropped": len(drop),
+                    "batches": s["batches"], "score_wall_s": s["wall_s"],
+                    "unit_step_ms": s["wall_s"] * 1e3 / (n * s["batches"])})
+    return out
+
+
+def mlp_shapley_phase(dev) -> dict:
+    """``--preset mnist_mlp_shapley`` at full width, in process; then one
+    ``fc2`` batch of Shapley rows on the card against the CPU's."""
+    import torch
+
+    from torchpruner_tpu_torch.attributions.shapley import (
+        ShapleyAttributionMetric,
+        shapley_rows_fn,
+    )
+    from torchpruner_tpu_torch.core.segment import init_model
+    from torchpruner_tpu_torch.data import load_dataset
+    from torchpruner_tpu_torch.experiments.presets import (
+        MODEL_REGISTRY,
+        get_preset,
+    )
+    from torchpruner_tpu_torch.train.loop import to_device
+    from torchpruner_tpu_torch.utils.losses import cross_entropy_loss
+
+    cfg = get_preset("mnist_mlp_shapley")
+    n_before = len(_csv_rows(cfg.log_path))
+    t0 = time.perf_counter()
+    with _shapley_watch() as seen:
+        text = _cli(["--preset", "mnist_mlp_shapley"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = _csv_rows(cfg.log_path)[n_before:]
+    if len(rows) != 2 or json.loads(
+            text.strip().splitlines()[-1]).get("steps") != 2:
+        fail(f"mlp shapley: {len(rows)} records")
+    for r in rows:
+        losses = [float(r[k]) for k in ("test_loss", "test_loss_pp")]
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"mlp shapley {r['layer']}: losses {losses}")
+    targets = _negative_drops(seen, "mlp shapley")
+    # one fc2 batch (its shifted site act2, the 2024 -> 10 suffix) from
+    # the initial weights, on the card and on the CPU, same permutations
+    model = MODEL_REGISTRY[cfg.model][0]()
+    params, _ = init_model(model, seed=cfg.seed, device=dev)
+    cpu_params = {k: {n: t.cpu() for n, t in p.items()}
+                  for k, p in params.items()}
+    ds = load_dataset(cfg.dataset, "val", n=cfg.score_examples,
+                      seed=cfg.seed)
+    x, y = (to_device(a, dev) for a in
+            ds.batches(cfg.eval_batch_size)[0])
+    metric = ShapleyAttributionMetric(model, params, [], cross_entropy_loss,
+                                      seed=cfg.seed, **cfg.method_kwargs)
+    perms = metric._draw_perms(metric.n_units("act2"),
+                               metric.sv_samples).to(dev)
+    fn = shapley_rows_fn(model, "act2", cross_entropy_loss, True)
+    with torch.no_grad():
+        base = float(cross_entropy_loss(model.apply(params, x)[0], y).mean())
+    card = fn(params, {}, x, y, perms).cpu()
+    want = fn(cpu_params, {}, x.cpu(), y.cpu(), perms.cpu())
+    atol = 1e-5 * base
+    err = float((card - want).abs().max())
+    if not (err <= atol and bool(torch.isfinite(card).all())):
+        fail(f"mlp shapley fc2: card rows differ from the CPU's by {err} "
+             f"> {atol}")
+    held = {"rows": list(card.shape), "max_abs_err": err, "atol": atol,
+            "base_loss": base}
+    out = {"records": len(rows), "wall_s": wall, "targets": targets,
+           "post_losses": [float(r["test_loss_pp"]) for r in rows],
+           "fc2_rows_card_vs_cpu": held}
+    log(f"mlp shapley: {json.dumps(out)}")
+    return out
+
+
+def vit_shapley_phase(dev) -> dict:
+    """The ``vit_head_mlp_shapley`` recipe on ViT-B/16 at full width and
+    depth, cut to its 12 head targets and 64 scoring examples; one head
+    target's scores through the flash kernel against the plain version;
+    one masking-path unit step of ``block12_mlp/fc1`` timed."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from torchpruner_tpu_torch.attributions.shapley import (
+        ShapleyAttributionMetric,
+    )
+    from torchpruner_tpu_torch.core.segment import init_model
+    from torchpruner_tpu_torch.data import load_dataset
+    from torchpruner_tpu_torch.experiments.presets import (
+        MODEL_REGISTRY,
+        get_preset,
+    )
+    from torchpruner_tpu_torch.experiments.prune_retrain import (
+        run_prune_retrain,
+    )
+    from torchpruner_tpu_torch.ops import flash_attention as FA
+    from torchpruner_tpu_torch.train.loop import to_device
+    from torchpruner_tpu_torch.utils.losses import cross_entropy_loss
+
+    preset = get_preset("vit_head_mlp_shapley")
+    reduced = {"target_filter": ("_attn/",), "score_examples": 64,
+               "train_examples": 256, "test_examples": 512}
+    cfg = dataclasses.replace(preset, target_filter=("_attn/",),
+                              score_examples=64,
+                              log_path="logs/chip_smoke_vit.csv")
+    t0 = time.perf_counter()
+    datasets = tuple(load_dataset(cfg.dataset, split, n=n, seed=cfg.seed)
+                     for split, n in (("train", 256),
+                                      ("val", cfg.score_examples),
+                                      ("test", 512)))
+    data_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    with _shapley_watch() as seen:
+        hist = run_prune_retrain(cfg, datasets=datasets, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_launches()
+    model = MODEL_REGISTRY[cfg.model][0]()
+    depth = sum(1 for spec in model.layers if spec.name.endswith("_attn"))
+    n_heads = model.layer("block1_attn/attn").num_heads
+    if len(hist) != depth:
+        fail(f"vit shapley: {len(hist)} records, not {depth}")
+    for r in hist:
+        heads = [r.widths[f"block{i}_attn/attn"]
+                 for i in range(1, depth + 1)]
+        if not (all(math.isfinite(v) for v in (r.pre_loss, r.post_loss))
+                and max(heads) <= n_heads):
+            fail(f"vit shapley {r.layer}: losses {r.pre_loss} / "
+                 f"{r.post_loss}, heads {heads}")
+    if launches["flash_fwd"] <= 0:
+        fail(f"vit shapley never launched the flash forward: {launches}")
+    targets = _negative_drops(seen, "vit shapley")
+    # one head target from the initial weights, through the kernel and
+    # through the plain version (which must launch nothing)
+    params, _ = init_model(model, seed=cfg.seed, device=dev)
+    val = datasets[1].batches(cfg.eval_batch_size)
+    x, y = (to_device(a, dev) for a in val[0])
+    with torch.no_grad():
+        base = float(cross_entropy_loss(model.apply(params, x)[0], y).mean())
+    site = "block1_attn/attn"
+
+    def scores():
+        return ShapleyAttributionMetric(
+            model, params, val, cross_entropy_loss, seed=cfg.seed,
+            **cfg.method_kwargs).run(site)
+
+    @contextlib.contextmanager
+    def plain_flash():
+        orig = FA.flash_attention
+        FA.flash_attention = lambda q, k, v, causal=False: \
+            FA.flash_attention_plain(q, k, v, causal=causal)
+        try:
+            yield
+        finally:
+            FA.flash_attention = orig
+
+    n0 = FA.flash_fwd.launches
+    kernel = scores()
+    n1 = FA.flash_fwd.launches
+    with plain_flash():
+        plain = scores()
+    if n1 == n0 or FA.flash_fwd.launches != n1:
+        fail(f"vit shapley: flash forward launches {n0} -> {n1} -> "
+             f"{FA.flash_fwd.launches} (kernel run, then plain run)")
+    # within atol, a unit's sign may differ only where |score| < atol
+    atol = 1e-5 * base
+    err = float(abs(kernel - plain).max())
+    if not err <= atol:
+        fail(f"vit shapley {site}: kernel vs plain scores differ by {err} "
+             f"> {atol}")
+    # one masking-path unit step of the last block's fc1 at 5 x 64 rows
+    S = cfg.method_kwargs["sv_samples"]
+    mlp_site = f"block{depth}_mlp/fc1"
+    mlp_n = model.layer(mlp_site).features
+    xs, ys = x.repeat(S, 1, 1, 1), y.repeat(S)
+    mask = torch.ones((S * x.shape[0], mlp_n), device=dev)
+    mask[:, ::2] = 0
+
+    @torch.no_grad()
+    def step(i):
+        preds, _ = model.apply(params, xs, unit_mask=(mlp_site, mask))
+        return cross_entropy_loss(preds, ys)
+
+    step_ms = event_ms(step, 3)
+    head_s = sorted(t["score_wall_s"] for t in targets)[len(targets) // 2]
+    per_batch_s = depth * head_s + depth * mlp_n * step_ms / 1e3
+    batches = math.ceil(preset.score_examples / x.shape[0])
+    out = {"model": cfg.model, "reduced": reduced, "records": len(hist),
+           "wall_s": wall, "data_s": data_s, "launches": launches,
+           "targets": targets,
+           "post_losses": [r.post_loss for r in hist],
+           "heads": {r.layer: r.widths[r.layer] for r in hist},
+           "kernel_vs_plain": {"site": site, "max_abs_err": err,
+                               "atol": atol, "base_loss": base},
+           "mlp_unit_step_ms": step_ms, "mlp_site": mlp_site,
+           "rows": S * x.shape[0],
+           "head_target_median_s": head_s,
+           "full_preset_estimate": {
+               "per_scoring_batch_s": per_batch_s,
+               "scoring_batches": batches,
+               "scoring_s": per_batch_s * batches,
+               "what": f"{depth} head targets + {depth} x {mlp_n} MLP "
+                       f"unit steps a scoring batch of {x.shape[0]} "
+                       f"examples ({S} x {x.shape[0]} rows), times the "
+                       f"batches of {x.shape[0]} in the preset's "
+                       f"{preset.score_examples} examples; evaluation "
+                       f"and surgery not counted"}}
+    log(f"vit shapley: {json.dumps(out)}")
+    del model, params, datasets, xs, mask
+    torch.cuda.empty_cache()
+    return out
+
+
 def per_step(cases, key, weight):
     return sum(c[key] * weight(c) for c in cases)
 
@@ -1273,6 +1580,9 @@ def prefill_sums(dq) -> dict:
 
 def main() -> int:
     sys.path.insert(0, HERE)
+    # keep CUPTI set up between profiler sessions: torn down, later
+    # sessions in the process can come back without kernel events
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     try:
         import torch
 
@@ -1331,6 +1641,11 @@ def main() -> int:
     sim = simulate_phase(dev, pr)
     log("phase 13: mfu_llama GatedDense through the block-sparse kernels")
     gd = gated_phase(dev)
+    log("phase 14: --preset mnist_mlp_shapley, 784-2024-2024-10")
+    mlp = mlp_shapley_phase(dev)
+    log("phase 15: vit_head_mlp_shapley recipe, ViT-B/16 full width and "
+        "depth")
+    vit = vit_shapley_phase(dev)
 
     # per-kernel line: the work of one full-depth 8B int4 decode step at
     # 4 slots (sum over that step's calls), every case beside it
@@ -1369,6 +1684,7 @@ def main() -> int:
             "cases": cases,
         })
     score = next(c for c in fl if c["label"] == "scoring")
+    vit_case = next(c for c in fl if c["label"] == "vit_scoring")
     outputs = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",),
                "flash_dkv": ("dk", "dv")}
     for name, src_line in zip(FLASH_KERNELS, (104, 223, 279)):
@@ -1400,13 +1716,26 @@ def main() -> int:
             "bound_fma_ms": score["bound_fma"][name][0],
             "launches_retrain": rt["launches"][name],
             "launches_causal": ca["launches"][name],
+            # a ViT-B/16 scoring batch (B 64, S 197, H 12, Dh 64, f32, not
+            # causal); launches: phase 15's run
+            "vit_scoring": {
+                "ms": vit_case["ms"][name],
+                "bound_ms": vit_case["bound"][name][0],
+                "bound_by": vit_case["bound"][name][1],
+                "bound_fma_ms": vit_case["bound_fma"][name][0],
+                "plain_ms": vit_case["plain_fwd_ms"] if name == "flash_fwd"
+                else vit_case["plain_bwd_ms"],
+                "library_ms": vit_case["library_fwd_ms"]
+                if name == "flash_fwd" else vit_case["library_bwd_ms"],
+                "launches": vit["launches"][name]},
             # the bf16 training shapes (the wgmma forward and dK/dV)
             "bf16": {c["label"]: {
                 "ms": c["ms"][name], "bound_ms": c["bound"][name][0],
                 "library_ms": c["library_fwd_ms"] if name == "flash_fwd"
                 else c["library_bwd_ms"]}
                 for c in fl if c["dtype"] == "bfloat16"},
-            **({"cases": fl} if name == "flash_fwd" else {}),
+            **({"cases": fl, "vit_shapley": vit, "mlp_shapley": mlp}
+               if name == "flash_fwd" else {}),
         })
     path = next(c for c in bs if c["label"] == "fc1"
                 and c["dtype"] == "bfloat16")

@@ -12,8 +12,10 @@ into the port with ``convert.params_from_numpy``:
 - one sgd-with-momentum step and one adam step against optax;
 - the token datasets, bit for bit;
 - the whole loop: ``run_prune_retrain`` on ``bert_glue_sensitivity
-  --smoke``, as shipped and with one fine-tune epoch, the port's init
-  monkeypatched to the JAX init weights.
+  --smoke`` (as shipped and with one fine-tune epoch),
+  ``llama3_ffn_taylor``, ``mnist_mlp_shapley`` and
+  ``vit_head_mlp_shapley --smoke``, the port's init monkeypatched to the
+  JAX init weights and its Shapley permutations to the JAX ones.
 
 Tolerances: f32 forwards, losses and gradients agree to rtol 1e-5 of the
 output scale (the same math, sums in other orders).  Scores agree to
@@ -264,9 +266,9 @@ def test_preset_table_matches_jax():
     cfg = PPS.get_preset("llama3_ffn_taylor")
     with pytest.raises(NotImplementedError, match="mesh"):
         PPR.run_prune_retrain(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="shapley"):
-        PPR.run_prune_retrain(PPS.get_preset("mnist_mlp_shapley", True),
-                              device="cpu")
+    with pytest.raises(NotImplementedError, match="experiment"):
+        PPR.run_prune_retrain(
+            PPS.get_preset("vgg16_digits32_layerwise", True), device="cpu")
     smoke = PPS.get_preset("bert_glue_sensitivity", True)
     for field, value in (("remat", True), ("accum_steps", 2),
                          ("run_dir", "x")):
@@ -275,24 +277,52 @@ def test_preset_table_matches_jax():
                                   device="cpu")
 
 
-@pytest.mark.parametrize("finetune", [0, 1])
-def test_prune_retrain_loop_matches_jax(finetune, tmp_path, monkeypatch):
-    cfg_j = JPS.get_preset("bert_glue_sensitivity", smoke=True)
-    cfg_j = dataclasses.replace(cfg_j, finetune_epochs=finetune,
+#: (preset, fine-tune epochs; None = the preset's own), all --smoke; the
+#: two BERT cases keep the ids they had when the test held only BERT
+LOOP_CASES = [
+    pytest.param("bert_glue_sensitivity", 0, id="0"),
+    pytest.param("bert_glue_sensitivity", 1, id="1"),
+    pytest.param("llama3_ffn_taylor", None, id="llama3_ffn_taylor"),
+    pytest.param("mnist_mlp_shapley", None, id="mnist_mlp_shapley"),
+    pytest.param("vit_head_mlp_shapley", None, id="vit_head_mlp_shapley"),
+]
+
+
+def jax_perms(seed, calls, n, S):
+    """The permutations the JAX Shapley metric draws on its
+    ``calls``-th request."""
+    m = JA.ShapleyAttributionMetric(None, None, None, None, seed=seed)
+    m._calls = calls - 1
+    return torch.from_numpy(np.array(m._draw_perms(n, S)))
+
+
+@pytest.mark.parametrize("preset,finetune", LOOP_CASES)
+def test_prune_retrain_loop_matches_jax(preset, finetune, tmp_path,
+                                        monkeypatch):
+    """The port's loop from the JAX initial weights (and, for Shapley,
+    the JAX permutations) against the JAX loop: layers, widths, units
+    dropped, params, and pre/post losses and accuracies to 1e-4."""
+    over = {} if finetune is None else {"finetune_epochs": finetune}
+    cfg_j = dataclasses.replace(JPS.get_preset(preset, smoke=True), **over,
                                 log_path=str(tmp_path / "j.csv"))
-    cfg_p = PPS.get_preset("bert_glue_sensitivity", smoke=True)
-    cfg_p = dataclasses.replace(cfg_p, finetune_epochs=finetune,
+    cfg_p = dataclasses.replace(PPS.get_preset(preset, smoke=True), **over,
                                 log_path=str(tmp_path / "p.csv"))
     j_hist = JPR.run_prune_retrain(cfg_j, verbose=False)
+    j_model = JPR.MODEL_REGISTRY[cfg_j.model][0]
 
     def jax_init(model, seed=0, dtype=torch.float32, device=None):
-        jparams, _ = j_init_model(j_bert_tiny(), seed=seed)
+        jparams, _ = j_init_model(j_model(), seed=seed)
         return params_from_numpy(numpy_tree(jparams), device=device), {}
 
+    def draw(self, n, S):
+        self._calls += 1
+        return jax_perms(self.seed, self._calls, n, S)
+
     monkeypatch.setattr(PS, "init_model", jax_init)
+    monkeypatch.setattr(PA.ShapleyAttributionMetric, "_draw_perms", draw)
     p_hist = PPR.run_prune_retrain(cfg_p, verbose=False, device="cpu")
     assert [r.layer for r in p_hist] == [r.layer for r in j_hist]
-    assert len(p_hist) == 2
+    assert len(p_hist) == {"vit_head_mlp_shapley": 4}.get(preset, 2)
     for p, j in zip(p_hist, j_hist):
         assert p.widths == j.widths and p.n_dropped == j.n_dropped
         assert p.n_params == j.n_params

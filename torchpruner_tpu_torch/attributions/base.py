@@ -91,6 +91,10 @@ class AttributionMetric:
         raise NotImplementedError(
             f"{type(self).__name__} does not implement make_row_fn")
 
+    def n_units(self, eval_layer: str) -> int:
+        """Units at the evaluation site (its unit axis is last)."""
+        return self.model.site_shape(eval_layer)[-1]
+
     def aggregate_over_samples(self, rows: np.ndarray) -> np.ndarray:
         if self.reduction == "mean":
             return np.mean(rows, 0)
@@ -137,6 +141,13 @@ def needs_taps(model: SegmentedModel, eval_layer: str) -> bool:
     if len(L.parse_path(eval_layer)) > 1:
         return True
     return isinstance(model.layer(eval_layer), L.MultiHeadAttention)
+
+
+def cpu_generator(seed: int, calls: int) -> torch.Generator:
+    """A CPU ``torch.Generator`` seeded from ``(seed, calls)``: a metric's
+    random draws are the same whatever device it scores on."""
+    state = np.random.SeedSequence([int(seed), int(calls)]).generate_state(1)
+    return torch.Generator(device="cpu").manual_seed(int(state[0]))
 
 
 def param_at(params, layer: str):

@@ -10,7 +10,11 @@ composite blocks:
   producer whose output reaches the residual sum has its width pinned by
   the skip connection and is excluded;
 - attention heads and GLU channels form groups whose surgery stays
-  inside the layer/block, so they are always prunable.
+  inside the layer/block, so they are always prunable;
+- a ``Reshape`` that folds channels, and a ``ClsToken`` or ``PosEmbed``
+  (whose params share the producer's width but are not sliced with
+  it), end a producer's unit identity: the ViT patchify conv forms no
+  group.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ SHIFTABLE_ACTIVATIONS = frozenset(
 
 #: width-changing prunable producers (attention heads leave the layer's
 #: output width unchanged)
-_CHANNEL_PRODUCERS = (L.Dense, L.GatedDense)
+_CHANNEL_PRODUCERS = (L.Dense, L.Conv, L.GatedDense)
 _NORMS = (L.LayerNorm, L.RMSNorm)
 
 
@@ -64,7 +68,7 @@ def pruning_graph(model: SegmentedModel, include_output: bool = False
     composite blocks.  ``include_output=False`` drops the final
     top-level group (the classifier head is never pruned)."""
     groups: List[PruneGroup] = []
-    open_group = _walk(model.layers, (), groups)
+    open_group = _walk(model.layers, (), tuple(model.input_shape), groups)
     if include_output and open_group is not None:
         groups.append(_close(open_group))
     return tuple(groups)
@@ -88,6 +92,8 @@ def _consumer_entries(spec: L.LayerSpec, path: str, fan_out: int):
     ``out_features=None``): the producer is then width-pinned."""
     if isinstance(spec, L.Dense):
         return [Consumer(path, "w", axis=0, fan_out=fan_out)]
+    if isinstance(spec, L.Conv):  # HWIO: the in-channel axis
+        return [Consumer(path, "w", axis=2, fan_out=fan_out)]
     if isinstance(spec, L.GatedDense):
         return [Consumer(path, "wg", axis=0, fan_out=fan_out),
                 Consumer(path, "wu", axis=0, fan_out=fan_out)]
@@ -99,12 +105,13 @@ def _consumer_entries(spec: L.LayerSpec, path: str, fan_out: int):
     raise TypeError(f"{type(spec).__name__} cannot consume")
 
 
-def _walk(layers, prefix: Tuple[str, ...], groups: List[PruneGroup]
-          ) -> Optional[dict]:
+def _walk(layers, prefix: Tuple[str, ...], in_shape: Tuple[int, ...],
+          groups: List[PruneGroup]) -> Optional[dict]:
     """Walk one sequential scope; append closed groups to ``groups``;
     return the group still open at scope end, or None."""
     current: Optional[dict] = None
-    for spec in layers:
+    for spec, (i_shape, o_shape) in zip(layers,
+                                        L.seq_shapes(layers, in_shape)):
         path = _join(prefix, spec.name)
         if isinstance(spec, L.MultiHeadAttention):
             if current is not None:
@@ -127,16 +134,19 @@ def _walk(layers, prefix: Tuple[str, ...], groups: List[PruneGroup]
                 groups.append(_close(current))
             # else: the output feeds an identity skip — width pinned
             current = None
-            _walk(spec.body, prefix + (spec.name,), groups)
+            _walk(spec.body, prefix + (spec.name,), i_shape, groups)
             if spec.shortcut:
-                _walk(spec.shortcut, prefix + (spec.name,), groups)
+                _walk(spec.shortcut, prefix + (spec.name,), i_shape, groups)
         elif current is not None:
             if isinstance(spec, _NORMS):
                 current["bn"].append(
                     AttachedNorm(path, fan_out=current["fan_out"]))
             elif isinstance(spec, L.Dropout):
                 current["dropout"].append(path)
-            elif isinstance(spec, (L.Embedding, L.PosEmbed)):
+            elif isinstance(spec, L.Reshape):
+                if o_shape[-1] != i_shape[-1]:
+                    current = None  # channels folded: unit identity lost
+            elif isinstance(spec, (L.Embedding, L.PosEmbed, L.ClsToken)):
                 current = None  # unit identity lost
             # Activation / GlobalPool: transparent for unit identity
     return current

@@ -5,13 +5,16 @@ dataclasses with the same field names, and the same parameter layouts
 (Dense ``w (in, out)``; attention ``wq (d, H, Dh)``, ``wk``/``wv
 (d, KV, Dh)``, ``wo (H, Dh, d_out)``; GatedDense ``wg``/``wu (in,
 features)``; Embedding ``emb (vocab, features)``; PosEmbed ``emb
-(max_len, features)``; norm ``scale``/``bias``).  Parameters are nested
-dicts of tensors, one level per composite block.  The port has no layer
-with mutable state (no BatchNorm yet), so ``state`` passes through as
-the JAX signatures carry it.
+(max_len, features)``; ClsToken ``tok (features,)``; Conv ``w`` HWIO
+``(kh, kw, in, out)``, permuted to OIHW only inside its apply rule;
+norm ``scale``/``bias``).  Parameters are nested dicts of tensors, one
+level per composite block.  The port has no layer with mutable state
+(no BatchNorm yet), so ``state`` passes through as the JAX signatures
+carry it.
 
-Activations are channels-last ``(B, S, d)``.  Two evaluation orders,
-chosen per call by the ``fixed_order`` argument of :func:`apply_layer`:
+Activations are channels-last: ``(B, S, d)`` sequences and ``(B, H, W,
+C)`` images.  Two evaluation orders, chosen per call by the
+``fixed_order`` argument of :func:`apply_layer`:
 
 - ``fixed_order=True`` (the KV-cache path of ``generate`` and
   ``serve``): plain products and row reductions run on fixed-size row
@@ -49,6 +52,20 @@ class Dense:
 
     name: str
     features: int
+    use_bias: bool = True
+
+
+@dataclass(frozen=True)
+class Conv:
+    """2-D convolution, NHWC/HWIO. Prunable (out units = channels).
+    ``padding`` is XLA's: ``"SAME"`` (output ``ceil(in / stride)``, the
+    odd pad row or column at the high end) or ``"VALID"``."""
+
+    name: str
+    features: int
+    kernel_size: Tuple[int, int] = (3, 3)
+    strides: Tuple[int, int] = (1, 1)
+    padding: str = "SAME"
     use_bias: bool = True
 
 
@@ -105,6 +122,15 @@ class GlobalPool:
 
 
 @dataclass(frozen=True)
+class Reshape:
+    """Reshape non-batch dims to ``shape`` (one ``-1`` allowed), e.g. the
+    ViT patch grid to a token sequence ``(B, h, w, C) -> (B, h*w, C)``."""
+
+    name: str
+    shape: Tuple[int, ...]
+
+
+@dataclass(frozen=True)
 class Dropout:
     """Dropout. ``rate`` is the drop probability; rescaled on pruning so
     the expected number of active units is preserved."""
@@ -128,6 +154,14 @@ class PosEmbed:
 
     name: str
     max_len: int
+
+
+@dataclass(frozen=True)
+class ClsToken:
+    """Prepend a learned classification token: ``(B, S, d) -> (B, S+1,
+    d)`` (pair with ``GlobalPool(..., "cls")`` at the head)."""
+
+    name: str
 
 
 @dataclass(frozen=True)
@@ -199,7 +233,7 @@ class Residual:
 
 LayerSpec = Any
 #: can be out-pruned (the JAX package's set, restricted to the port's specs)
-PRUNABLE_TYPES = (Dense, GatedDense, MultiHeadAttention)
+PRUNABLE_TYPES = (Dense, Conv, GatedDense, MultiHeadAttention)
 #: in-pruned alongside a producer
 ATTACHABLE_TYPES = (Dropout, LayerNorm, RMSNorm)
 COMPOSITE_TYPES = (Residual,)
@@ -209,10 +243,37 @@ COMPOSITE_TYPES = (Residual,)
 # ---------------------------------------------------------------------------
 
 
+def _reshape_target(shape: Tuple[int, ...], in_shape: Tuple[int, ...]
+                    ) -> Tuple[int, ...]:
+    size = math.prod(in_shape)
+    if shape.count(-1) > 1:
+        raise ValueError(f"Reshape allows one -1, got {shape}")
+    if -1 in shape:
+        known = math.prod(d for d in shape if d != -1)
+        if size % known:
+            raise ValueError(f"cannot reshape {in_shape} to {shape}")
+        return tuple(size // known if d == -1 else d for d in shape)
+    return tuple(shape)
+
+
+def _conv_out_hw(hw, spec: Conv) -> Tuple[int, int]:
+    (h, w), (sh, sw) = hw, spec.strides
+    if spec.padding == "SAME":
+        return -(-h // sh), -(-w // sw)
+    kh, kw = spec.kernel_size
+    return (h - kh) // sh + 1, (w - kw) // sw + 1
+
+
 def out_shape(spec: LayerSpec, in_shape: Tuple[int, ...]) -> Tuple[int, ...]:
     """Per-layer output shape (batch dim excluded)."""
     if isinstance(spec, (Dense, GatedDense)):
         return tuple(in_shape[:-1]) + (spec.features,)
+    if isinstance(spec, Conv):
+        return _conv_out_hw(in_shape[:2], spec) + (spec.features,)
+    if isinstance(spec, Reshape):
+        return _reshape_target(spec.shape, in_shape)
+    if isinstance(spec, ClsToken):
+        return (in_shape[0] + 1,) + tuple(in_shape[1:])
     if isinstance(spec, Embedding):
         return tuple(in_shape) + (spec.features,)
     if isinstance(spec, GlobalPool):
@@ -264,6 +325,17 @@ def param_shapes(spec: LayerSpec, in_shape: Tuple[int, ...]
         if spec.use_bias:
             out["b"] = (spec.features,)
         return out
+    if isinstance(spec, Conv):
+        if len(in_shape) != 3:
+            raise ValueError(f"Conv {spec.name!r} expects HWC input, got "
+                             f"shape {in_shape}")
+        kh, kw = spec.kernel_size
+        out = {"w": (kh, kw, in_shape[-1], spec.features)}
+        if spec.use_bias:
+            out["b"] = (spec.features,)
+        return out
+    if isinstance(spec, ClsToken):
+        return {"tok": (in_shape[-1],)}
     if isinstance(spec, LayerNorm):
         out = {"scale": (in_shape[-1],)}
         if spec.use_bias:
@@ -307,7 +379,7 @@ def param_shapes(spec: LayerSpec, in_shape: Tuple[int, ...]
                     out[child.name] = p
                 shape = out_shape(child, shape)
         return out
-    if isinstance(spec, (Activation, GlobalPool, Dropout)):
+    if isinstance(spec, (Activation, GlobalPool, Dropout, Reshape)):
         return {}
     raise TypeError(f"unknown layer spec {type(spec)}")
 
@@ -316,10 +388,10 @@ def init_layer(spec: LayerSpec, gen: torch.Generator,
                in_shape: Tuple[int, ...], dtype=torch.float32,
                device=None):
     """Initialize one layer: ``(params, out_shape)``.  The JAX package's
-    scales (Kaiming normal for Dense/GatedDense, ``0.02`` normal
-    embeddings, ``1/sqrt(fan)`` attention), drawn from ``gen`` on the
-    generator's device and moved to ``device`` (``None`` = ``cuda``;
-    raises without a GPU unless ``device="cpu"``)."""
+    scales (Kaiming normal for Dense/GatedDense/Conv, ``0.02`` normal
+    embeddings and CLS token, ``1/sqrt(fan)`` attention), drawn from
+    ``gen`` on the generator's device and moved to ``device`` (``None``
+    = ``cuda``; raises without a GPU unless ``device="cpu"``)."""
     device = resolve_device(device)
 
     def normal(shape, std):
@@ -346,8 +418,10 @@ def init_layer(spec: LayerSpec, gen: torch.Generator,
             params[pname] = torch.ones(shp, dtype=dtype, device=device)
         elif pname.startswith("b"):
             params[pname] = zeros(shp)
-        elif isinstance(spec, (Embedding, PosEmbed)):
+        elif isinstance(spec, (Embedding, PosEmbed, ClsToken)):
             params[pname] = normal(shp, 0.02)
+        elif isinstance(spec, Conv):  # Kaiming normal over kh * kw * in
+            params[pname] = normal(shp, math.sqrt(2.0 / math.prod(shp[:3])))
         elif isinstance(spec, MultiHeadAttention):
             fan = shp[0] if pname != "wo" else shp[0] * shp[1]
             params[pname] = normal(shp, 1.0 / math.sqrt(fan))
@@ -393,9 +467,15 @@ class Taps:
 
     def at_site(self, path: Tuple[str, ...], y: torch.Tensor):
         """Apply mask/perturb and record capture if ``path`` is a tap
-        site.  ``y`` must have the unit axis last."""
+        site.  ``y`` must have the unit axis last.  A unit mask is one
+        ``(n,)`` vector for every row, or one ``(rows, n)`` row per
+        example, broadcast over the site's middle axes."""
         if self.unit_mask is not None and self.unit_mask[0] == path:
-            y = y * self.unit_mask[1]
+            mask = self.unit_mask[1]
+            if mask.ndim == 2:
+                mask = mask.reshape((mask.shape[0],) + (1,) * (y.ndim - 2)
+                                    + (mask.shape[1],))
+            y = y * mask
         if self.perturb is not None and self.perturb[0] == path:
             y = y + self.perturb[1]
         if self.capture == path:
@@ -519,6 +599,14 @@ def apply_layer(spec: LayerSpec, params, state, x: torch.Tensor, *,
         if "b" in params:
             y = y + params["b"]
         return y, state
+    if isinstance(spec, Conv):
+        return _conv(spec, params, x), state
+    if isinstance(spec, Reshape):
+        return x.reshape((x.shape[0],)
+                         + _reshape_target(spec.shape, x.shape[1:])), state
+    if isinstance(spec, ClsToken):
+        tok = params["tok"].to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
+        return torch.cat([tok, x], dim=1), state
     # norms compute in f32 whatever the activation dtype and cast back —
     # the JAX package's mixed-precision policy
     if isinstance(spec, LayerNorm):
@@ -581,6 +669,35 @@ def apply_layer(spec: LayerSpec, params, state, x: torch.Tensor, *,
     raise TypeError(f"unknown layer spec {type(spec)}")
 
 
+def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's ``"SAME"`` padding of one spatial axis, ``(low, high)``: the
+    output is ``ceil(size / stride)`` and an odd total pad puts its extra
+    row at the high end (``padding="same"`` of torch takes no stride)."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _conv(spec: Conv, params, x: torch.Tensor) -> torch.Tensor:
+    """NHWC x HWIO through ``F.conv2d`` (cuDNN on the card): the input
+    viewed as NCHW (channels-last in memory), the weight permuted to
+    OIHW here only, explicit SAME pads."""
+    w = params["w"]
+    dt = torch.promote_types(x.dtype, w.dtype)
+    xc = x.to(dt).permute(0, 3, 1, 2)
+    if spec.padding == "SAME":
+        (h_lo, h_hi), (w_lo, w_hi) = (
+            same_pads(n, k, s) for n, k, s in
+            zip(xc.shape[2:], spec.kernel_size, spec.strides))
+        xc = F.pad(xc, (w_lo, w_hi, h_lo, h_hi))
+    elif spec.padding != "VALID":
+        raise ValueError(f"unknown conv padding {spec.padding!r}")
+    y = F.conv2d(xc, w.to(dt).permute(3, 2, 0, 1), stride=spec.strides)
+    y = y.permute(0, 2, 3, 1)
+    if "b" in params:
+        y = y + params["b"]
+    return y
+
+
 def _attention(spec: MultiHeadAttention, params, x, taps, path,
                fixed_order):
     """The full-sequence attention rule: projections, RoPE, the GQA
@@ -622,7 +739,7 @@ def _attention(spec: MultiHeadAttention, params, x, taps, path,
 
 def n_units(spec: LayerSpec) -> int:
     """Number of prunable output units of a prunable layer."""
-    if isinstance(spec, (Dense, GatedDense)):
+    if isinstance(spec, (Dense, Conv, GatedDense)):
         return spec.features
     if isinstance(spec, MultiHeadAttention):
         return spec.num_heads
@@ -631,7 +748,7 @@ def n_units(spec: LayerSpec) -> int:
 
 def with_features(spec: LayerSpec, features: int) -> LayerSpec:
     """Return a copy of a prunable spec with a new unit count."""
-    if isinstance(spec, (Dense, GatedDense)):
+    if isinstance(spec, (Dense, Conv, GatedDense)):
         return dataclasses.replace(spec, features=features)
     if isinstance(spec, MultiHeadAttention):
         if spec.kv_group is not None:

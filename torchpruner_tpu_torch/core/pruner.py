@@ -39,7 +39,8 @@ class PruneResult:
 
 def plan_for_group(model: SegmentedModel, group: PruneGroup) -> PrunePlan:
     """Resolve a PruneGroup against a model into a concrete plan: the
-    target's out-slices (Dense ``w`` axis 1 / ``b`` axis 0; GatedDense
+    target's out-slices (Dense ``w`` axis 1 / ``b`` axis 0; Conv ``w``
+    axis 3 (HWIO) / ``b`` axis 0; GatedDense
     ``wg``/``wu`` axis 1; attention query heads ``wq`` axis 1, ``wo``
     axis 0, ``bq`` axis 0, plus ``wk``/``wv``/``bk``/``bv`` when KV heads
     match query heads), attached norms (axis 0) and consumer in-slices."""
@@ -49,6 +50,9 @@ def plan_for_group(model: SegmentedModel, group: PruneGroup) -> PrunePlan:
     slices = []
     if isinstance(target, L.Dense):
         slices += [ParamSlice(tpath + ("w",), axis=1),
+                   ParamSlice(tpath + ("b",), axis=0, optional=True)]
+    elif isinstance(target, L.Conv):
+        slices += [ParamSlice(tpath + ("w",), axis=3),
                    ParamSlice(tpath + ("b",), axis=0, optional=True)]
     elif isinstance(target, L.GatedDense):
         slices += [ParamSlice(tpath + ("wg",), axis=1),

@@ -15,14 +15,26 @@ from typing import Callable, Dict, Tuple
 from torchpruner_tpu_torch.models import (
     bert_base,
     bert_tiny,
+    cifar10_fc,
+    digits_fc,
+    digits_fc_tiny,
     llama3_8b,
     llama_tiny,
     mfu_llama,
+    mnist_fc,
+    vit_b16,
+    vit_tiny,
 )
 from torchpruner_tpu_torch.utils.config import ExperimentConfig
 
 #: model name -> (builder, default dataset)
 MODEL_REGISTRY: Dict[str, Tuple[Callable, str]] = {
+    "mnist_fc": (mnist_fc, "mnist_flat"),
+    "cifar10_fc": (cifar10_fc, "cifar10_flat"),
+    "digits_fc": (digits_fc, "digits_flat"),
+    "digits_fc_tiny": (digits_fc_tiny, "digits_flat"),
+    "vit_b16": (vit_b16, "imagenet"),
+    "vit_tiny": (vit_tiny, "tiny_images16"),
     "bert_base": (bert_base, "glue_sst2"),
     "bert_tiny": (bert_tiny, "glue_tiny"),
     "llama3_8b": (llama3_8b, "lm_corpus"),

@@ -16,8 +16,11 @@ import torch
 
 from torchpruner_tpu_torch.attributions import (
     APoZAttributionMetric,
+    RandomAttributionMetric,
     SensitivityAttributionMetric,
+    ShapleyAttributionMetric,
     TaylorAttributionMetric,
+    WeightNormAttributionMetric,
 )
 from torchpruner_tpu_torch.core import layers as L
 from torchpruner_tpu_torch.core.graph import pruning_graph
@@ -43,9 +46,12 @@ from torchpruner_tpu_torch.utils.losses import (
 from torchpruner_tpu_torch.utils.reductions import mean_plus_2std
 
 METRIC_REGISTRY = {
+    "random": RandomAttributionMetric,
+    "weight_norm": WeightNormAttributionMetric,
     "apoz": APoZAttributionMetric,
     "sensitivity": SensitivityAttributionMetric,
     "taylor": TaylorAttributionMetric,
+    "shapley": ShapleyAttributionMetric,
 }
 
 LOSS_REGISTRY = {

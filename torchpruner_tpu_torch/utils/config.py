@@ -247,11 +247,10 @@ class ExperimentConfig:
         if self.accum_steps > 1:
             out.append((f"accum_steps={self.accum_steps}",
                         "ROADMAP A3 (gradient accumulation)"))
-        if self.method == "shapley":
-            out.append(("method='shapley'", "ROADMAP A2 (Shapley)"))
-        elif self.method not in ("apoz", "sensitivity", "taylor"):
+        if self.method not in ("random", "weight_norm", "apoz",
+                               "sensitivity", "taylor", "shapley"):
             out.append((f"method={self.method!r}",
-                        "ROADMAP A2 (weight-only attributions)"))
+                        "ROADMAP A3 (the robustness sweep's 'all')"))
         if self.experiment != "prune_retrain":
             out.append((f"experiment={self.experiment!r}",
                         "ROADMAP A3 (robustness and train experiments)"))
