@@ -104,6 +104,27 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
     batch's loss; one masking-path unit step of ``block12_mlp/fc1`` at
     5 x 64 rows timed, and the full preset's scoring time estimated from
     it (12 head targets + 12 x 3072 MLP unit steps a scoring batch).
+16. The layerwise-robustness sweep at full width:
+    ``vgg16_digits32_layerwise``'s training leg (VGG16-bn, 12 epochs on
+    digits32, Adam, B 128, bf16 with f32 masters) through ``run_train``,
+    test accuracy at least 0.80; then ``layerwise_robustness`` with the
+    8-method ``method_panel`` (14 rankings a layer) on ``conv1``,
+    ``conv13`` and ``fc1``, bf16 scoring over the 300 test examples: every
+    curve ``n_units`` finite entries, the 14 walks of a layer ending
+    within 2**-7 of each other (all units removed, the order no longer
+    matters), 3 distinct random rankings, 1 run of each deterministic
+    method; one batch of f32 Shapley rows at ``fc1`` (from the initial
+    weights, as phase 14) on the card equal to the CPU's within 1e-5 x
+    the batch's loss; each method's scoring
+    time and each layer's walk time, and the full 15-layer sweep
+    estimated from them.
+17. ResNet-50 at full width through the prune loop:
+    ``resnet50_taylor`` cut to its six stage-4 targets, synthetic
+    ImageNet injected (train 256, test 512, the preset's 1000 scoring
+    examples); 6 records at the fraction policy's widths, finite losses,
+    each attached BatchNorm's scale, bias and running statistics sliced
+    with its conv; the stem's 3x3 / 2 SAME max-pool (pads 0 / 1) on the
+    card equal to the CPU's.
 
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -1556,6 +1577,335 @@ def vit_shapley_phase(dev) -> dict:
     return out
 
 
+# -- phases 16-17 -----------------------------------------------------------
+
+#: the layers phase 16 sweeps with the full panel, bracketing the cost:
+#: the longest suffix (a 32x32x64 site), the smallest conv suffix (512
+#: units at 2x2) and the Dense after the Flatten
+VGG_LAYERS = ("conv1", "conv13", "fc1")
+
+
+def all_launches() -> dict:
+    from torchpruner_tpu_torch.ops import decode_attention as DA
+    from torchpruner_tpu_torch.ops import fused_matmul as FM
+
+    return {**flash_launches(), **bs_launches(),
+            "dequant_matmul": FM.dequant_matmul.launches,
+            "decode_attention": DA.decode_attention.launches}
+
+
+def suffix_flops(model, site: str) -> float:
+    """Multiply-add FLOPs per example of the forward after ``site``
+    (convs and Dense layers; the elementwise layers not counted)."""
+    from torchpruner_tpu_torch.core import layers as L
+
+    flops = 0.0
+    for spec, (i_shape, o_shape) in zip(model.layers[model.index(site) + 1:],
+                                        model.shapes[model.index(site) + 1:]):
+        if isinstance(spec, L.Conv):
+            kh, kw = spec.kernel_size
+            flops += 2.0 * math.prod(o_shape) * kh * kw * i_shape[-1]
+        elif isinstance(spec, L.Dense):
+            flops += 2.0 * i_shape[-1] * spec.features
+    return flops
+
+
+def vgg_sweep_phase(dev) -> dict:
+    """``vgg16_digits32_layerwise`` at full width: train VGG16-bn (12
+    epochs, bf16, Adam, B 128) on digits32, then the 8-method panel (14
+    rankings a layer) on conv1, conv13 and fc1 over the 300 test
+    examples; one batch of f32 Shapley rows at fc1 (initial weights) on
+    the card against the CPU's; the full 15-layer sweep estimated from
+    the three."""
+    import numpy as np
+    import torch
+
+    from torchpruner_tpu_torch.attributions.shapley import (
+        ShapleyAttributionMetric,
+        shapley_rows_fn,
+    )
+    from torchpruner_tpu_torch.core import layers as L
+    from torchpruner_tpu_torch.core.graph import (
+        find_best_evaluation_layer,
+        pruning_graph,
+    )
+    from torchpruner_tpu_torch.core.segment import init_model
+    from torchpruner_tpu_torch.experiments import robustness as R
+    from torchpruner_tpu_torch.experiments.presets import get_preset
+    from torchpruner_tpu_torch.experiments.prune_retrain import (
+        LOSS_REGISTRY,
+        compute_dtype,
+        resolve_model_and_data,
+    )
+    from torchpruner_tpu_torch.experiments.train_model import run_train
+    from torchpruner_tpu_torch.train.loop import to_device
+
+    cfg = dataclasses.replace(get_preset("vgg16_digits32_layerwise"),
+                              log_path="logs/chip_smoke_vgg.csv")
+    loss_fn = LOSS_REGISTRY[cfg.loss]
+    sdtype = compute_dtype(cfg.score_dtype)
+    t0 = time.perf_counter()
+    model, datasets = resolve_model_and_data(cfg)
+    test = datasets[2]
+    if len(test) > cfg.score_examples:
+        test = test.subset(cfg.score_examples, seed=cfg.seed)
+    test_batches = test.batches(cfg.eval_batch_size)
+    data_s = time.perf_counter() - t0
+    reset_launches()
+    t1 = time.perf_counter()
+    trainer, hist = run_train(cfg, model=model, datasets=datasets,
+                              verbose=True, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    acc = hist[-1]["test_acc"]
+    if not (acc >= 0.80 and datasets[0].name == "digits32:train"):
+        fail(f"vgg sweep: trained on {datasets[0].name}, test accuracy "
+             f"{acc} < 0.80")
+    walks = {}
+    orig_walk = R.ablation_curves_batch
+
+    def timed_walk(model_, params, state, layer, rankings, *a, **kw):
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        out = orig_walk(model_, params, state, layer, rankings, *a, **kw)
+        torch.cuda.synchronize()
+        walks[layer] = {"s": time.perf_counter() - w0,
+                        "rankings": len(rankings)}
+        return out
+
+    methods = R.method_panel(model, trainer.params, test_batches, loss_fn,
+                             state=trainer.state, compute_dtype=sdtype,
+                             seed=cfg.seed, **cfg.method_kwargs)
+    R.ablation_curves_batch = timed_walk
+    try:
+        t1 = time.perf_counter()
+        results = R.layerwise_robustness(
+            model, trainer.params, trainer.state, test_batches, methods,
+            loss_fn, layers=VGG_LAYERS, compute_dtype=sdtype, verbose=False)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t1
+    finally:
+        R.ablation_curves_batch = orig_walk
+    launches = all_launches()
+    # what every walk must show
+    rows = test_batches[0][0].shape[0]
+    per_layer = {}
+    for layer in VGG_LAYERS:
+        n = L.n_units(model.layer(layer))
+        runs = results[layer]
+        counts = {m: len(r) for m, r in runs.items()}
+        want = {"random": 3, "weight_norm": 1, "apoz": 1, "sensitivity": 1,
+                "taylor": 1, "taylor_signed": 1, "sv": 3, "sv_mean+2std": 3}
+        if counts != want:
+            fail(f"vgg sweep {layer}: runs {counts}")
+        flat = [r for rs in runs.values() for r in rs]
+        for r in flat:
+            if not (len(r["loss"]) == len(r["acc"]) == n
+                    and np.isfinite(r["loss"]).all()
+                    and np.isfinite(r["acc"]).all()):
+                fail(f"vgg sweep {layer}: a curve of {len(r['loss'])} "
+                     f"entries, not {n} finite ones")
+        # all units removed: the output no longer depends on the order
+        ends = np.array([r["loss"][-1] for r in flat])
+        end_tol = 2.0 ** -7 * float(abs(ends[0]))
+        if np.abs(ends - ends[0]).max() > end_tol:
+            fail(f"vgg sweep {layer}: walks end at {ends.tolist()}, "
+                 f"spread > {end_tol}")
+        if len({tuple(np.argsort(r["scores"])) for r in runs["random"]}) \
+                != 3:
+            fail(f"vgg sweep {layer}: the 3 random runs repeat a ranking")
+        walk = walks[layer]
+        score_s = {m: [r["seconds"] - walk["s"] / len(flat) for r in rs]
+                   for m, rs in runs.items()}
+        site = find_best_evaluation_layer(model, layer)
+        per_layer[layer] = {
+            "units": n, "site": site, "suffix_flops": suffix_flops(model,
+                                                                   site),
+            "walk_s": walk["s"], "walk_rows": walk["rankings"] * rows,
+            "walk_step_ms": walk["s"] * 1e3 / n,
+            "score_s": score_s,
+            "sv_step_ms": float(np.mean(score_s["sv"])) * 1e3 / n,
+            "end_spread": float(np.abs(ends - ends[0]).max()),
+            "end_tol": end_tol,
+            "auc": {m: float(np.mean([r["auc"] for r in rs]))
+                    for m, rs in runs.items()}}
+    # one batch of f32 Shapley rows at fc1 (site relu_fc1) from the
+    # initial weights and statistics, as phase 14 does, on the card and on
+    # the CPU, same permutations
+    params, state = init_model(model, seed=cfg.seed, device=dev)
+    site = find_best_evaluation_layer(model, "fc1")
+    x, y = (to_device(a[:64], dev) for a in test_batches[0])
+    metric = ShapleyAttributionMetric(model, params, [], loss_fn,
+                                      seed=cfg.seed, **cfg.method_kwargs)
+    perms = metric._draw_perms(metric.n_units(site), metric.sv_samples)
+    fn = shapley_rows_fn(model, site, loss_fn, True)
+
+    def cpu(tree):
+        return {k: cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    with torch.no_grad():
+        base = float(loss_fn(model.apply(params, x, state=state)[0],
+                             y).mean())
+    card = fn(params, state, x, y, perms.to(dev)).cpu()
+    want = fn(cpu(params), cpu(state), x.cpu(), y.cpu(), perms)
+    atol = 1e-5 * base
+    err = float((card - want).abs().max())
+    if not (err <= atol and bool(torch.isfinite(card).all())):
+        fail(f"vgg sweep fc1: card rows differ from the CPU's by {err} "
+             f"> {atol}")
+    # the full sweep, estimated: per unit step a + b x suffix FLOPs, fit
+    # on conv1 and conv13 (Shapley steps on S x B rows, walk steps on
+    # 14 x B), times every layer's units; the data-light methods at the
+    # three layers' mean
+    fits = {}
+    for key in ("sv_step_ms", "walk_step_ms"):
+        (f1, t1_), (f2, t2_) = ((per_layer[k]["suffix_flops"],
+                                 per_layer[k][key])
+                                for k in ("conv1", "conv13"))
+        b = (t1_ - t2_) / (f1 - f2)
+        fits[key] = (t2_ - b * f2, b)
+    light = [m for m in per_layer["conv1"]["score_s"]
+             if m not in ("sv", "sv_mean+2std")]
+    light_s = float(np.mean([sum(np.sum(per_layer[k]["score_s"][m])
+                                 for m in light) for k in VGG_LAYERS]))
+    est = {}
+    for g in pruning_graph(model):
+        site = find_best_evaluation_layer(model, g.target)
+        n, f = L.n_units(model.layer(g.target)), suffix_flops(model, site)
+        sv = n * (fits["sv_step_ms"][0] + fits["sv_step_ms"][1] * f) / 1e3
+        wk = n * (fits["walk_step_ms"][0]
+                  + fits["walk_step_ms"][1] * f) / 1e3
+        est[g.target] = 6 * sv + wk + light_s
+    fc1 = per_layer["fc1"]
+    out = {"model": cfg.model, "train_s": train_s,
+           "data_s": data_s,
+           "epochs": len(hist), "test_acc": acc,
+           "history": [{k: h[k] for k in ("epoch", "train_loss",
+                                          "test_acc", "seconds")}
+                       for h in hist],
+           "sweep_s": sweep_s, "layers": per_layer, "launches": launches,
+           "fc1_rows_card_vs_cpu": {"rows": list(card.shape),
+                                    "max_abs_err": err, "atol": atol,
+                                    "base_loss": base},
+           "fit": {k: {"ms": a, "ms_per_gflop": b * 1e9}
+                   for k, (a, b) in fits.items()},
+           "fc1_fit_check": {
+               "sv_step_ms": fc1["sv_step_ms"],
+               "sv_step_ms_fit": fits["sv_step_ms"][0]
+               + fits["sv_step_ms"][1] * fc1["suffix_flops"],
+               "walk_step_ms": fc1["walk_step_ms"],
+               "walk_step_ms_fit": fits["walk_step_ms"][0]
+               + fits["walk_step_ms"][1] * fc1["suffix_flops"]},
+           "full_sweep_estimate": {
+               "by_layer_s": est, "sweep_s": sum(est.values()),
+               "with_training_s": sum(est.values()) + train_s,
+               "what": "15 layers x (6 Shapley runs + the 14-ranking walk "
+                       "at the fit's step time, + the other methods at the "
+                       "three layers' mean); evaluation beside the walk "
+                       "not counted"}}
+    log(f"vgg sweep: {json.dumps(out)}")
+    return out
+
+
+def resnet_phase(dev) -> dict:
+    """``resnet50_taylor`` at full width (ResNet-50, 224x224, 1000
+    classes): Taylor on the six prunable convs of stage 4, fraction 0.25,
+    one fine-tune epoch a target, synthetic ImageNet injected (train 256,
+    the preset's 1000 scoring examples, test 512); widths, finite losses,
+    each attached BatchNorm's params and running statistics sliced with
+    its conv; the stem's 3x3 / 2 SAME max-pool (pads 0 / 1 at 112) on the
+    card against the CPU's."""
+    import numpy as np
+    import torch
+
+    from torchpruner_tpu_torch.core import layers as L
+    from torchpruner_tpu_torch.core.graph import group_for
+    from torchpruner_tpu_torch.core.plan import keep_indices
+    from torchpruner_tpu_torch.data import load_dataset
+    from torchpruner_tpu_torch.experiments import prune_retrain as PR
+    from torchpruner_tpu_torch.experiments.presets import get_preset
+
+    preset = get_preset("resnet50_taylor")
+    cfg = dataclasses.replace(preset, target_filter=("stage4_",),
+                              log_path="logs/chip_smoke_resnet.csv")
+    reduced = {"target_filter": ("stage4_",), "train_examples": 256,
+               "test_examples": 512}
+    t0 = time.perf_counter()
+    datasets = tuple(load_dataset(cfg.dataset, split, n=n, seed=cfg.seed)
+                     for split, n in (("train", 256),
+                                      ("val", cfg.score_examples),
+                                      ("test", 512)))
+    data_s = time.perf_counter() - t0
+    sliced = []
+    orig_prune = PR.prune
+
+    def prune(model, params, layer, drop, *, state=None, opt_state=None):
+        res = orig_prune(model, params, layer, drop, state=state,
+                         opt_state=opt_state)
+        keep = torch.as_tensor(keep_indices(L.n_units(model.layer(layer)),
+                                            drop), device=dev)
+        for bn in group_for(model, layer).attached_bn:
+            path = L.parse_path(bn.layer)
+            for tree, new, names in ((params, res.params, ("scale", "bias")),
+                                     (state, res.state, ("mean", "var"))):
+                for name in names:
+                    old_t, new_t = tree, new
+                    for k in path + (name,):
+                        old_t, new_t = old_t[k], new_t[k]
+                    if not torch.equal(new_t, old_t.index_select(0, keep)):
+                        fail(f"resnet {layer}: {bn.layer}/{name} not "
+                             f"sliced with its conv")
+            sliced.append(bn.layer)
+        return res
+
+    reset_launches()
+    PR.prune = prune
+    try:
+        t1 = time.perf_counter()
+        hist = PR.run_prune_retrain(cfg, datasets=datasets, verbose=False,
+                                    device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    finally:
+        PR.prune = orig_prune
+    launches = all_launches()
+    model = PR.MODEL_REGISTRY[cfg.model][0]()
+    targets = [t for t in model.widths() if t.startswith("stage4_")
+               and "conv3" not in t and "proj" not in t]
+    if sorted(r.layer for r in hist) != sorted(targets):
+        fail(f"resnet: records {[r.layer for r in hist]}, targets "
+             f"{targets}")
+    for r in hist:
+        n = model.widths()[r.layer]
+        if not (r.n_dropped == int(n * cfg.fraction)
+                and r.widths[r.layer] == n - r.n_dropped
+                and all(math.isfinite(v) for v in (r.pre_loss,
+                                                   r.post_loss))):
+            fail(f"resnet {r.layer}: dropped {r.n_dropped} of {n}, width "
+                 f"{r.widths[r.layer]}, losses {r.pre_loss} / "
+                 f"{r.post_loss}")
+    if len(sliced) != len(hist):
+        fail(f"resnet: BatchNorm slices checked {sliced}")
+    # the stem pool's asymmetric SAME pad, card against CPU
+    spec = model.layer("stem_pool")
+    z = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(8, 112, 112, 64)).astype(np.float32))
+    card, _ = L.apply_layer(spec, {}, {}, z.to(dev))
+    want, _ = L.apply_layer(spec, {}, {}, z)
+    if not (tuple(card.shape[1:3]) == (56, 56)
+            and torch.equal(card.cpu(), want)):
+        fail("resnet stem pool: card differs from the CPU")
+    out = {"model": cfg.model, "reduced": reduced, "records": len(hist),
+           "wall_s": wall, "data_s": data_s, "launches": launches,
+           "bn_sliced": sliced,
+           "widths": {r.layer: r.widths[r.layer] for r in hist},
+           "post_losses": [r.post_loss for r in hist],
+           "round_s": [r.prune_time for r in hist]}
+    log(f"resnet: {json.dumps(out)}")
+    return out
+
+
 def per_step(cases, key, weight):
     return sum(c[key] * weight(c) for c in cases)
 
@@ -1646,6 +1996,15 @@ def main() -> int:
     log("phase 15: vit_head_mlp_shapley recipe, ViT-B/16 full width and "
         "depth")
     vit = vit_shapley_phase(dev)
+    log("phase 16: vgg16_digits32_layerwise, VGG16-bn full width: train, "
+        "then the 8-method panel on conv1, conv13, fc1")
+    t0 = time.perf_counter()
+    vgg_sweep_phase(dev)
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    log("phase 17: resnet50_taylor, ResNet-50 full width, stage 4")
+    t0 = time.perf_counter()
+    resnet_phase(dev)
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
     # per-kernel line: the work of one full-depth 8B int4 decode step at
     # 4 slots (sum over that step's calls), every case beside it

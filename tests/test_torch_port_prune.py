@@ -13,9 +13,10 @@ into the port with ``convert.params_from_numpy``:
 - the token datasets, bit for bit;
 - the whole loop: ``run_prune_retrain`` on ``bert_glue_sensitivity
   --smoke`` (as shipped and with one fine-tune epoch),
-  ``llama3_ffn_taylor``, ``mnist_mlp_shapley`` and
-  ``vit_head_mlp_shapley --smoke``, the port's init monkeypatched to the
-  JAX init weights and its Shapley permutations to the JAX ones.
+  ``llama3_ffn_taylor``, ``mnist_mlp_shapley``,
+  ``vit_head_mlp_shapley`` and ``resnet50_taylor --smoke``, the port's
+  init monkeypatched to the JAX init weights and state and its Shapley
+  permutations to the JAX ones.
 
 Tolerances: f32 forwards, losses and gradients agree to rtol 1e-5 of the
 output scale (the same math, sums in other orders).  Scores agree to
@@ -271,7 +272,7 @@ def test_preset_table_matches_jax():
             PPS.get_preset("vgg16_digits32_layerwise", True), device="cpu")
     smoke = PPS.get_preset("bert_glue_sensitivity", True)
     for field, value in (("remat", True), ("accum_steps", 2),
-                         ("run_dir", "x")):
+                         ("run_dir", "x"), ("augment", True)):
         with pytest.raises(NotImplementedError, match=field):
             PPR.run_prune_retrain(dataclasses.replace(smoke, **{field: value}),
                                   device="cpu")
@@ -285,7 +286,14 @@ LOOP_CASES = [
     pytest.param("llama3_ffn_taylor", None, id="llama3_ffn_taylor"),
     pytest.param("mnist_mlp_shapley", None, id="mnist_mlp_shapley"),
     pytest.param("vit_head_mlp_shapley", None, id="vit_head_mlp_shapley"),
+    pytest.param("resnet50_taylor", None, id="resnet50_taylor"),
 ]
+
+#: splits injected into both loops, (split, examples): resnet20_cifar's
+#: cifar10 fallback is 50,000 / 10,000 synthetic images, whose
+#: evaluation each round would take minutes on the CPU
+LOOP_SPLITS = {"resnet50_taylor": (("train", 256), ("val", 64),
+                                   ("test", 500))}
 
 
 def jax_perms(seed, calls, n, S):
@@ -299,20 +307,27 @@ def jax_perms(seed, calls, n, S):
 @pytest.mark.parametrize("preset,finetune", LOOP_CASES)
 def test_prune_retrain_loop_matches_jax(preset, finetune, tmp_path,
                                         monkeypatch):
-    """The port's loop from the JAX initial weights (and, for Shapley,
-    the JAX permutations) against the JAX loop: layers, widths, units
-    dropped, params, and pre/post losses and accuracies to 1e-4."""
+    """The port's loop from the JAX initial weights and BatchNorm state
+    (and, for Shapley, the JAX permutations) against the JAX loop:
+    layers, widths, units dropped, params, and pre/post losses and
+    accuracies to 1e-4."""
     over = {} if finetune is None else {"finetune_epochs": finetune}
     cfg_j = dataclasses.replace(JPS.get_preset(preset, smoke=True), **over,
                                 log_path=str(tmp_path / "j.csv"))
     cfg_p = dataclasses.replace(PPS.get_preset(preset, smoke=True), **over,
                                 log_path=str(tmp_path / "p.csv"))
-    j_hist = JPR.run_prune_retrain(cfg_j, verbose=False)
+    splits = LOOP_SPLITS.get(preset)
+    datasets = {pkg: None if splits is None else tuple(
+        load(cfg_j.dataset, s, n=n, seed=cfg_j.seed) for s, n in splits)
+        for pkg, load in (("jax", JD.load_dataset), ("port", PD.load_dataset))}
+    j_hist = JPR.run_prune_retrain(cfg_j, verbose=False,
+                                   datasets=datasets["jax"])
     j_model = JPR.MODEL_REGISTRY[cfg_j.model][0]
 
     def jax_init(model, seed=0, dtype=torch.float32, device=None):
-        jparams, _ = j_init_model(j_model(), seed=seed)
-        return params_from_numpy(numpy_tree(jparams), device=device), {}
+        jparams, jstate = j_init_model(j_model(), seed=seed)
+        return (params_from_numpy(numpy_tree(jparams), device=device),
+                params_from_numpy(numpy_tree(jstate), device=device))
 
     def draw(self, n, S):
         self._calls += 1
@@ -320,9 +335,11 @@ def test_prune_retrain_loop_matches_jax(preset, finetune, tmp_path,
 
     monkeypatch.setattr(PS, "init_model", jax_init)
     monkeypatch.setattr(PA.ShapleyAttributionMetric, "_draw_perms", draw)
-    p_hist = PPR.run_prune_retrain(cfg_p, verbose=False, device="cpu")
+    p_hist = PPR.run_prune_retrain(cfg_p, verbose=False, device="cpu",
+                                   datasets=datasets["port"])
     assert [r.layer for r in p_hist] == [r.layer for r in j_hist]
-    assert len(p_hist) == {"vit_head_mlp_shapley": 4}.get(preset, 2)
+    assert len(p_hist) == {"vit_head_mlp_shapley": 4,
+                           "resnet50_taylor": 9}.get(preset, 2)
     for p, j in zip(p_hist, j_hist):
         assert p.widths == j.widths and p.n_dropped == j.n_dropped
         assert p.n_params == j.n_params

@@ -1,7 +1,10 @@
 """``python -m torchpruner_tpu_torch`` — the port's CLI.
 
-    --preset NAME [--smoke] [--cpu]     run a named preset through the
-                                        prune(-retrain) loop
+    --preset NAME [--smoke] [--cpu]     run a named preset: the
+                                        prune(-retrain) loop, training, the
+                                        robustness sweep or training then
+                                        the sweep, as its ``experiment``
+                                        says
     --config PATH [--cpu]               run an ExperimentConfig JSON
     --list                              list the presets
     --dump-config PATH                  write the resolved config, exit
@@ -9,8 +12,9 @@
         the continuous-batching engine on synthetic traffic
         (torchpruner_tpu_torch/serve/frontend.py)
 
-The prune loop prints one JSON summary line, as the JAX package's CLI
-does.  Everything runs on the CUDA device unless ``--cpu`` is given.
+Each experiment prints one JSON summary line, as the JAX package's CLI
+does (the sweeps: their AUC summary).  Everything runs on the CUDA
+device unless ``--cpu`` is given.
 """
 
 from __future__ import annotations
@@ -71,19 +75,42 @@ def main(argv=None) -> int:
         print(f"wrote {args.dump_config}")
         return 0
 
+    print(json.dumps(run_experiment(cfg, "cpu" if args.cpu else None)))
+    return 0
+
+
+def run_experiment(cfg, device=None) -> dict:
+    """Run ``cfg`` by its ``experiment`` and return the summary the CLI
+    prints."""
+    if cfg.experiment == "robustness":
+        from torchpruner_tpu_torch.experiments.robustness import (
+            run_robustness_config,
+        )
+
+        return run_robustness_config(cfg, device=device)
+    if cfg.experiment == "train_robustness":
+        from torchpruner_tpu_torch.experiments.robustness import (
+            run_train_robustness,
+        )
+
+        return run_train_robustness(cfg, device=device)
+    if cfg.experiment == "train":
+        from torchpruner_tpu_torch.experiments.train_model import run_train
+
+        _, history = run_train(cfg, device=device)
+        last = history[-1] if history else None
+        return {"experiment": cfg.name, "epochs": len(history),
+                "final_test_acc": last["test_acc"] if last else None,
+                "final_test_loss": last["test_loss"] if last else None}
     from torchpruner_tpu_torch.experiments.prune_retrain import (
         run_prune_retrain,
     )
 
-    history = run_prune_retrain(cfg, device="cpu" if args.cpu else None)
+    history = run_prune_retrain(cfg, device=device)
     last = history[-1] if history else None
-    print(json.dumps({
-        "experiment": cfg.name,
-        "steps": len(history),
-        "final_acc": last.post_acc if last else None,
-        "final_params": last.n_params if last else None,
-    }))
-    return 0
+    return {"experiment": cfg.name, "steps": len(history),
+            "final_acc": last.post_acc if last else None,
+            "final_params": last.n_params if last else None}
 
 
 if __name__ == "__main__":

@@ -6,8 +6,10 @@ leaves.  A caller holding both packages turns every array into numpy
 ``{"q", "scale", "in_axes", "bits", "pack_axis"}`` and every
 ``BlockSparseWeight`` into ``{"w", "in_keep", "out_keep", "block"}``;
 :func:`params_from_numpy` builds the port's tree from that, with the
-same names and layouts, so the port never sees a JAX array.  Mask trees
-(``core.masking.drop_masks``) are plain arrays and convert as params do.
+same names and layouts, so the port never sees a JAX array.  The state
+tree (BatchNorm's running ``mean`` / ``var``), mask trees
+(``core.masking.drop_masks``) and optimizer moments are plain arrays and
+convert as params do.
 """
 
 from __future__ import annotations

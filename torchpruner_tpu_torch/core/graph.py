@@ -14,11 +14,17 @@ composite blocks:
 - a ``Reshape`` that folds channels, and a ``ClsToken`` or ``PosEmbed``
   (whose params share the producer's width but are not sliced with
   it), end a producer's unit identity: the ViT patchify conv forms no
-  group.
+  group;
+- norms (BatchNorm, LayerNorm, RMSNorm) attach to the open group, Pool
+  and GlobalPool are transparent, and a ``Flatten`` multiplies the
+  group's fan-out by the spatial size it folds;
+- a producer feeding a projection-shortcut Residual (a ResNet stem conv)
+  cascades into the first prunable layer of both chains.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 from torchpruner_tpu_torch.core import layers as L
@@ -33,7 +39,7 @@ SHIFTABLE_ACTIVATIONS = frozenset(
 #: width-changing prunable producers (attention heads leave the layer's
 #: output width unchanged)
 _CHANNEL_PRODUCERS = (L.Dense, L.Conv, L.GatedDense)
-_NORMS = (L.LayerNorm, L.RMSNorm)
+_NORMS = (L.BatchNorm, L.LayerNorm, L.RMSNorm)
 
 
 def find_best_evaluation_layer(model: SegmentedModel, name: str) -> str:
@@ -143,12 +149,14 @@ def _walk(layers, prefix: Tuple[str, ...], in_shape: Tuple[int, ...],
                     AttachedNorm(path, fan_out=current["fan_out"]))
             elif isinstance(spec, L.Dropout):
                 current["dropout"].append(path)
+            elif isinstance(spec, L.Flatten):
+                current["fan_out"] *= math.prod(i_shape[:-1])
             elif isinstance(spec, L.Reshape):
                 if o_shape[-1] != i_shape[-1]:
                     current = None  # channels folded: unit identity lost
             elif isinstance(spec, (L.Embedding, L.PosEmbed, L.ClsToken)):
                 current = None  # unit identity lost
-            # Activation / GlobalPool: transparent for unit identity
+            # Activation / Pool / GlobalPool: transparent for unit identity
     return current
 
 
@@ -167,7 +175,7 @@ def _consume_into_residual(res: L.Residual, res_prefix: Tuple[str, ...],
             path = _join(res_prefix, spec.name)
             if isinstance(spec, _NORMS):
                 bn.append(AttachedNorm(path, fan_out=group["fan_out"]))
-            elif isinstance(spec, (L.Activation, L.GlobalPool)):
+            elif isinstance(spec, (L.Activation, L.Pool, L.GlobalPool)):
                 pass  # transparent
             elif isinstance(spec, _CHANNEL_PRODUCERS
                             + (L.MultiHeadAttention,)):

@@ -8,9 +8,9 @@ features)``; Embedding ``emb (vocab, features)``; PosEmbed ``emb
 (max_len, features)``; ClsToken ``tok (features,)``; Conv ``w`` HWIO
 ``(kh, kw, in, out)``, permuted to OIHW only inside its apply rule;
 norm ``scale``/``bias``).  Parameters are nested dicts of tensors, one
-level per composite block.  The port has no layer with mutable state
-(no BatchNorm yet), so ``state`` passes through as the JAX signatures
-carry it.
+level per composite block.  BatchNorm's running statistics ``mean`` /
+``var`` are the one mutable state, a tree of the same shape beside the
+params; every apply rule returns ``(y, state)``.
 
 Activations are channels-last: ``(B, S, d)`` sequences and ``(B, H, W,
 C)`` images.  Two evaluation orders, chosen per call by the
@@ -70,6 +70,17 @@ class Conv:
 
 
 @dataclass(frozen=True)
+class BatchNorm:
+    """Batch normalization over the last axis, with functional running
+    statistics: ``new_running = decay * running + (1 - decay) *
+    batch_stat``, the batch variance biased in both (``jnp.var``)."""
+
+    name: str
+    decay: float = 0.9
+    eps: float = 1e-5
+
+
+@dataclass(frozen=True)
 class LayerNorm:
     """Layer normalization over the last axis (transformer blocks)."""
 
@@ -112,6 +123,19 @@ class Activation:
 
 
 @dataclass(frozen=True)
+class Pool:
+    """2-D max/avg pooling on NHWC; ``padding`` is XLA's (``"SAME"`` pads
+    the odd row or column high; max pads with -inf, avg divides by the
+    count of valid elements)."""
+
+    name: str
+    kind: str = "max"
+    window: Tuple[int, int] = (2, 2)
+    strides: Optional[Tuple[int, int]] = None  # None = window
+    padding: str = "VALID"
+
+
+@dataclass(frozen=True)
 class GlobalPool:
     """Global pooling / token selection: ``"avg"`` (NHWC -> (B, C)),
     ``"seq_mean"`` ((B, S, D) -> (B, D) mean over the sequence) or
@@ -119,6 +143,15 @@ class GlobalPool:
 
     name: str
     kind: str = "avg"
+
+
+@dataclass(frozen=True)
+class Flatten:
+    """Flatten the non-batch axes row-major: ``(B, H, W, C) -> (B,
+    H*W*C)``, so channel ``c`` lands at ``{p * C + c}`` (the fan-out map
+    of a pruned conv channel into a Dense consumer)."""
+
+    name: str
 
 
 @dataclass(frozen=True)
@@ -235,7 +268,7 @@ LayerSpec = Any
 #: can be out-pruned (the JAX package's set, restricted to the port's specs)
 PRUNABLE_TYPES = (Dense, Conv, GatedDense, MultiHeadAttention)
 #: in-pruned alongside a producer
-ATTACHABLE_TYPES = (Dropout, LayerNorm, RMSNorm)
+ATTACHABLE_TYPES = (BatchNorm, Dropout, LayerNorm, RMSNorm)
 COMPOSITE_TYPES = (Residual,)
 
 # ---------------------------------------------------------------------------
@@ -270,6 +303,14 @@ def out_shape(spec: LayerSpec, in_shape: Tuple[int, ...]) -> Tuple[int, ...]:
         return tuple(in_shape[:-1]) + (spec.features,)
     if isinstance(spec, Conv):
         return _conv_out_hw(in_shape[:2], spec) + (spec.features,)
+    if isinstance(spec, Pool):
+        (h, w), (sh, sw) = in_shape[:2], spec.strides or spec.window
+        if spec.padding == "SAME":
+            return (-(-h // sh), -(-w // sw)) + tuple(in_shape[2:])
+        kh, kw = spec.window
+        return ((h - kh) // sh + 1, (w - kw) // sw + 1) + tuple(in_shape[2:])
+    if isinstance(spec, Flatten):
+        return (math.prod(in_shape),)
     if isinstance(spec, Reshape):
         return _reshape_target(spec.shape, in_shape)
     if isinstance(spec, ClsToken):
@@ -336,6 +377,8 @@ def param_shapes(spec: LayerSpec, in_shape: Tuple[int, ...]
         return out
     if isinstance(spec, ClsToken):
         return {"tok": (in_shape[-1],)}
+    if isinstance(spec, BatchNorm):
+        return {"scale": (in_shape[-1],), "bias": (in_shape[-1],)}
     if isinstance(spec, LayerNorm):
         out = {"scale": (in_shape[-1],)}
         if spec.use_bias:
@@ -379,9 +422,43 @@ def param_shapes(spec: LayerSpec, in_shape: Tuple[int, ...]
                     out[child.name] = p
                 shape = out_shape(child, shape)
         return out
-    if isinstance(spec, (Activation, GlobalPool, Dropout, Reshape)):
+    if isinstance(spec, (Activation, Pool, GlobalPool, Flatten, Dropout,
+                         Reshape)):
         return {}
     raise TypeError(f"unknown layer spec {type(spec)}")
+
+
+def state_shapes(spec: LayerSpec, in_shape: Tuple[int, ...]
+                 ) -> Dict[str, Any]:
+    """``{state name: shape}`` for one layer (nested for composites):
+    BatchNorm's running ``mean`` / ``var``, empty elsewhere."""
+    if isinstance(spec, BatchNorm):
+        return {"mean": (in_shape[-1],), "var": (in_shape[-1],)}
+    if isinstance(spec, Residual):
+        out: Dict[str, Any] = {}
+        for branch in (spec.body, spec.shortcut):
+            shape = tuple(in_shape)
+            for child in branch:
+                s = state_shapes(child, shape)
+                if s:
+                    out[child.name] = s
+                shape = out_shape(child, shape)
+        return out
+    return {}
+
+
+def init_state(spec: LayerSpec, in_shape: Tuple[int, ...],
+               dtype=torch.float32, device=None) -> Dict[str, Any]:
+    """One layer's initial state: running ``mean`` 0 and ``var`` 1."""
+    device = resolve_device(device)
+
+    def fill(name, shape):
+        if isinstance(shape, dict):
+            return {k: fill(k, v) for k, v in shape.items()}
+        value = 1.0 if name == "var" else 0.0
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    return {k: fill(k, v) for k, v in state_shapes(spec, in_shape).items()}
 
 
 def init_layer(spec: LayerSpec, gen: torch.Generator,
@@ -496,18 +573,22 @@ def apply_seq(layers, params, state, x, *, train: bool = False,
               fixed_order: bool = False):
     """Run a sequential pipeline of layers, applying output-site taps
     after every non-attention layer (attention taps its own head site).
-    ``rng`` feeds every train-mode Dropout in order."""
+    ``rng`` feeds every train-mode Dropout in order.  Returns ``(y,
+    new_state)``: ``state`` with the entries train mode rewrote."""
     state = state if state is not None else {}
+    new_state = dict(state)
     for spec in layers:
         p = params.get(spec.name, {}) if params else {}
+        s = state.get(spec.name, {})
         path = prefix + (spec.name,)
-        x, _ = apply_layer(spec, p, state.get(spec.name, {}), x,
-                           train=train, rng=rng, taps=taps, path=path,
-                           fixed_order=fixed_order)
+        x, s2 = apply_layer(spec, p, s, x, train=train, rng=rng, taps=taps,
+                            path=path, fixed_order=fixed_order)
         if (taps is not None and not taps.empty()
                 and not isinstance(spec, MultiHeadAttention)):
             x = taps.at_site(path, x)
-    return x, state
+        if s2 is not s and s2:
+            new_state[spec.name] = s2
+    return x, new_state
 
 
 def _rope(x: torch.Tensor, theta: float, offset=0) -> torch.Tensor:
@@ -601,6 +682,10 @@ def apply_layer(spec: LayerSpec, params, state, x: torch.Tensor, *,
         return y, state
     if isinstance(spec, Conv):
         return _conv(spec, params, x), state
+    if isinstance(spec, Pool):
+        return _pool(spec, x), state
+    if isinstance(spec, Flatten):
+        return x.reshape(x.shape[0], -1), state
     if isinstance(spec, Reshape):
         return x.reshape((x.shape[0],)
                          + _reshape_target(spec.shape, x.shape[1:])), state
@@ -608,7 +693,10 @@ def apply_layer(spec: LayerSpec, params, state, x: torch.Tensor, *,
         tok = params["tok"].to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
         return torch.cat([tok, x], dim=1), state
     # norms compute in f32 whatever the activation dtype and cast back —
-    # the JAX package's mixed-precision policy
+    # the JAX package's mixed-precision policy (a bf16 running-stat EMA
+    # would round small increments to zero)
+    if isinstance(spec, BatchNorm):
+        return _batch_norm(spec, params, state, x, train)
     if isinstance(spec, LayerNorm):
         xf = x.float()
         mean = _row_mean(xf, fixed_order)
@@ -657,16 +745,75 @@ def apply_layer(spec: LayerSpec, params, state, x: torch.Tensor, *,
             u = u + params["bu"]
         return ACTIVATION_FNS[spec.fn](g) * u, state
     if isinstance(spec, Residual):
-        y, _ = apply_seq(spec.body, params, state, x, train=train, rng=rng,
-                         taps=taps, prefix=path, fixed_order=fixed_order)
-        if spec.shortcut:
-            sc, _ = apply_seq(spec.shortcut, params, state, x, train=train,
-                              rng=rng, taps=taps, prefix=path,
-                              fixed_order=fixed_order)
-        else:
-            sc = x
-        return y + sc, state
+        y, new_state = apply_seq(spec.body, params, state, x, train=train,
+                                 rng=rng, taps=taps, prefix=path,
+                                 fixed_order=fixed_order)
+        if not spec.shortcut:
+            return y + x, new_state
+        sc, sc_state = apply_seq(spec.shortcut, params, state, x,
+                                 train=train, rng=rng, taps=taps,
+                                 prefix=path, fixed_order=fixed_order)
+        for child in spec.shortcut:
+            if child.name in sc_state:
+                new_state[child.name] = sc_state[child.name]
+        return y + sc, new_state
     raise TypeError(f"unknown layer spec {type(spec)}")
+
+
+def _batch_norm(spec: BatchNorm, params, state, x: torch.Tensor,
+                train: bool):
+    """Train mode normalizes by the batch's mean and biased variance and
+    returns the updated running statistics (detached: they carry no
+    gradient); eval mode uses the running statistics."""
+    xf = x.float()
+    if train:
+        axes = tuple(range(x.ndim - 1))
+        mean = xf.mean(dim=axes)
+        var = xf.var(dim=axes, correction=0)
+        d = spec.decay
+        new_state = {
+            "mean": (d * state["mean"].float() + (1 - d) * mean).detach(),
+            "var": (d * state["var"].float() + (1 - d) * var).detach()}
+    else:
+        mean, var = state["mean"].float(), state["var"].float()
+        new_state = state
+    y = (xf - mean) * torch.rsqrt(var + spec.eps) \
+        * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype), new_state
+
+
+def _pool(spec: Pool, x: torch.Tensor) -> torch.Tensor:
+    """NHWC pooling through ``F.max_pool2d`` / ``F.avg_pool2d`` on the
+    NCHW view, with XLA's SAME pads explicit: -inf for max; for avg a
+    window sum divided by the count of valid elements it covers."""
+    window = tuple(spec.window)
+    strides = tuple(spec.strides or spec.window)
+    xc = x.permute(0, 3, 1, 2)
+    if spec.padding not in ("SAME", "VALID"):
+        raise ValueError(f"unknown pool padding {spec.padding!r}")
+    pads = (0, 0, 0, 0)
+    if spec.padding == "SAME":
+        (h_lo, h_hi), (w_lo, w_hi) = (
+            same_pads(n, k, s)
+            for n, k, s in zip(xc.shape[2:], window, strides))
+        pads = (w_lo, w_hi, h_lo, h_hi)
+    if spec.kind == "max":
+        if any(pads):
+            xc = F.pad(xc, pads, value=-math.inf)
+        y = F.max_pool2d(xc, window, strides)
+    elif spec.kind == "avg":
+        if not any(pads):
+            y = F.avg_pool2d(xc, window, strides)
+        else:
+            total = F.avg_pool2d(F.pad(xc, pads), window, strides,
+                                 divisor_override=1)
+            ones = F.pad(torch.ones((1, 1) + tuple(xc.shape[2:]),
+                                    dtype=x.dtype, device=x.device), pads)
+            y = total / F.avg_pool2d(ones, window, strides,
+                                     divisor_override=1)
+    else:
+        raise ValueError(f"unknown pool kind {spec.kind!r}")
+    return y.permute(0, 2, 3, 1)
 
 
 def same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:

@@ -9,8 +9,9 @@ Counterpart of ``torchpruner_tpu/core/plan.py``:
   producer layer: its own out-params, attached norms/Dropout, and
   consumer in-params;
 - :func:`apply_plan` executes the slices functionally (``index_select``)
-  over nested-dict trees: params, and any optimizer state whose leaves
-  mirror the params tree.
+  over nested-dict trees: params, the model state (BatchNorm running
+  statistics, ``collection="state"``), and any optimizer state whose
+  leaves mirror the params tree.
 
 The axes mean the same thing as in the JAX package, so a plan applies
 to either package's trees.

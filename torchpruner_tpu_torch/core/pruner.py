@@ -43,7 +43,8 @@ def plan_for_group(model: SegmentedModel, group: PruneGroup) -> PrunePlan:
     axis 3 (HWIO) / ``b`` axis 0; GatedDense
     ``wg``/``wu`` axis 1; attention query heads ``wq`` axis 1, ``wo``
     axis 0, ``bq`` axis 0, plus ``wk``/``wv``/``bk``/``bv`` when KV heads
-    match query heads), attached norms (axis 0) and consumer in-slices."""
+    match query heads), attached norms (axis 0; a BatchNorm's running
+    ``mean`` / ``var`` in the state tree) and consumer in-slices."""
     target = model.layer(group.target)
     tpath = L.parse_path(group.target)
     n = L.n_units(target)
@@ -75,7 +76,13 @@ def plan_for_group(model: SegmentedModel, group: PruneGroup) -> PrunePlan:
         f = bn.fan_out
         npath = L.parse_path(bn.layer)
         spec = model.layer(bn.layer)
-        if isinstance(spec, L.LayerNorm):
+        if isinstance(spec, L.BatchNorm):
+            slices += [ParamSlice(npath + (p,), axis=0, fan_out=f)
+                       for p in ("scale", "bias")]
+            slices += [ParamSlice(npath + (p,), axis=0, fan_out=f,
+                                  collection="state")
+                       for p in ("mean", "var")]
+        elif isinstance(spec, L.LayerNorm):
             slices += [ParamSlice(npath + ("scale",), axis=0, fan_out=f),
                        ParamSlice(npath + ("bias",), axis=0, fan_out=f,
                                   optional=True)]

@@ -7,8 +7,9 @@ including ``b``.  Nested layers (inside a ``Residual``) are addressed by
 ``"block/child"`` paths wherever a layer name is accepted for
 instrumentation; segment boundaries stay at the top level.  Params are
 nested dicts ``{layer_name: {param_name: tensor}}`` with the JAX
-package's names and layouts; the numbers of :func:`init_model` come from
-a ``torch.Generator`` and are not JAX's.
+package's names and layouts, and the state (BatchNorm running
+statistics) a tree of the same shape; the numbers of :func:`init_model`
+come from a ``torch.Generator`` and are not JAX's.
 
 ``apply`` is the full-sequence path (scoring, training, evaluation): its
 products and reductions run on whole tensors, not on the fixed row
@@ -147,6 +148,18 @@ class SegmentedModel:
                 params[spec.name] = p
         return params
 
+    def init_state(self, dtype=torch.float32, device=None
+                   ) -> Dict[str, Any]:
+        """The initial state tree (running ``mean`` 0, ``var`` 1) on
+        ``device``; empty for a model without BatchNorm."""
+        device = resolve_device(device)
+        state: Dict[str, Any] = {}
+        for spec, (in_shape, _) in zip(self.layers, self.shapes):
+            s = L.init_state(spec, in_shape, to_dtype(dtype), device)
+            if s:
+                state[spec.name] = s
+        return state
+
     def example_input(self, batch: int = 2, seed: int = 0, device=None):
         """A random batch with the model's input shape and dtype (token
         ids below the embedding's vocabulary for int models)."""
@@ -265,13 +278,14 @@ def _replace_in(layers: Tuple[L.LayerSpec, ...], path, new_spec):
 def init_model(model: SegmentedModel, seed: int = 0, dtype=torch.float32,
                device=None):
     """Seeded ``(params, state)`` on ``device`` (``None`` = ``cuda``;
-    raises without a GPU unless ``device="cpu"``); ``state`` is empty
-    (no port layer has mutable state), kept for the JAX signature.
-    Drawn from a CPU ``torch.Generator`` so the numbers do not depend on
-    the device."""
+    raises without a GPU unless ``device="cpu"``).  Params are drawn from
+    a CPU ``torch.Generator``, so the numbers do not depend on the
+    device; ``state`` holds BatchNorm's running ``mean`` 0 and ``var``
+    1 (empty without BatchNorm)."""
     dev = resolve_device(device)
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
-    return model.init(gen, dtype=dtype, device=dev), {}
+    return (model.init(gen, dtype=dtype, device=dev),
+            model.init_state(dtype=dtype, device=dev))
 
 
 @functools.lru_cache(maxsize=512)

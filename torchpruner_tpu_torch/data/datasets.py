@@ -3,8 +3,9 @@
 
 Host numpy only, copied from the JAX package so the port yields the same
 arrays bit for bit from the same names, splits and seeds (real data from
-``$TORCHPRUNER_TPU_DATA_DIR`` when present, else the synthetic
-generators of the right shapes).
+``$TORCHPRUNER_TPU_DATA_DIR`` when present, the bundled 8x8 digits for
+the ``digits*`` names, else the synthetic generators of the right
+shapes).
 """
 
 from __future__ import annotations
@@ -190,22 +191,21 @@ def synthetic_token_dataset(
     return Dataset(x, x, name)
 
 
-def _load_digits(name: str, split: str) -> Optional[Dataset]:
-    """The real scikit-learn digits data (bundled with sklearn, no
-    network).  Pixels scaled to [0, 1] (raw range 0..16); a fixed
-    permutation (seed 0) makes the train/val/test split deterministic."""
-    try:
-        from sklearn.datasets import load_digits as _sk_load
-    except ImportError:  # pragma: no cover - sklearn is in the base image
-        return None
+def _load_digits(name: str, split: str) -> Dataset:
+    """The real 8x8 digits scans (scikit-learn's ``load_digits``: the test
+    set of the UCI Optical Recognition of Handwritten Digits data,
+    Alpaydin and Kaynak, 1998, CC BY 4.0), bundled as ``digits.npz``
+    (pixel counts 0..16 and labels, uint8) so that no machine needs
+    scikit-learn.  Pixels scaled to [0, 1]; a fixed permutation (seed 0)
+    makes the train/val/test split deterministic."""
     if split not in _DIGITS_SPLIT:
         raise KeyError(
             f"unknown digits split {split!r} (use one of "
             f"{sorted(_DIGITS_SPLIT)})"
         )
-    raw = _sk_load()
-    x = (raw.data / 16.0).astype(np.float32)  # (1797, 64)
-    y = raw.target.astype(np.int32)
+    raw = np.load(os.path.join(os.path.dirname(__file__), "digits.npz"))
+    x = (raw["x"] / 16.0).astype(np.float32)  # (1797, 64)
+    y = raw["y"].astype(np.int32)
     idx = np.random.default_rng(0).permutation(len(x))
     lo, hi = _DIGITS_SPLIT[split]
     sel = idx[lo:hi]
@@ -248,14 +248,13 @@ def load_dataset(
         ds = _load_digits(name, split)
     if ds is None and name in ("digits32", "digits32_flat"):
         base = _load_digits("digits", split)
-        if base is not None:
-            x = np.kron(base.x, np.ones((1, 4, 4, 1), np.float32))
-            x = np.repeat(x, 3, axis=3)
-            if name == "digits32_flat":
-                # CIFAR-10-FC geometry (3072 = 32*32*3,) on real scans —
-                # the vehicle for the reference's untrained CIFAR10-FC row
-                x = x.reshape(len(x), -1)
-            ds = Dataset(x, base.y, f"{name}:{split}")
+        x = np.kron(base.x, np.ones((1, 4, 4, 1), np.float32))
+        x = np.repeat(x, 3, axis=3)
+        if name == "digits32_flat":
+            # CIFAR-10-FC geometry (3072 = 32*32*3,) on real scans —
+            # the vehicle for the reference's untrained CIFAR10-FC row
+            x = x.reshape(len(x), -1)
+        ds = Dataset(x, base.y, f"{name}:{split}")
     if ds is None:
         defaults = {"train": 50000, "val": 1000, "test": 10000}
         count = n or defaults.get(split, 1000)

@@ -1,8 +1,9 @@
 """Named experiment presets and the model registry — counterpart of
 ``torchpruner_tpu/experiments/presets.py`` (the full preset table, the
 same configs field for field) and of ``MODEL_REGISTRY`` in
-``torchpruner_tpu/experiments/prune_retrain.py``, restricted to the
-model families the port has.  ``smoke=True`` swaps in the miniature
+``torchpruner_tpu/experiments/prune_retrain.py`` (every entry,
+with the same default datasets).
+``smoke=True`` swaps in the miniature
 model/dataset variants with the identical block structure.  A preset
 whose settings the port does not run yet still resolves here; the
 driver raises on it (``ExperimentConfig.unported``).
@@ -16,12 +17,18 @@ from torchpruner_tpu_torch.models import (
     bert_base,
     bert_tiny,
     cifar10_fc,
+    digits_convnet,
     digits_fc,
     digits_fc_tiny,
+    fmnist_convnet,
     llama3_8b,
     llama_tiny,
     mfu_llama,
     mnist_fc,
+    resnet20_cifar,
+    resnet50,
+    vgg16_bn,
+    vgg16_bn_tiny,
     vit_b16,
     vit_tiny,
 )
@@ -33,6 +40,12 @@ MODEL_REGISTRY: Dict[str, Tuple[Callable, str]] = {
     "cifar10_fc": (cifar10_fc, "cifar10_flat"),
     "digits_fc": (digits_fc, "digits_flat"),
     "digits_fc_tiny": (digits_fc_tiny, "digits_flat"),
+    "digits_convnet": (digits_convnet, "digits"),
+    "fmnist_convnet": (fmnist_convnet, "fashion_mnist"),
+    "vgg16_bn": (vgg16_bn, "cifar10"),
+    "vgg16_bn_tiny": (vgg16_bn_tiny, "cifar10"),
+    "resnet50": (resnet50, "imagenet"),
+    "resnet20_cifar": (resnet20_cifar, "cifar10"),
     "vit_b16": (vit_b16, "imagenet"),
     "vit_tiny": (vit_tiny, "tiny_images16"),
     "bert_base": (bert_base, "glue_sst2"),

@@ -68,10 +68,27 @@ def build_metric(name: str, model, params, data, loss_fn, *, state=None,
     if reduction == "mean+2std":
         reduction = mean_plus_2std
     if name not in METRIC_REGISTRY:
-        raise NotImplementedError(
-            f"attribution method {name!r} is not ported yet (ROADMAP A2)")
+        raise KeyError(f"unknown attribution method {name!r} (the panel "
+                       f"'all' is the robustness sweep's); known: "
+                       f"{sorted(METRIC_REGISTRY)}")
     return METRIC_REGISTRY[name](model, params, data, loss_fn, state=state,
                                  reduction=reduction, seed=seed, **kwargs)
+
+
+def check_ported(cfg: ExperimentConfig) -> None:
+    """Raise ``NotImplementedError`` naming every setting of ``cfg`` the
+    port does not run yet."""
+    missing = cfg.unported()
+    if missing:
+        raise NotImplementedError(
+            "not ported yet: " + "; ".join(f"{s} ({item})"
+                                           for s, item in missing))
+
+
+def compute_dtype(name: str):
+    """A config's ``compute_dtype`` / ``score_dtype`` string as the torch
+    dtype the trainers and metrics take (``None`` = float32)."""
+    return torch.bfloat16 if name == "bfloat16" else None
 
 
 def resolve_model_and_data(cfg: ExperimentConfig, model=None, datasets=None):
@@ -79,9 +96,8 @@ def resolve_model_and_data(cfg: ExperimentConfig, model=None, datasets=None):
     (train, val, test))``."""
     if model is None:
         if cfg.model not in MODEL_REGISTRY:
-            raise NotImplementedError(
-                f"model {cfg.model!r} is not ported yet (ROADMAP A1); the "
-                f"port has {sorted(MODEL_REGISTRY)}")
+            raise KeyError(f"unknown model {cfg.model!r}; known: "
+                           f"{sorted(MODEL_REGISTRY)}")
         model_fn, default_ds = MODEL_REGISTRY[cfg.model]
         model = model_fn()
         ds_name = cfg.dataset if cfg.dataset != "synthetic" else default_ds
@@ -170,12 +186,15 @@ def run_prune_retrain(cfg: ExperimentConfig, *, model=None, datasets=None,
     """Run the prune(-retrain) experiment ``cfg`` on ``device`` (``None``
     = ``cuda``; raises without a GPU unless ``device="cpu"``).
     ``model`` / ``datasets=(train, val, test)`` may be injected.  A
-    setting the port does not run yet raises ``NotImplementedError``."""
-    missing = cfg.unported()
-    if missing:
+    setting the port does not run yet raises ``NotImplementedError``, and
+    so does another experiment (``experiments/train_model.py``,
+    ``experiments/robustness.py`` run those)."""
+    if cfg.experiment != "prune_retrain":
         raise NotImplementedError(
-            "not ported yet: " + "; ".join(f"{s} ({item})"
-                                           for s, item in missing))
+            f"run_prune_retrain runs experiment='prune_retrain' only, not "
+            f"experiment={cfg.experiment!r}: the CLI dispatches that to "
+            f"experiments/robustness.py or experiments/train_model.py")
+    check_ported(cfg)
     dev = resolve_device(device)
     if dev.type == "cuda":
         strict_fp32_matmul()
@@ -191,10 +210,10 @@ def run_prune_retrain(cfg: ExperimentConfig, *, model=None, datasets=None,
     tx = make_optimizer(cfg, steps_per_epoch=spe,
                         total_epochs=cfg.finetune_epochs * max(1, len(targets)))
     loss_fn = LOSS_REGISTRY[cfg.loss]
-    cdtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
-    sdtype = torch.bfloat16 if cfg.score_dtype == "bfloat16" else None
+    sdtype = compute_dtype(cfg.score_dtype)
     trainer = Trainer.create(model, tx, loss_fn, seed=cfg.seed,
-                             compute_dtype=cdtype, device=dev)
+                             compute_dtype=compute_dtype(cfg.compute_dtype),
+                             device=dev)
     val_batches = val.batches(cfg.eval_batch_size)
     test_batches = test.batches(cfg.eval_batch_size)
     history: List[PruneStepRecord] = []

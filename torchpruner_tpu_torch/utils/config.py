@@ -247,13 +247,6 @@ class ExperimentConfig:
         if self.accum_steps > 1:
             out.append((f"accum_steps={self.accum_steps}",
                         "ROADMAP A3 (gradient accumulation)"))
-        if self.method not in ("random", "weight_norm", "apoz",
-                               "sensitivity", "taylor", "shapley"):
-            out.append((f"method={self.method!r}",
-                        "ROADMAP A3 (the robustness sweep's 'all')"))
-        if self.experiment != "prune_retrain":
-            out.append((f"experiment={self.experiment!r}",
-                        "ROADMAP A3 (robustness and train experiments)"))
         return out
 
     def to_json(self, path: str):
@@ -284,6 +277,7 @@ _UNPORTED = (
     ("checkpoint_path", "", "ROADMAP A8 (resilience)"),
     ("remat", False, "ROADMAP A3 (remat)"),
     ("moe_aux_weight", 0.0, "ROADMAP A1 (MoE)"),
-    ("augment", False, "ROADMAP A3 (image augmentation)"),
+    ("augment", False, "ROADMAP A3b (image augmentation)"),
     ("obs_grad_norm", False, "ROADMAP A5 (observability)"),
+    ("plot_dir", "", "ROADMAP A8 (the sweep's figures)"),
 )

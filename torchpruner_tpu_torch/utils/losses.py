@@ -50,10 +50,17 @@ def accuracy(logits, labels):
     return (logits.argmax(dim=-1) == labels).float().mean()
 
 
-def prediction_counts(out, y) -> Tuple[torch.Tensor, int]:
-    """``(n_correct, n_predictions)``: argmax over classes for
-    classification, next-token aligned (B*(S-1) predictions) for LMs."""
+def correct_per_example(out, y) -> Tuple[torch.Tensor, int]:
+    """``((batch,) correct counts, predictions per example)``: argmax
+    over classes for classification (one prediction an example),
+    next-token aligned (S-1 predictions an example) for LMs."""
     if out.ndim == y.ndim + 1 and y.ndim >= 2:
         pred = out[:, :-1].argmax(dim=-1)
-        return (pred == y[:, 1:]).sum(), pred.numel()
-    return (out.argmax(dim=-1) == y).sum(), y.shape[0]
+        return (pred == y[:, 1:]).sum(dim=-1), pred.shape[-1]
+    return (out.argmax(dim=-1) == y).long(), 1
+
+
+def prediction_counts(out, y) -> Tuple[torch.Tensor, int]:
+    """``(n_correct, n_predictions)`` over the batch."""
+    correct, per = correct_per_example(out, y)
+    return correct.sum(), per * y.shape[0]
