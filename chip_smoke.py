@@ -126,6 +126,35 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
     with its conv; the stem's 3x3 / 2 SAME max-pool (pads 0 / 1) on the
     card equal to the CPU's.
 
+18. Serve v2 at full width and depth: Llama-3-8B int4 (phase 3's model
+    and weights), 4 slots, max_len 512, pages of 16, chunks of 64 (cap
+    128 prefill tokens a step), a 64-page prefix pool; 12 shared-prefix
+    requests (two 256-token system prompts, suffixes 8 / 24 / 64, 32
+    greedy tokens, an arrival every 2 steps), then the same traffic with
+    sharing off: every request done, 0 mismatches against solo
+    ``generate``, identical tokens on and off, prefix hits > 0 and hit
+    tokens >= 256, no step over the cap, hit + prefilled tokens = prompt
+    length per request, launches of both kernels (decode attention: one
+    a layer a decode step); ttft / token p50 and p99 and the wall, on and
+    off.
+19. Checkpoints: A is phase 4's model (int8, full width, 4 blocks) saved
+    with ``save_checkpoint`` (restored and compared leaf for leaf); B is
+    A with each block's FFN pruned by a quarter through ``prune``
+    (WeightNorm scores on the dequantized weights), int8 again; both
+    under a temporary directory, removed after phase 20; bytes, save
+    and restore seconds.  Then ``serve llama3_ffn_taylor --checkpoint A
+    --swap-checkpoint B --swap-after 8 --synthetic 8 --rate 1
+    --shared-prefixes 2 --prefix-len 64 --prompt-lens 8,24 --verify``
+    with the serve-v2 flags: device cuda, 8 requests, 1 swap, 0
+    mismatches, both kernels launched.
+20. HTTP: ``serve --checkpoint B --http 0``: four concurrent ``POST
+    /v1/generate`` answered with tokens, ``/healthz`` ready, ``POST
+    /swap`` to A answered 202 with ``/healthz`` through
+    ``staging_swap`` back to ready, one generation after the swap,
+    ``/metrics`` and ``/profile`` 501 (telemetry not ported), then
+    SIGTERM: exit code 0 and the drained summary (5 completed, 1 swap,
+    both kernels launched).
+
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
 """
@@ -1906,15 +1935,383 @@ def resnet_phase(dev) -> dict:
     return out
 
 
+# -- phases 18-20 -----------------------------------------------------------
+
+#: phase 18: the shared-prefix traffic (two 256-token system prompts,
+#: suffixes of 8 / 24 / 64, 32 greedy tokens, an arrival every 2 steps)
+#: and the serve-v2 engine it runs on, with sharing on and off
+P18_TRAFFIC = dict(vocab=128256, n_prefixes=2, prefix_len=256,
+                   suffix_lens=[8, 24, 64], max_new=[32], seed=0)
+P18_ENGINE = dict(n_slots=4, max_len=512, page_len=16, prefill_chunk=64,
+                  prefill_token_cap=128)
+#: the serve-v2 flags of phases 19-20; a bf16 KV cache keeps the
+#: activations bf16, so every projection takes the dequant kernel (an f32
+#: cache turns them f32 after the first attention, as in the JAX package)
+#: phase 19's arrival spacing in engine ticks (loop iterations, about
+#: half a millisecond each while idle): wide enough that the later
+#: requests arrive after checkpoint B has staged, so both checkpoints
+#: serve and are verified
+SWAP_STAGGER_TICKS = 3000
+CLI_V2 = ["--page-len", "16", "--prefix-pages", "32", "--prefill-chunk",
+          "64", "--max-len", "512", "--kv-dtype", "bfloat16"]
+
+
+def reset_serve_launches() -> None:
+    from torchpruner_tpu_torch.ops import decode_attention as DA
+    from torchpruner_tpu_torch.ops import fused_matmul as FM
+
+    FM.dequant_matmul.launches = 0
+    DA.decode_attention.launches = 0
+
+
+def prefix_phase(dev) -> dict:
+    """Phase 18: shared-prefix traffic through chunked prefill and prefix
+    pages on full-width, full-depth Llama-3-8B int4, then the same
+    traffic with sharing off."""
+    import torch
+
+    from torchpruner_tpu_torch.experiments.llama8b_decode import (
+        quantized_random_params,
+    )
+    from torchpruner_tpu_torch.models import llama3_8b
+    from torchpruner_tpu_torch.serve import (
+        OpenLoopTraffic,
+        ServeEngine,
+        shared_prefix_requests,
+        staggered_arrivals,
+    )
+    from torchpruner_tpu_torch.serve.engine import kernel_launches
+    from torchpruner_tpu_torch.serve.frontend import verify_against_solo
+
+    model = llama3_8b(depth=DEPTH)
+    params, _ = quantized_random_params(model, bits=4, seed=0, device=dev)
+    runs = {}
+    for label, pages in (("on", 64), ("off", 0)):
+        reqs = shared_prefix_requests(12, **P18_TRAFFIC)
+        engine = ServeEngine(model, params, cache_dtype=torch.bfloat16,
+                             device=dev, prefix_pages=pages, **P18_ENGINE)
+        traffic = OpenLoopTraffic(reqs, staggered_arrivals(12, 2),
+                                  by_step=True)
+        torch.cuda.synchronize()
+        reset_serve_launches()
+        t0 = time.perf_counter()
+        summary = engine.run(traffic)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[label] = {"engine": engine, "reqs": reqs, "summary": summary,
+                       "wall_s": wall, "launches": kernel_launches()}
+    on, off = runs["on"], runs["off"]
+    # one 64-row chunk at full depth (position 256, after a 16-page hit),
+    # host clock around synchronized calls, and its launches
+    P = on["engine"].programs
+    toks = torch.zeros((1, 64), dtype=torch.long, device=dev)
+    P.chunk_prefill(P.params, P.cache, toks, 0, 256)
+    torch.cuda.synchronize()
+    reset_serve_launches()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        P.chunk_prefill(P.params, P.cache, toks, 0, 256)
+    torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t0) / 3 * 1e3
+    chunk_launches = {k: v // 3 for k, v in kernel_launches().items()}
+    mism = verify_against_solo(on["engine"])
+    s = on["summary"]
+    out = {label: {k: r["summary"].get(k) for k in (
+        "requests_completed", "decode_steps", "gen_tokens", "ttft_p50_ms",
+        "ttft_p99_ms", "token_p50_ms", "token_p99_ms", "prefilled_tokens",
+        "max_prefill_tokens_step", "prefill_token_cap", "prefix_hits",
+        "prefix_misses", "prefix_hit_tokens", "prefix_hit_rate")}
+        | {"wall_s": r["wall_s"], "launches": r["launches"]}
+        for label, r in runs.items()}
+    out["chunk64_ms"] = chunk_ms
+    out["chunk64_launches"] = chunk_launches
+    out["verify_mismatches"] = mism
+    out["tokens_equal_on_off"] = [list(a.tokens) for a in on["reqs"]] \
+        == [list(b.tokens) for b in off["reqs"]]
+    log(f"prefix sharing: {json.dumps(out)}")
+    for label, r in runs.items():
+        if r["summary"]["requests_completed"] != 12 or not all(
+                q.state == "done" and len(q.tokens) == 32
+                for q in r["reqs"]):
+            fail(f"phase 18 sharing {label}: not every request done")
+        if r["summary"]["max_prefill_tokens_step"] \
+                > r["summary"]["prefill_token_cap"]:
+            fail(f"phase 18 sharing {label}: a step prefilled "
+                 f"{r['summary']['max_prefill_tokens_step']} tokens over "
+                 f"the cap {r['summary']['prefill_token_cap']}")
+        for name, n in r["launches"].items():
+            if n <= 0:
+                fail(f"phase 18 sharing {label} never launched {name}")
+        if r["launches"]["decode_attention"] \
+                != DEPTH * r["summary"]["decode_steps"]:
+            fail(f"phase 18 sharing {label}: "
+                 f"{r['launches']['decode_attention']} decode attention "
+                 f"launches for {r['summary']['decode_steps']} steps")
+    if mism:
+        fail(f"phase 18: {mism} requests diverged from solo decode")
+    if not out["tokens_equal_on_off"]:
+        fail("phase 18: tokens with sharing on differ from sharing off")
+    if not (s["prefix_hits"] > 0 and s["prefix_hit_tokens"] >= 256):
+        fail(f"phase 18: prefix hits {s['prefix_hits']}, hit tokens "
+             f"{s['prefix_hit_tokens']}")
+    bad = [r.id for r in on["reqs"] if r.prefix_hit_tokens
+           + r.prefilled_tokens != r.prompt_ids.size]
+    if bad:
+        fail(f"phase 18: hit + prefilled != prompt length for {bad}")
+    del runs, on, off, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def checkpoint_phase(dev, tmp: str) -> dict:
+    """Phase 19: checkpoint A (phase 4's model: int8, full width, 4
+    blocks) and checkpoint B (each block's FFN pruned by a quarter by
+    WeightNorm, re-quantized to int8) written under ``tmp``; then the CLI
+    serves A and hot-swaps to B mid-run, every request verified against
+    the checkpoint that served it."""
+    import torch
+
+    from torchpruner_tpu_torch.attributions.simple import (
+        WeightNormAttributionMetric,
+    )
+    from torchpruner_tpu_torch.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from torchpruner_tpu_torch.core.pruner import prune, score_drop_indices
+    from torchpruner_tpu_torch.experiments.llama8b_decode import (
+        quantized_random_params,
+    )
+    from torchpruner_tpu_torch.models import llama3_8b
+    from torchpruner_tpu_torch.ops.quant import (
+        QTensor,
+        dequantize_params,
+        quantize_params,
+    )
+
+    a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    model = llama3_8b(depth=4)
+    params, _ = quantized_random_params(model, bits=8, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(a, model, params, step=0)
+    save_a = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model2, params2, _, _, meta = restore_checkpoint(a, device=dev)
+    torch.cuda.synchronize()
+    restore_a = time.perf_counter() - t0
+
+    def leaves(t, p=""):
+        if isinstance(t, QTensor):
+            return {f"{p}/q": t.q, f"{p}/scale": t.scale}
+        if isinstance(t, dict):
+            return {k: v for n, s in t.items()
+                    for k, v in leaves(s, f"{p}/{n}").items()}
+        return {p: t}
+
+    want, got = leaves(params), leaves(params2)
+    if model2 != model or sorted(want) != sorted(got) or not all(
+            torch.equal(got[k], want[k]) for k in want):
+        fail("phase 19: checkpoint A restored another tree")
+    del params2, got
+    # B: WeightNorm scores of each block's FFN on the dequantized
+    # weights, the lowest quarter pruned, int8 again
+    dense = dequantize_params(params)
+    del params, want
+    pruned = model
+    for i in range(1, 5):
+        target = f"block{i}_ffn/gate"
+        scores = WeightNormAttributionMetric(pruned, dense, None,
+                                             None).run(target)
+        drop = score_drop_indices(scores, policy="fraction", fraction=0.25)
+        res = prune(pruned, dense, target, drop)
+        pruned, dense = res.model, res.params
+    qb = quantize_params(pruned, dense, bits=8)
+    del dense, res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(b, pruned, qb, step=1,
+                    prune_history=[{"layer": f"block{i}_ffn/gate",
+                                    "fraction": 0.25} for i in range(1, 5)])
+    save_b = time.perf_counter() - t0
+    widths = {k: v for k, v in pruned.widths().items()
+              if k.endswith("_ffn/gate")}
+    del qb
+    torch.cuda.empty_cache()
+    if set(widths.values()) != {14336 - 3584}:
+        fail(f"phase 19: pruned FFN widths {widths}")
+    cmd = [sys.executable, "-m", "torchpruner_tpu_torch", "serve",
+           "llama3_ffn_taylor", "--checkpoint", a, "--swap-checkpoint", b,
+           "--swap-after", "8", "--synthetic", "8", "--rate", "0",
+           "--stagger-steps", str(SWAP_STAGGER_TICKS),
+           "--shared-prefixes", "2", "--prefix-len", "64", "--prompt-lens",
+           "8,24", "--verify"] + CLI_V2
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    cli_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"phase 19 CLI exited {res.returncode}:\n{res.stdout}\n"
+             f"{res.stderr[-4000:]}")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    out = {"bytes_a": _dir_bytes(a), "bytes_b": _dir_bytes(b),
+           "save_a_s": save_a, "restore_a_s": restore_a, "save_b_s": save_b,
+           "digest_a": meta["digest"], "ffn_widths_b": widths,
+           "cli_s": cli_s, "summary": summary}
+    log(f"checkpoint + swap: {json.dumps(out)}")
+    if summary.get("device") != "cuda" \
+            or summary.get("requests_completed") != 8 \
+            or summary.get("swaps") != 1 \
+            or summary.get("verify_mismatches") != 0 \
+            or summary.get("served_by", {}).get(a, 0) < 1 \
+            or summary.get("served_by", {}).get(b, 0) < 1:
+        fail(f"phase 19 CLI summary: {summary}")
+    for name, n in summary["kernel_launches"].items():
+        if n <= 0:
+            fail(f"phase 19: the CLI never launched {name}")
+    return out
+
+
+def _http(port: int, method: str, path: str, body=None, timeout=300):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_phase(tmp: str) -> dict:
+    """Phase 20: ``serve --checkpoint B --http 0`` in a subprocess: four
+    concurrent generations, ``/healthz`` ready, ``POST /swap`` to A (202,
+    ``staging_swap``, then ready again), one generation after the swap,
+    the obs routes at 501, then SIGTERM: exit code 0 and the drained
+    summary."""
+    import re
+    import signal
+    import threading
+
+    from torchpruner_tpu_torch.serve import shared_prefix_requests
+
+    a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    cmd = [sys.executable, "-m", "torchpruner_tpu_torch", "serve",
+           "llama3_ffn_taylor", "--checkpoint", b, "--http", "0"] + CLI_V2
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    lines: list = []
+    reader = threading.Thread(
+        target=lambda: lines.extend(iter(proc.stderr.readline, "")),
+        daemon=True)
+    reader.start()
+    t_start = time.perf_counter()
+    try:
+        port = None
+        while port is None and time.perf_counter() - t_start < 300:
+            found = [re.search(r"serving on http://127\.0\.0\.1:(\d+)", l)
+                     for l in list(lines)]
+            port = next((int(m.group(1)) for m in found if m), None)
+            if proc.poll() is not None:
+                fail(f"phase 20 server exited {proc.returncode}:\n"
+                     f"{''.join(lines)[-4000:]}")
+            time.sleep(0.2)
+        if port is None:
+            fail("phase 20: the server never said where it listens")
+        ready_s = time.perf_counter() - t_start
+        if _http(port, "GET", "/healthz")[0] != 200:
+            fail("phase 20: /healthz not ready after start")
+        reqs = shared_prefix_requests(5, vocab=128256, n_prefixes=1,
+                                      prefix_len=64, suffix_lens=[8, 16],
+                                      max_new=[16], seed=5)
+        answers: dict = {}
+
+        def post(r):
+            answers[r.id] = _http(port, "POST", "/v1/generate", {
+                "prompt_ids": r.prompt_ids.tolist(), "max_new": r.max_new,
+                "seed": r.sampling.seed})
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(r,))
+                   for r in reqs[:4]]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        gen_s = time.perf_counter() - t0
+        for r in reqs[:4]:
+            code, body = answers.get(r.id, (None, {}))
+            if code != 200 or len(body.get("tokens", [])) != 16 \
+                    or not all(0 <= t < 128256 for t in body["tokens"]):
+                fail(f"phase 20: /v1/generate answered {code} {body}")
+        code, health = _http(port, "GET", "/healthz")
+        if code != 200 or health.get("state") != "ready":
+            fail(f"phase 20: /healthz {code} {health}")
+        code, body = _http(port, "POST", "/swap", {"checkpoint": a})
+        if code != 202:
+            fail(f"phase 20: POST /swap answered {code} {body}")
+        t0 = time.perf_counter()
+        states = []
+        while time.perf_counter() - t0 < 300:
+            code, health = _http(port, "GET", "/healthz")
+            states.append(health.get("state"))
+            if code == 200 and _http(port, "GET", "/stats")[1]["swaps"]:
+                break
+            time.sleep(0.1)
+        swap_s = time.perf_counter() - t0
+        if "staging_swap" not in states or states[-1] != "ready":
+            fail(f"phase 20: /healthz went through {sorted(set(states))}")
+        code, body = _http(port, "POST", "/v1/generate", {
+            "prompt_ids": reqs[4].prompt_ids.tolist(), "max_new": 16})
+        if code != 200 or len(body.get("tokens", [])) != 16:
+            fail(f"phase 20: /v1/generate after the swap: {code} {body}")
+        stats = _http(port, "GET", "/stats")[1]
+        if _http(port, "GET", "/metrics")[0] != 501 \
+                or _http(port, "POST", "/profile")[0] != 501:
+            fail("phase 20: the obs routes did not answer 501")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    summary = json.loads(next(l for l in reversed(lines)
+                              if l.startswith("{")))
+    out = {"ready_s": ready_s, "generate_4_s": gen_s, "swap_s": swap_s,
+           "healthz_states": sorted(set(states)), "stats": stats,
+           "exit_code": rc, "summary": summary}
+    log(f"http: {json.dumps(out)}")
+    if rc != 0:
+        fail(f"phase 20: the server exited {rc} on SIGTERM")
+    if summary.get("requests_completed") != 5 or summary.get("swaps") != 1 \
+            or summary.get("requests_drained") != 0 \
+            or summary.get("device") != "cuda":
+        fail(f"phase 20: drained summary {summary}")
+    for name, n in summary["kernel_launches"].items():
+        if n <= 0:
+            fail(f"phase 20: the server never launched {name}")
+    return out
+
+
 def per_step(cases, key, weight):
     return sum(c[key] * weight(c) for c in cases)
 
 
 def prefill_sums(dq) -> dict:
     """The dequant kernel's time, bound and library time per full-depth
-    Llama-3-8B prefill at each bucket of phase 3, int4 and int8 (sum over
-    that forward's calls; the lm_head runs on every bucket row), and per
-    decode step at 4 slots."""
+    Llama-3-8B prefill at each bucket of phase 3 and per 64-row chunk of
+    phase 18, int4 and int8 (sum over that forward's calls; the lm_head
+    runs on every row), and per decode step at 4 slots."""
     w = lambda c: DQ_SHAPES[(c["D"], c["F"])]  # noqa: E731
     out = {}
     for bits in (4, 8):
@@ -1923,6 +2320,10 @@ def prefill_sums(dq) -> dict:
                 str(M): per_step([c for c in dq if c["bits"] == bits
                                   and c["M"] == M], key, w)
                 for M in PREFILL_BUCKETS}
+            # one 64-row chunk of phase 18's chunked prefill
+            out[f"chunk64_int{bits}_{key}"] = per_step(
+                [c for c in dq if c["bits"] == bits and c["M"] == 64], key,
+                w)
             out[f"decode_step_int{bits}_{key}"] = per_step(
                 [c for c in dq if c["bits"] == bits and c["M"] == 4], key, w)
     return out
@@ -2005,6 +2406,24 @@ def main() -> int:
     t0 = time.perf_counter()
     resnet_phase(dev)
     log(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    log("phase 18: shared-prefix traffic, chunked prefill and prefix pages, "
+        "Llama-3-8B int4 full width and depth, sharing on and off")
+    t0 = time.perf_counter()
+    px = prefix_phase(dev)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        log("phase 19: checkpoints A and B (FFN pruned a quarter), serve "
+            "--checkpoint A --swap-checkpoint B --verify")
+        t0 = time.perf_counter()
+        ck = checkpoint_phase(dev, tmp)
+        log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+        log("phase 20: serve --checkpoint B --http: generate, healthz, "
+            "swap to A, SIGTERM drain")
+        t0 = time.perf_counter()
+        hp = http_phase(tmp)
+        log(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
     # per-kernel line: the work of one full-depth 8B int4 decode step at
     # 4 slots (sum over that step's calls), every case beside it
@@ -2038,6 +2457,13 @@ def main() -> int:
             "per": "one full-depth Llama-3-8B int4 decode step at 4 slots "
                    "(sum over its calls)",
             "launches_int8_phase": s8["launches"][name],
+            # serve v2: phase 18 with sharing on (the path) and off, the
+            # CLI's checkpoint + swap run (19) and the HTTP server (20)
+            "launches_prefix_phase": px["on"]["launches"][name],
+            "launches_prefix_phase_sharing_off": px["off"]["launches"][name],
+            "launches_checkpoint_swap_cli": ck["summary"]["kernel_launches"][
+                name],
+            "launches_http_server": hp["summary"]["kernel_launches"][name],
             **(prefill_sums(dq) if name == "dequant_matmul" else
                {"plan": step[0]["plan"]}),
             "cases": cases,
@@ -2147,6 +2573,8 @@ def main() -> int:
             **({"cases": bs, "masked_retrain": mr, "simulate": sim,
                 "gated": gd} if name == "blocksparse_fwd" else {}),
         })
+    kernels[0]["serve_v2"] = {"prefix_sharing": px, "checkpoint_swap": ck,
+                              "http": hp}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

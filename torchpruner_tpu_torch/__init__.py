@@ -5,13 +5,15 @@ mirrors its module layout and parameter-tree names so each counterpart
 is easy to find.  It imports ``torch`` and never ``jax`` or
 ``torchpruner_tpu``.
 
-Two slices are ported so far.  Serving: the Llama model family,
-int4/int8 weight-only quantization, KV-cache decoding (``generate``) and
-the continuous-batching engine (``serve``).  The prune loop: the
-full-sequence forward with attribution taps (``core/``), BERT, the
-pruning graph and surgery, the APoZ/Sensitivity/Taylor metrics, the
-trainer with its functional optimizers, and the ``--preset``/``--config``
-driver.  The TPU kernels on those paths are rewritten by hand for Hopper
+Serving: the Llama model family, int4/int8 weight-only quantization,
+KV-cache decoding (``generate``) and the continuous-batching engine
+(``serve``: chunked prefill, prefix pages, hot-swap, drain, the stdin
+and HTTP front ends).  The prune loop: the full-sequence forward with
+attribution taps (``core/``), the model families, the pruning graph and
+surgery, the attribution metrics, the trainer with its functional
+optimizers, mask-based pruning, the train and robustness drivers and
+the ``--preset``/``--config`` CLI.  Checkpoints (``checkpoint.py``) in
+the JAX package's format.  The TPU kernels on those paths are rewritten by hand for Hopper
 (``ops/fused_matmul.py``, ``ops/decode_attention.py``,
 ``ops/flash_attention.py``; CUDA sources under ``csrc/``).
 

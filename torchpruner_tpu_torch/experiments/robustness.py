@@ -15,7 +15,9 @@ The sweep runs uncached: every metric and walk recomputes the prefix
 forward.  The JAX package's one-pass capture engine (``cfg.capture``)
 computes the same numbers from a shared activation; the port accepts
 the flag and runs the uncached path (ROADMAP A2c adds the cache).  A
-mesh (A7), ``run_dir`` (A8) and ``plot_dir`` (A8) raise.
+mesh (A7), ``run_dir`` (A8) and ``plot_dir`` (A8) raise.  Without
+trained params, ``cfg.checkpoint_path`` names the training checkpoint
+to sweep (``checkpoint.py``, written by either package).
 """
 
 from __future__ import annotations
@@ -276,7 +278,8 @@ def run_robustness_config(cfg, *, model=None, datasets=None, params=None,
     :func:`method_panel`, any other method alone, over the prunable
     layers ``cfg.target_filter`` keeps, on ``cfg.score_examples`` test
     examples.  Sweeps ``params`` / ``state`` when given (trained
-    weights), else a seeded init.  Writes ``cfg.results_path`` when set;
+    weights), else the checkpoint at ``cfg.checkpoint_path`` (its spec
+    too), else a seeded init.  Writes ``cfg.results_path`` when set;
     returns the AUC summary."""
     from torchpruner_tpu_torch.experiments.prune_retrain import (
         LOSS_REGISTRY,
@@ -293,6 +296,17 @@ def run_robustness_config(cfg, *, model=None, datasets=None, params=None,
     model, (_, _, test) = resolve_model_and_data(cfg, model, datasets)
     if len(test) > cfg.score_examples:
         test = test.subset(cfg.score_examples, seed=cfg.seed)
+    if params is None and cfg.checkpoint_path:
+        from torchpruner_tpu_torch.checkpoint import restore_checkpoint
+
+        if not os.path.exists(cfg.checkpoint_path):
+            raise FileNotFoundError(
+                f"cfg.checkpoint_path {cfg.checkpoint_path!r} does not "
+                "exist — refusing to silently run the sweep on random "
+                "weights (clear the field for an explicit fresh-init "
+                "smoke run)")
+        model, params, state, _, _ = restore_checkpoint(
+            cfg.checkpoint_path, device=dev)
     if params is None:
         params, state = init_model(model, seed=cfg.seed, device=dev)
     loss_fn = LOSS_REGISTRY[cfg.loss]

@@ -5,17 +5,25 @@ rows.  Each epoch's order is the splitmix64 shuffle of
 ``data/shuffle.py`` seeded ``cfg.seed * 1000 + epoch``, the JAX
 package's stream whether or not its prefetch is on (the port has no
 background prefetch: ``prefetch`` gives the same batches either way).
-Augmentation (ROADMAP A3b) and checkpoints (A1e) are not ported and
-raise.
+With ``cfg.checkpoint_path`` set the run resumes from the checkpoint
+there (its ``extra["epoch"]``) and saves to it every
+``cfg.checkpoint_every_epochs`` and at the end, in the format both
+packages read (``checkpoint.py``).  Augmentation (ROADMAP A3b) is not
+ported and raises.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Iterator, Tuple
 
 import numpy as np
 
+from torchpruner_tpu_torch.checkpoint import (
+    restore_checkpoint,
+    save_checkpoint,
+)
 from torchpruner_tpu_torch.data.shuffle import shuffled_indices
 from torchpruner_tpu_torch.train.logger import CSVLogger
 from torchpruner_tpu_torch.train.loop import Trainer
@@ -44,8 +52,11 @@ def run_train(cfg: ExperimentConfig, *, model=None, datasets=None,
               verbose: bool = True, device=None):
     """Train ``cfg.model`` on ``cfg.dataset`` for ``cfg.epochs`` on
     ``device`` (``None`` = ``cuda``; raises without a GPU unless
-    ``device="cpu"``).  Returns the trainer and the per-epoch history
-    ``[{epoch, train_loss, test_loss, test_acc, seconds}, ...]``."""
+    ``device="cpu"``).  Resumes from ``cfg.checkpoint_path`` when a
+    checkpoint exists there and saves to it every
+    ``cfg.checkpoint_every_epochs`` and at the end.  Returns the trainer
+    and the per-epoch history ``[{epoch, train_loss, test_loss,
+    test_acc, seconds}, ...]`` of the epochs this call ran."""
     from torchpruner_tpu_torch.experiments.prune_retrain import (
         LOSS_REGISTRY,
         check_ported,
@@ -61,14 +72,25 @@ def run_train(cfg: ExperimentConfig, *, model=None, datasets=None,
     model, (train, _val, test) = resolve_model_and_data(cfg, model, datasets)
     tx = make_optimizer(cfg,
                         steps_per_epoch=max(1, len(train) // cfg.batch_size))
+    start_epoch = 0
+    params = state = opt_state = None
+    if cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
+        model, params, state, opt_state, meta = restore_checkpoint(
+            cfg.checkpoint_path, tx=tx, device=dev)
+        start_epoch = int(meta.get("extra", {}).get("epoch", 0))
+        if verbose:
+            print(f"[{cfg.name}] resumed from {cfg.checkpoint_path} at "
+                  f"epoch {start_epoch}", flush=True)
     trainer = Trainer.create(model, tx, LOSS_REGISTRY[cfg.loss],
-                             seed=cfg.seed,
+                             seed=cfg.seed, params=params, state=state,
                              compute_dtype=compute_dtype(cfg.compute_dtype),
                              device=dev)
+    if opt_state is not None:
+        trainer.opt_state = opt_state
     test_batches = test.batches(cfg.eval_batch_size)
     history = []
     with CSVLogger(cfg.log_path, experiment=cfg.name) as logger:
-        for epoch in range(cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
             # losses stay on the device until the epoch ends
             losses = [trainer.step(x, y)
@@ -88,4 +110,12 @@ def run_train(cfg: ExperimentConfig, *, model=None, datasets=None,
                 print(f"[{cfg.name}] epoch {epoch}: train "
                       f"{rec['train_loss']:.4f} test {test_loss:.4f} acc "
                       f"{test_acc:.4f} ({rec['seconds']:.1f}s)", flush=True)
+            if cfg.checkpoint_path and (
+                    (cfg.checkpoint_every_epochs
+                     and (epoch + 1) % cfg.checkpoint_every_epochs == 0)
+                    or epoch + 1 == cfg.epochs):
+                save_checkpoint(cfg.checkpoint_path, trainer.model,
+                                trainer.params, trainer.state,
+                                trainer.opt_state,
+                                extra={"epoch": epoch + 1})
     return trainer, history

@@ -199,7 +199,8 @@ def _dtype_code(t: torch.Tensor) -> int:
 
 #: the merge's workspace per (device, stream): int32 counters, one per
 #: (row, head), which the kernel leaves at 0 after every call, and f32
-#: scratch for the chunks' partials; grown, never shrunk
+#: scratch for the chunks' partials; grown, never shrunk, and dropped
+#: after a failed launch
 _workspaces: dict = {}
 
 
@@ -239,11 +240,19 @@ def _launch(q, k_cache, v_cache, pos: Pos) -> torch.Tensor:
         "decode_attention", "tp_decode_attention",
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    err = fn(qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             pv.data_ptr(), out.data_ptr(), part.data_ptr(), cnt.data_ptr(),
-             B, H, T, Dh, chunk, n_split, 1.0 / math.sqrt(Dh),
-             _dtype_code(qc), _dtype_code(k_cache), stream)
-    _build.check(err, "decode_attention")
+    try:
+        err = fn(qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 pv.data_ptr(), out.data_ptr(), part.data_ptr(),
+                 cnt.data_ptr(), B, H, T, Dh, chunk, n_split,
+                 1.0 / math.sqrt(Dh), _dtype_code(qc),
+                 _dtype_code(k_cache), stream)
+        _build.check(err, "decode_attention")
+    except BaseException:
+        # a launch that failed may have stopped mid-merge with arrival
+        # counters set: drop the stream's workspace, so the next call
+        # starts from fresh zeroed counters instead of a stale count
+        _workspaces.pop((q.device, stream), None)
+        raise
     return out
 
 

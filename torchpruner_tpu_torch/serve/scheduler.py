@@ -1,4 +1,7 @@
-"""Continuous-batching request scheduler.
+"""Continuous-batching request scheduler — counterpart of
+``torchpruner_tpu/serve/scheduler.py``, copied without the telemetry
+calls (obs counters, request traces); the shed, drain and rejection
+counts are kept on the host instead (``rejected``, ``tenant_shed``).
 
 Open-loop admission control over the fixed slot array: requests queue
 FIFO; at every DECODE-STEP BOUNDARY the engine asks the scheduler to
@@ -10,14 +13,9 @@ passed into the SAME decode step each step, which is what makes the
 batching "continuous": one step function serves a ragged, ever-changing
 mix of requests.
 
-Counterpart of ``torchpruner_tpu/serve/scheduler.py``: the FIFO and QoS
-admission, preemption and eviction, copied without the telemetry calls
-(obs, reqtrace).  The queue bound, the chunked-prefill budget and the
-drain path are not ported yet.
-
-Thread-safety: ``submit`` may be called from other threads while the
-engine loop runs; the queue is guarded by a lock.  Everything else is
-engine-loop-only.
+Thread-safety: ``submit`` may be called from frontend threads (HTTP
+handlers) while the engine loop runs; the queue is guarded by a lock.
+Everything else is engine-loop-only.
 """
 
 from __future__ import annotations
@@ -32,19 +30,31 @@ from torchpruner_tpu_torch.serve.qos import QoS
 from torchpruner_tpu_torch.serve.request import (
     ACTIVE,
     DONE,
+    DRAINED,
     QUEUED,
     SHED,
     Request,
 )
 
-
 class Scheduler:
-    """Priority-class FIFO queues + slot-table bookkeeping (see module
-    docstring).  An empty QoS table makes it a plain FIFO."""
+    """FIFO queue + slot-table bookkeeping (see module docstring).
+
+    ``queue_bound > 0`` bounds the waiting queue: a submission landing
+    on a full queue is SHED immediately (state ``shed``, event set)
+    instead of queueing unboundedly — the HTTP front end turns that
+    into 503 + Retry-After, and the fleet router reuses the same bound
+    as its per-replica backpressure signal."""
 
     def __init__(self, allocator: KVCacheAllocator,
+                 queue_bound: int = 0, prefill_token_cap: int = 0,
                  qos: Optional[QoS] = None):
         self.allocator = allocator
+        self.queue_bound = int(queue_bound)
+        #: per-engine-step prefill-token budget (chunked prefill): a
+        #: long prompt spends at most this much prefill work per step,
+        #: so decode cadence for resident requests is bounded below.
+        #: 0 = uncapped.
+        self.prefill_token_cap = int(prefill_token_cap)
         #: multi-tenant QoS table (serve.qos) — an empty table makes
         #: every path below behave exactly like the pre-QoS FIFO
         self.qos = qos if qos is not None else QoS()
@@ -52,6 +62,14 @@ class Scheduler:
         #: ascending class numbers, FIFO (head-of-line) within a class
         self._queues: Dict[int, Deque[Request]] = {}
         self._lock = threading.Lock()
+        #: recent queue-age-at-admission samples (seconds) — the LIVE
+        #: p50/p99 the /stats endpoint serves; the full distribution
+        #: is the JAX package's histogram
+        self._queue_waits: Deque[float] = deque(maxlen=512)
+        #: optional per-admission queue-age callback — the engine wires
+        #: this to ``SLOMonitor.on_queue`` so queue age joins the
+        #: burn-rate evaluation (serve/slo.py)
+        self.on_queue_wait = None
         #: slot -> active request
         self.running: Dict[int, Request] = {}
         self.admitted_total = 0
@@ -60,26 +78,75 @@ class Scheduler:
         #: requests preempted back to the queue by a higher-priority
         #: admission (progress restarts on re-admit)
         self.preempted_total = 0
+        #: engine-installed guard: ``guard(slot) -> bool`` answers
+        #: whether that slot may be preempted RIGHT NOW (the engine
+        #: refuses slots mid-chunked-prefill); None = any active slot
+        self.preempt_guard = None
+        #: set when a drain begins: later submissions are REJECTED
+        #: (marked drained, event set) instead of queueing forever —
+        #: an HTTP client racing a SIGTERM gets an immediate "resubmit
+        #: elsewhere" answer, and the drain loop can still terminate
+        self.closed = False
+        #: rejected submissions by reason (drain, throttle,
+        #: backpressure, quota) and per (tenant, reason)
+        self.rejected: Dict[str, int] = {}
+        self.tenant_shed: Dict[str, int] = {}
 
-    # -- submission side ----------------------------------------------------
+    # -- frontend side ------------------------------------------------------
 
     def submit(self, request: Request,
                arrival_s: Optional[float] = None) -> Request:
-        """Enqueue a request (thread-safe), or SHED it when its tenant's
-        token bucket is empty.  ``arrival_s`` lets an open-loop traffic
-        generator backdate the arrival to its SCHEDULED time, so queueing
-        delay counts into TTFT the way it would for a real caller."""
+        """Enqueue a request (thread-safe).  ``arrival_s`` lets an
+        open-loop traffic generator backdate the arrival to its
+        SCHEDULED time, so queueing delay counts into TTFT the way it
+        would for a real caller."""
         request.arrival_s = (time.perf_counter() if arrival_s is None
                              else arrival_s)
         pol = self.qos.policy(request.tenant)
         with self._lock:
+            # the closed check shares the queue lock with drain_queue:
+            # checked outside it, a submission racing the drain could
+            # append AFTER the drain swept the queue — a permanently
+            # QUEUED request that keeps has_work() true and spins the
+            # SIGTERM'd loop forever
+            if self.closed:
+                request.state = DRAINED
+                request._event.set()
+                self.rejected["drain"] = self.rejected.get("drain", 0) + 1
+                return request
             if not self.qos.admit_now(request.tenant):
                 request.state = SHED
+                request._event.set()
                 self.shed_total += 1
+                self._tenant_shed(request.tenant, "throttle")
+                return request
+            if self.queue_bound and self._depth_locked() >= self.queue_bound:
+                request.state = SHED
+                request._event.set()
+                self.shed_total += 1
+                self._tenant_shed(request.tenant, "backpressure")
                 return request
             request.state = QUEUED
             self._queues.setdefault(pol.priority, deque()).append(request)
         return request
+
+    def _tenant_shed(self, tenant: Optional[str], reason: str) -> None:
+        """Count a shed by reason, and per tenant (the JAX package's
+        serve_rejected_* / tenant_*_shed_* counters); called under the
+        queue lock."""
+        self.rejected[reason] = self.rejected.get(reason, 0) + 1
+        if tenant:
+            key = f"{tenant}:{reason}"
+            self.tenant_shed[key] = self.tenant_shed.get(key, 0) + 1
+
+    def close(self) -> None:
+        """Begin a drain: flip ``closed`` under the queue lock.  Set
+        bare (``scheduler.closed = True``) a submission racing the
+        drain could observe ``closed == False``, pass the gate, and
+        append after the drain swept the queue — the same permanently
+        QUEUED hang the ``submit`` gate exists to prevent."""
+        with self._lock:
+            self.closed = True
 
     # -- engine side (step boundaries only) ---------------------------------
 
@@ -106,13 +173,17 @@ class Scheduler:
         """The preemption victim for an admission at ``priority``: the
         YOUNGEST active request of a strictly lower (larger-number)
         preemptible class — last in, first preempted, so long-running
-        batch work accumulates the least wasted progress."""
+        batch work accumulates the least wasted progress.  The engine's
+        ``preempt_guard`` vetoes slots mid-chunked-prefill."""
         victim: Optional[Request] = None
         for req in self.running.values():
             pol = self.qos.policy(req.tenant)
             if pol.priority <= priority or not pol.preemptible:
                 continue
             if req.state != ACTIVE or req.slot is None:
+                continue
+            if self.preempt_guard is not None \
+                    and not self.preempt_guard(req.slot):
                 continue
             if victim is None or (req.admitted_s or 0.0) \
                     > (victim.admitted_s or 0.0):
@@ -137,7 +208,9 @@ class Scheduler:
         victim.prefill_s = None
         victim.admitted_s = None
         victim.done_s = None
+        victim.prefix_hit_tokens = 0
         victim.prefilled_tokens = 0
+        victim.served_by = None
         victim.preemptions += 1
         self.preempted_total += 1
         pol = self.qos.policy(victim.tenant)
@@ -153,8 +226,8 @@ class Scheduler:
         (preemptible) class holds slots, the youngest such active
         request is preempted — here and only here, so preemption is
         step-boundary-exact by construction.  An over-quota head is
-        SHED instead of blocking: its footprint is the tenant's own
-        doing."""
+        SHED (``rejected["quota"]``) instead of blocking: its
+        footprint is the tenant's own doing."""
         out: List[Request] = []
         while True:
             with self._lock:
@@ -166,7 +239,9 @@ class Scheduler:
                         head.tenant, head.total_len, pol.page_quota):
                     q.popleft()
                     head.state = SHED
+                    head._event.set()
                     self.shed_total += 1
+                    self._tenant_shed(head.tenant, "quota")
                     continue
                 lease = self.allocator.allocate(
                     head.id, head.total_len, tenant=head.tenant)
@@ -177,9 +252,23 @@ class Scheduler:
                     self._preempt_locked(victim)
                     continue
                 q.popleft()
-                head.slot = lease.slot
-                head.state = ACTIVE
-                head.admitted_s = time.perf_counter()
+            head.slot = lease.slot
+            head.state = ACTIVE
+            # queue age is recorded AT ADMISSION, not at completion —
+            # the wait is visible in /stats while the request is still
+            # decoding
+            head.admitted_s = time.perf_counter()
+            if head.arrival_s is not None:
+                wait = max(0.0, head.admitted_s - head.arrival_s)
+                with self._lock:
+                    # /stats handler threads sort this deque live — an
+                    # unlocked append could fault their iteration
+                    self._queue_waits.append(wait)
+                if self.on_queue_wait is not None:
+                    self.on_queue_wait(wait)
+            with self._lock:
+                # /stats and preemption scans read running under the
+                # lock — publish the slot assignment the same way
                 self.running[lease.slot] = head
             self.admitted_total += 1
             out.append(head)
@@ -195,3 +284,39 @@ class Scheduler:
             self.allocator.release(slot)
         request.slot = None
         self.completed_total += 1
+        request._event.set()
+
+    def prefill_budget(self, chunk: int) -> int:
+        """The step's prefill-token budget, floored at one chunk —
+        a cap below the chunk width would deadlock the prefill, so the
+        floor IS the enforced cap (engine.max_prefill_tokens_step is
+        gated against this value, not the raw knob)."""
+        if self.prefill_token_cap <= 0:
+            return 1 << 30
+        return max(self.prefill_token_cap, int(chunk))
+
+    def queue_wait_ms(self) -> Dict[str, float]:
+        """Live queue-age percentiles over the recent-admissions window
+        (ms) — empty dict before the first admission.  Thread-safe
+        (called from /stats handler threads while the engine admits)."""
+        with self._lock:
+            xs = sorted(self._queue_waits)
+        if not xs:
+            return {}
+
+        def pct(q: float) -> float:
+            i = min(len(xs) - 1, max(0, round(q * (len(xs) - 1))))
+            return round(1e3 * xs[int(i)], 3)
+
+        return {"p50": pct(0.50), "p99": pct(0.99)}
+
+    def drain_queue(self) -> List[Request]:
+        """Remove and return every not-yet-started request — the
+        preemption path: in-flight requests finish, queued ones are
+        snapshotted for resubmission."""
+        with self._lock:
+            out = [r for prio in sorted(self._queues)
+                   for r in self._queues[prio]]
+            for q in self._queues.values():
+                q.clear()
+        return out

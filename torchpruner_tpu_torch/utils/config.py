@@ -274,7 +274,6 @@ _UNPORTED = (
     ("run_dir", "", "ROADMAP A8 (resilience)"),
     ("chaos", {}, "ROADMAP A8 (resilience)"),
     ("guard_nonfinite", False, "ROADMAP A8 (resilience)"),
-    ("checkpoint_path", "", "ROADMAP A8 (resilience)"),
     ("remat", False, "ROADMAP A3 (remat)"),
     ("moe_aux_weight", 0.0, "ROADMAP A1 (MoE)"),
     ("augment", False, "ROADMAP A3b (image augmentation)"),
