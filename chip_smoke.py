@@ -155,6 +155,35 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
     SIGTERM: exit code 0 and the drained summary (5 completed, 1 swap,
     both kernels launched).
 
+21-23 run in a child process (``python3 chip_smoke.py --moe-slice`` runs
+them alone, the kernels built or loaded first): a fresh profiler session
+for phase 21's trace, and the card's memory to themselves.
+
+21. Mixtral-8x7B int4 at full width and depth (``llama_moe()``, dense
+    dispatch, 23.3 GB of weights built leaf by leaf on the card):
+    phase 3's engine and traffic (4 slots, max_len 512, bf16 KV; 8
+    greedy requests at prompt lengths 16 / 40 / 100, 32 tokens), every
+    request replayed alone (0 mismatches), decode attention 32 launches
+    a decode step, dequant launches > 0; the gates of one 4-row decode
+    step on the card against the plain ops on the CPU on the same rows
+    (within 2**-6; a token's experts may differ only at a near-tie);
+    one decode step's wall, profiler kernel time and idle share, and the
+    CUDA-event time of widening the expert planes.
+22. Expert pruning at full width: ``run_prune_retrain`` on
+    ``llama_moe(depth=2, seq_len=512)`` (depth cut for memory) with
+    synthetic LM data injected, f32 Taylor on both blocks' experts,
+    fraction 0.25 (8 -> 6), one bf16 SGD epoch a target with
+    ``moe_aux_weight`` 0.01: 2 records at 6 experts, finite losses,
+    every aux loss >= 0.99, flash launches > 0; then one full-width MoE
+    layer: sparse dispatch at capacity E / top_k against dense (1e-4 x
+    max|dense|, f32) and the capacity-1.25 dispatch plan on the card
+    equal to the CPU's, pairs dropped.
+23. Phase 22's pruned model cast to bf16, quantized to int4 and saved
+    with ``save_checkpoint``, then ``serve llama3_ffn_taylor
+    --checkpoint DIR --synthetic 8 --verify`` with phase 19's serve-v2
+    flags: device cuda, 8 requests, 0 mismatches, both serving kernels
+    launched.
+
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
 """
@@ -2303,6 +2332,429 @@ def http_phase(tmp: str) -> dict:
     return out
 
 
+# -- phases 21-23 (the MoE slice, in a child process) ------------------------
+
+#: phase 21: Mixtral-8x7B's decode rows compared card vs CPU, and its
+#: serving traffic (phase 3's: prompt lengths at the prefill buckets, 32
+#: greedy tokens each)
+MIXTRAL_DEPTH = 32
+P21_TRAFFIC = dict(vocab=32000, prompt_lens=[16, 40, 100], max_new=[32],
+                   seed=0)
+#: phase 21's gate bound: 4 bf16 ulps at 1.0 (the router logits round to
+#: bf16 on both sides, in other orders); a token's expert set may differ
+#: only where its k-th and (k+1)-th CPU logits lie within 2 bf16 ulps
+GATE_TOL = 2 ** -6
+#: phase 22: expert pruning at full width, depth cut 32 -> 2 for memory
+#: (3.17 B parameters, 12.7 GB in f32); S 512, synthetic LM tokens
+P22 = dict(depth=2, seq_len=512, train=8, val=8, test=8, batch=4)
+#: phase 22: one full-width MoE layer and its (B, S) batch, where the
+#: sparse dispatch at capacity E / top_k is held against dense on the
+#: card in f32, relative to max|dense|: the same math, but dense sums
+#: each output over all E * F = 114,688 gated terms (zeros included)
+#: where sparse sums F = 14,336 terms twice and adds the two (1.08e-5
+#: measured on an H100)
+P22_DISPATCH = dict(E=8, d=4096, F=14336, B=2, S=512)
+SPARSE_TOL = 1e-4
+
+
+def _moe_inputs(model, params, dev, rows: int = 4):
+    """The input of every MoE layer in one ``rows``-row decode step after
+    an 8-token prefill (bf16 cache), recorded from the model walk."""
+    import torch
+
+    from torchpruner_tpu_torch.core import layers as L
+    from torchpruner_tpu_torch.generate import _decode_seq, init_cache
+
+    rec = []
+    orig = L.apply_layer
+
+    def spy(spec, p, s, x, **kw):
+        if isinstance(spec, L.MoE):
+            rec.append((spec, p["router"], x))
+        return orig(spec, p, s, x, **kw)
+
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    toks = torch.randint(0, 32000, (rows, 9), generator=gen).to(dev)
+    cache = init_cache(model, rows, 16, torch.bfloat16, device=dev)
+    with torch.no_grad():
+        _decode_seq(model.layers, params, cache, toks[:, :8], 0)
+        L.apply_layer = spy
+        try:
+            _decode_seq(model.layers, params, cache, toks[:, 8:], 8)
+        finally:
+            L.apply_layer = orig
+    return rec
+
+
+def moe_gate_check(model, params, dev) -> dict:
+    """The routing gates of one decode step on the card against the
+    plain ops on the CPU, on the same rows (each MoE layer's recorded
+    input) and the same bf16 router."""
+    import torch
+
+    from torchpruner_tpu_torch.core import layers as L
+
+    worst, near, logit_err, layers = 0.0, 0, 0.0, 0
+    for i, (spec, router, x) in enumerate(_moe_inputs(model, params, dev)):
+        with torch.no_grad():
+            raw_c, g_c = L.moe_routing(spec, {"router": router}, x, True)
+            raw_h, g_h = L.moe_routing(spec, {"router": router.cpu()},
+                                       x.cpu(), True)
+        raw_c, g_c = raw_c.cpu().float(), g_c.cpu().float()
+        raw_h, g_h = raw_h.float(), g_h.float()
+        logit_err = max(logit_err, float((raw_c - raw_h).abs().max()))
+        same = ((g_c > 0) == (g_h > 0)).all(dim=-1)
+        srt = torch.sort(raw_h, dim=-1, descending=True).values
+        kth = srt[..., spec.top_k - 1]
+        gap = kth - srt[..., spec.top_k]
+        tie = gap <= 2 * 2 ** -7 * kth.abs()
+        if bool((~same & ~tie).any()):
+            fail(f"phase 21 gates: {int((~same & ~tie).sum())} rows of "
+                 f"MoE layer {i + 1} chose other experts on the card away "
+                 f"from a near-tie")
+        near += int((~same).sum())
+        if bool(same.any()):
+            worst = max(worst, float((g_c - g_h).abs()[same].max()))
+        layers += 1
+    out = {"layers": layers, "max_abs_gate_err": worst, "tolerance": GATE_TOL,
+           "near_tie_rows_differing": near, "max_abs_logit_err": logit_err}
+    if layers != MIXTRAL_DEPTH or worst > GATE_TOL:
+        fail(f"phase 21 gates: {out}")
+    return out
+
+
+def expert_widening_ms(params, dev) -> float:
+    """CUDA-event ms of widening one block's three int4 expert planes to
+    bf16 (what the dense dispatch does at every MoE layer of a step)."""
+    import torch
+
+    from torchpruner_tpu_torch.ops.quant import wval
+
+    w = params["block1_moe"]["experts"]
+    return event_ms(lambda i: [wval(w[k], torch.bfloat16)
+                               for k in ("wg", "wu", "wo")], 5)
+
+
+def mixtral_serve_phase(dev) -> dict:
+    """Phase 21: Mixtral-8x7B (``llama_moe()``: published width and
+    depth, dense dispatch) at int4 through ``ServeEngine``, every request
+    replayed alone; then one decode step traced and the gates of a step
+    checked against the CPU's."""
+    import torch
+
+    from torchpruner_tpu_torch.experiments.llama8b_decode import (
+        quantized_random_params,
+        weight_bytes,
+    )
+    from torchpruner_tpu_torch.experiments.step_trace import trace_step
+    from torchpruner_tpu_torch.models import llama_moe
+    from torchpruner_tpu_torch.ops import decode_attention as DA
+    from torchpruner_tpu_torch.ops import fused_matmul as FM
+    from torchpruner_tpu_torch.serve.engine import ServeEngine
+    from torchpruner_tpu_torch.serve.frontend import verify_against_solo
+    from torchpruner_tpu_torch.serve.traffic import (
+        open_loop,
+        synthetic_requests,
+    )
+
+    model = llama_moe()
+    t0 = time.perf_counter()
+    params, _ = quantized_random_params(model, bits=4, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine = ServeEngine(model, params, n_slots=4, max_len=512,
+                         cache_dtype=torch.bfloat16, device=dev)
+    reqs = synthetic_requests(8, **P21_TRAFFIC)
+    reset_serve_launches()
+    t0 = time.perf_counter()
+    summary = engine.run(open_loop(reqs))
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {"dequant_matmul": FM.dequant_matmul.launches,
+                "decode_attention": DA.decode_attention.launches}
+    t0 = time.perf_counter()
+    mism = verify_against_solo(engine)
+    verify_s = time.perf_counter() - t0
+    bad = [r.id for r in engine.results()
+           if not all(0 <= t < 32000 for t in r.tokens)
+           or len(r.tokens) != r.max_new]
+    del engine
+    gates = moe_gate_check(model, params, dev)
+    trace = trace_step(model, params, slots=4, max_len=512, steps=2, reps=3)
+    widen = expert_widening_ms(params, dev) * MIXTRAL_DEPTH
+    out = {"model": "llama_moe() (Mixtral-8x7B)", "bits": 4,
+           "depth": MIXTRAL_DEPTH, "weight_gb": weight_bytes(params) / 1e9,
+           "params_build_s": build_s, "serve_s": serve_s,
+           "verify_s": verify_s,
+           "requests_completed": summary["requests_completed"],
+           "decode_steps": summary["decode_steps"],
+           "ttft_p50_ms": summary["ttft_p50_ms"],
+           "token_p50_ms": summary["token_p50_ms"],
+           "token_p99_ms": summary["token_p99_ms"],
+           "verify_mismatches": mism, "launches": launches,
+           "decode_step": {k: trace[k] for k in (
+               "wall_ms", "profiler_kernel_ms", "device_idle_share",
+               "profiler_kernels_per_step", "by_group", "top_kernels")},
+           "expert_widening_ms_per_step": widen,
+           "expert_widening_share_of_step": widen / trace["wall_ms"],
+           "gates": gates,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"mixtral serve: {json.dumps(out)}")
+    if summary["requests_completed"] != 8:
+        fail(f"phase 21 completed {summary['requests_completed']}/8")
+    if mism:
+        fail(f"phase 21: {mism} requests diverged from solo decode")
+    if bad:
+        fail(f"phase 21: bad token lists for requests {bad}")
+    if launches["dequant_matmul"] <= 0:
+        fail("phase 21 never launched the dequant kernel")
+    if launches["decode_attention"] != MIXTRAL_DEPTH * summary[
+            "decode_steps"]:
+        fail(f"phase 21: {launches['decode_attention']} decode attention "
+             f"launches for {summary['decode_steps']} steps of "
+             f"{MIXTRAL_DEPTH} layers")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_split(n: int, seed: int):
+    import numpy as np
+
+    from torchpruner_tpu_torch.data import Dataset
+
+    x = np.random.default_rng(seed).integers(
+        0, 32000, size=(n, P22["seq_len"])).astype(np.int32)
+    return Dataset(x, x, f"synthetic_lm_32000x{P22['seq_len']}")
+
+
+def moe_dispatch_check(dev) -> dict:
+    """One full-width MoE layer (E 8, d 4096, F 14336) on a batch of
+    (2, 512) f32 rows: sparse dispatch at capacity factor E / top_k
+    against dense on the card, and the capacity-1.25 dispatch plan (which
+    pairs are kept, where) on the card against the CPU's.  The rows lean
+    towards expert 0 (a unit step along its router column), so its
+    buffer overflows and pairs are dropped."""
+    import torch
+
+    from torchpruner_tpu_torch.core import layers as L
+
+    E, d, F, B, S = (P22_DISPATCH[k] for k in "EdFBS")
+    dense = L.MoE("experts", E, F)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params, _ = L.init_layer(dense, gen, (S, d), device=dev)
+    lean = params["router"][:, 0] / params["router"][:, 0].norm()
+    x = torch.randn((B, S, d), generator=gen, device=dev) + lean
+    nodrop = dataclasses.replace(dense, dispatch="sparse",
+                                 capacity_factor=E / dense.top_k)
+    with torch.no_grad():
+        y_d, _ = L.apply_layer(dense, params, {}, x)
+        y_s, _ = L.apply_layer(nodrop, params, {}, x)
+        err = float((y_s - y_d).abs().max()) / float(y_d.abs().max())
+        del y_d, y_s
+        cf = dataclasses.replace(nodrop, capacity_factor=1.25)
+        _, r_card = L.moe_routing(cf, params, x.reshape(-1, d))
+        _, r_cpu = L.moe_routing(cf, {"router": params["router"].cpu()},
+                                 x.reshape(-1, d).cpu())
+        plans = {}
+        for name, routing in (("card", r_card), ("cpu", r_cpu.to(dev))):
+            p = L.moe_dispatch(cf, routing)
+            plans[name] = {k: p[k].cpu() for k in
+                           ("top_e", "e_s", "t_s", "slot", "keep")}
+        cpu_plan = L.moe_dispatch(cf, r_cpu)
+    same_sel = torch.equal(plans["card"]["top_e"], cpu_plan["top_e"])
+    same_plan = all(torch.equal(plans["cpu"][k], cpu_plan[k].cpu())
+                    for k in plans["cpu"])
+    out = {"sparse_vs_dense_rel_err": err, "tolerance": SPARSE_TOL,
+           "capacity": cpu_plan["C"],
+           "pairs_dropped": int((~cpu_plan["keep"]).sum()),
+           "card_selection_equals_cpu": same_sel,
+           "plan_on_card_equals_cpu": same_plan}
+    if same_sel:
+        out["card_plan_equals_cpu"] = all(
+            torch.equal(plans["card"][k], cpu_plan[k]) for k in
+            plans["card"])
+    log(f"moe dispatch: {json.dumps(out)}")
+    if err > SPARSE_TOL or not same_plan or not out.get(
+            "card_plan_equals_cpu", True) or out["pairs_dropped"] <= 0:
+        fail(f"phase 22 dispatch: {out}")
+    return out
+
+
+def moe_prune_phase(dev) -> dict:
+    """Phase 22: ``run_prune_retrain`` on Mixtral at full width (2
+    blocks): f32 Taylor on both blocks' experts, fraction 0.25 (8 -> 6),
+    one bf16 SGD fine-tune epoch a target with ``moe_aux_weight`` 0.01.
+    Returns the phase's record and the final ``(model, params)``."""
+    import torch
+
+    from torchpruner_tpu_torch.core.segment import SegmentedModel
+    from torchpruner_tpu_torch.experiments import prune_retrain as PR
+    from torchpruner_tpu_torch.models import llama_moe
+    from torchpruner_tpu_torch.train.loop import Trainer
+    from torchpruner_tpu_torch.utils.config import ExperimentConfig
+
+    model = llama_moe(depth=P22["depth"], seq_len=P22["seq_len"])
+    # Adam would hold params, grads, both moments, their successors and
+    # the update at once: ~8 x 11.3 GB after the first prune; SGD: ~4 x
+    cfg = ExperimentConfig(
+        name="mixtral_expert_taylor", model="llama_moe", dataset="lm_mfu",
+        loss="lm_cross_entropy", method="taylor", policy="fraction",
+        fraction=0.25, target_filter=("_moe/",), finetune_epochs=1,
+        score_examples=P22["val"], batch_size=P22["batch"],
+        eval_batch_size=P22["batch"], optimizer="sgd", lr=1e-4,
+        compute_dtype="bfloat16", score_dtype="float32",
+        moe_aux_weight=0.01, log_path="logs/chip_smoke_moe.csv")
+    datasets = tuple(_lm_split(P22[s], seed) for seed, s in
+                     enumerate(("train", "val", "test")))
+    last, aux = {}, []
+    orig_eval, orig_prune = Trainer.evaluate, PR.prune
+    orig_apply = SegmentedModel.apply
+
+    def evaluate(self, data):  # keeps the trainer the loop ends with
+        last.update(model=self.model, params=self.params)
+        return orig_eval(self, data)
+
+    def prune(*a, **kw):  # the old tree must not outlive the prune
+        last.clear()
+        return orig_prune(*a, **kw)
+
+    def apply(self, *a, **kw):  # the aux losses of every training step
+        out = orig_apply(self, *a, **kw)
+        if kw.get("collect_aux"):
+            aux.append({k: float(v.detach()) for k, v in out[-1].items()})
+        return out
+
+    reset_launches()
+    Trainer.evaluate, PR.prune, SegmentedModel.apply = evaluate, prune, apply
+    try:
+        t0 = time.perf_counter()
+        hist = PR.run_prune_retrain(cfg, model=model, datasets=datasets,
+                                    verbose=False, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Trainer.evaluate, PR.prune = orig_eval, orig_prune
+        SegmentedModel.apply = orig_apply
+    launches = all_launches()
+    out = {"model": "llama_moe(depth=2) (Mixtral-8x7B width)",
+           "reduced": {"depth": "32 -> 2"}, "wall_s": wall,
+           "records": [{"layer": r.layer, "n_dropped": r.n_dropped,
+                        "experts": r.widths[r.layer],
+                        "pre_loss": r.pre_loss, "post_loss": r.post_loss,
+                        "n_params": r.n_params, "round_s": r.prune_time}
+                       for r in hist],
+           "aux_losses": aux, "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"moe prune: {json.dumps(out)}")
+    if [r.layer for r in hist] != ["block2_moe/experts",
+                                   "block1_moe/experts"]:
+        fail(f"phase 22 records {[r.layer for r in hist]}")
+    for r in hist:
+        if r.widths[r.layer] != 6 or not all(
+                math.isfinite(v) for v in (r.pre_loss, r.post_loss)):
+            fail(f"phase 22 {r.layer}: {r.widths[r.layer]} experts, losses "
+                 f"{r.pre_loss} / {r.post_loss}")
+    # two blocks, one train batch of 4 a step, 2 steps a target
+    if len(aux) != 2 * P22["train"] // P22["batch"] or any(
+            len(a) != 2 or min(a.values()) < 0.99 for a in aux):
+        fail(f"phase 22 aux losses {aux}")
+    for n in FLASH_KERNELS:
+        if launches[n] <= 0:
+            fail(f"phase 22 never launched {n}")
+    return out, last["model"], last["params"]
+
+
+def moe_cli_phase(dev, model, params, tmp: str) -> dict:
+    """Phase 23: phase 22's pruned model cast to bf16 and quantized to
+    int4, saved with ``save_checkpoint``, then served through the CLI
+    with ``--checkpoint`` and ``--verify``."""
+    import torch
+
+    from torchpruner_tpu_torch.checkpoint import save_checkpoint
+    from torchpruner_tpu_torch.ops.quant import quantize_params
+    from torchpruner_tpu_torch.utils.tree import cast_floats
+
+    q = quantize_params(model, cast_floats(params, torch.bfloat16), bits=4)
+    del params
+    wo = q["block1_moe"]["experts"]["wo"]
+    path = os.path.join(tmp, "mixtral_pruned")
+    t0 = time.perf_counter()
+    save_checkpoint(path, model, q, step=1, prune_history=[
+        {"layer": f"block{i}_moe/experts", "fraction": 0.25}
+        for i in (2, 1)])
+    save_s = time.perf_counter() - t0
+    del q
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torchpruner_tpu_torch", "serve",
+           "llama3_ffn_taylor", "--checkpoint", path, "--synthetic", "8",
+           "--shared-prefixes", "2", "--prefix-len", "64", "--prompt-lens",
+           "8,24", "--verify"] + CLI_V2
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    cli_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"phase 23 CLI exited {res.returncode}:\n{res.stdout}\n"
+             f"{res.stderr[-4000:]}")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    out = {"bytes": _dir_bytes(path), "save_s": save_s, "cli_s": cli_s,
+           "experts": model.layer("block1_moe/experts").n_experts,
+           "wo_pack_axis": wo.pack_axis, "summary": summary}
+    log(f"moe cli: {json.dumps(out)}")
+    if summary.get("device") != "cuda" \
+            or summary.get("requests_completed") != 8 \
+            or summary.get("verify_mismatches") != 0:
+        fail(f"phase 23 CLI summary: {summary}")
+    for name, n in summary["kernel_launches"].items():
+        if n <= 0:
+            fail(f"phase 23: the CLI never launched {name}")
+    return out
+
+
+def moe_slice(dev) -> dict:
+    """Phases 21-23 (run in a child process: a fresh profiler session
+    for phase 21's trace, and the card's memory to itself)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    log("phase 21: serve Mixtral-8x7B int4, full width and depth")
+    s21 = mixtral_serve_phase(dev)
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("phase 22: expert pruning, Mixtral full width, 2 blocks")
+    s22, model, params = moe_prune_phase(dev)
+    s22["dispatch"] = moe_dispatch_check(dev)
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        log("phase 23: the pruned model int4, serve --checkpoint --verify")
+        s23 = moe_cli_phase(dev, model, params, tmp)
+    del model, params
+    torch.cuda.empty_cache()
+    log(f"phase 23: {time.perf_counter() - t0:.1f} s")
+    return {"serve": s21, "prune": s22, "cli": s23}
+
+
+def run_moe_child() -> dict:
+    """Phases 21-23 in a child process; its result is its last stdout
+    line."""
+    import torch
+
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--moe-slice"], cwd=HERE, capture_output=True,
+                         text=True, timeout=900)
+    for line in res.stdout.strip().splitlines()[:-1]:
+        log(f"  {line}")
+    if res.returncode != 0:
+        fail(f"phases 21-23 exited {res.returncode}:\n{res.stdout[-4000:]}"
+             f"\n{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 def per_step(cases, key, weight):
     return sum(c[key] * weight(c) for c in cases)
 
@@ -2354,6 +2806,12 @@ def main() -> int:
     strict_fp32_matmul()  # float32 products in full precision (no TF32)
     smi = smi_line()
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    if sys.argv[1:] == ["--moe-slice"]:  # phases 21-23, as a child
+        _build.build()
+        out = moe_slice(dev)
+        print(json.dumps(out), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     info = _build.build()
@@ -2424,6 +2882,10 @@ def main() -> int:
         t0 = time.perf_counter()
         hp = http_phase(tmp)
         log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    log("phases 21-23: the MoE slice (Mixtral-8x7B), in a child process")
+    moe = run_moe_child()
+    log(f"phases 21-23: {time.perf_counter() - t0:.1f} s")
 
     # per-kernel line: the work of one full-depth 8B int4 decode step at
     # 4 slots (sum over that step's calls), every case beside it
@@ -2464,6 +2926,11 @@ def main() -> int:
             "launches_checkpoint_swap_cli": ck["summary"]["kernel_launches"][
                 name],
             "launches_http_server": hp["summary"]["kernel_launches"][name],
+            # the MoE slice: Mixtral-8x7B int4 serving (21), the pruned
+            # 2-block Mixtral's checkpoint through the CLI (23)
+            "launches_mixtral_serve": moe["serve"]["launches"][name],
+            "launches_moe_checkpoint_cli": moe["cli"]["summary"][
+                "kernel_launches"][name],
             **(prefill_sums(dq) if name == "dequant_matmul" else
                {"plan": step[0]["plan"]}),
             "cases": cases,
@@ -2501,6 +2968,8 @@ def main() -> int:
             "bound_fma_ms": score["bound_fma"][name][0],
             "launches_retrain": rt["launches"][name],
             "launches_causal": ca["launches"][name],
+            # phase 22: Mixtral expert pruning (f32 Taylor, bf16 SGD)
+            "launches_moe_prune": moe["prune"]["launches"][name],
             # a ViT-B/16 scoring batch (B 64, S 197, H 12, Dh 64, f32, not
             # causal); launches: phase 15's run
             "vit_scoring": {
@@ -2575,6 +3044,7 @@ def main() -> int:
         })
     kernels[0]["serve_v2"] = {"prefix_sharing": px, "checkpoint_swap": ck,
                               "http": hp}
+    kernels[0]["moe"] = moe
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

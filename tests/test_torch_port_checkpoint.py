@@ -7,10 +7,16 @@ A checkpoint written by either package restores in the other:
   included;
 - the restoring package's forward equals the writing package's on the
   same inputs: within 1e-6 x max|output| for the MLP and the BatchNorm
-  convnet, 4e-6 for ``llama_tiny`` float32 (its two attention blocks
-  compound sums taken in another order: the gap measured is 1.2e-6),
-  and 2**-6 (4 bf16 ulps) for the int4 / int8 trees, whose bf16
-  activations round at other points in the two frameworks;
+  convnet, 4e-6 for ``llama_tiny`` and ``llama_moe_tiny`` float32 (two
+  attention blocks compound sums taken in another order: the gap
+  measured is 1.2e-6), and 2**-6 (4 bf16 ulps) for the int4 / int8
+  Llama trees, whose bf16 activations round at other points in the two
+  frameworks; quantized MoE trees decode at an f32 cache (widened
+  weights, f32 activations: 4e-6; the gap measured is 1.1e-6), because
+  bf16 rounding can swap a token's experts at a near-tie;
+- MoE (``llama_moe_tiny``): dense and sparse dispatch in float32, int8,
+  int4, and int4 after one of four experts was pruned (the odd count
+  makes ``wo`` pack along F: ``pack_axis`` crosses with the leaf);
 - both packages seal the same ``arrays/`` digest for the same tree, with
   byte-identical ``index.json``.
 
@@ -41,6 +47,7 @@ from torchpruner_tpu.core.segment import init_model as j_init_model
 from torchpruner_tpu.generate import _decode_seq as j_decode_seq
 from torchpruner_tpu.generate import init_cache as j_init_cache
 from torchpruner_tpu.models import convnet as JCN
+from torchpruner_tpu.models import llama_moe_tiny as j_llama_moe_tiny
 from torchpruner_tpu.models import llama_tiny as j_llama_tiny
 from torchpruner_tpu.models import mlp as JMLP
 from torchpruner_tpu.ops.quant import QTensor as JQTensor
@@ -58,10 +65,13 @@ from torchpruner_tpu_torch.ops.quant import QTensor as PQTensor
 from torchpruner_tpu_torch.train import optim as PO
 
 CASES = ["llama_f32", "llama_int4", "llama_int8", "bn_convnet",
-         "mlp_pruned"]
+         "mlp_pruned", "moe_f32", "moe_sparse_f32", "moe_int8", "moe_int4",
+         "moe_odd_int4"]
 #: forward tolerance, x max|output| (see the module docstring)
 FWD_TOL = {"llama_f32": 4e-6, "llama_int4": 2 ** -6, "llama_int8": 2 ** -6,
-           "bn_convnet": 1e-6, "mlp_pruned": 1e-6}
+           "bn_convnet": 1e-6, "mlp_pruned": 1e-6, "moe_f32": 4e-6,
+           "moe_sparse_f32": 4e-6, "moe_int8": 4e-6, "moe_int4": 4e-6,
+           "moe_odd_int4": 4e-6}
 
 
 def numpy_tree(tree):
@@ -79,6 +89,16 @@ def numpy_tree(tree):
 def _case(kind):
     """``(JAX model, params, state, input)`` of one case tree."""
     rng = np.random.default_rng(7)
+    if kind.startswith("moe"):
+        model = j_llama_moe_tiny(
+            dispatch="sparse" if "sparse" in kind else "dense")
+        params, state = j_init_model(model, seed=0)
+        if kind == "moe_odd_int4":  # 4 -> 3 experts, then quantize
+            res = j_prune(model, params, "block1_moe/experts", [2])
+            model, params = res.model, res.params
+        if kind.endswith(("int4", "int8")):
+            params = j_quantize_params(model, params, bits=int(kind[-1]))
+        return model, params, state, rng.integers(0, 256, size=(2, 12))
     if kind.startswith("llama"):
         model = j_llama_tiny()
         params, state = j_init_model(model, seed=0)
@@ -102,10 +122,19 @@ def _case(kind):
     return res.model, res.params, res.state, x
 
 
+def _bf16_cache(model, params) -> bool:
+    """Quantized Llama trees decode at their serving config, a bf16
+    cache.  MoE trees decode at an f32 cache: a router logit rounded to
+    bf16 at another point in each framework can swap a token's experts
+    where two logits nearly tie (a discrete choice), so the forwards
+    would not be comparable."""
+    return isinstance(params["lm_head"]["w"], (JQTensor, PQTensor)) \
+        and not any("moe" in k for k in params)
+
+
 def _j_forward(model, params, state, x):
     if model.input_dtype == "int32":
-        dt = jnp.bfloat16 if isinstance(params["lm_head"]["w"],
-                                        JQTensor) else jnp.float32
+        dt = jnp.bfloat16 if _bf16_cache(model, params) else jnp.float32
         cache = j_init_cache(model, x.shape[0], x.shape[1], dt)
         y, _ = j_decode_seq(model.layers, params, cache, jnp.asarray(x), 0)
     else:
@@ -116,8 +145,8 @@ def _j_forward(model, params, state, x):
 def _p_forward(model, params, state, x):
     with torch.no_grad():
         if model.input_dtype == "int32":
-            dt = torch.bfloat16 if isinstance(params["lm_head"]["w"],
-                                              PQTensor) else torch.float32
+            dt = torch.bfloat16 if _bf16_cache(model, params) \
+                else torch.float32
             cache = p_init_cache(model, x.shape[0], x.shape[1], dt,
                                  device="cpu")
             y, _ = p_decode_seq(model.layers, params, cache,
@@ -201,6 +230,11 @@ def test_checkpoint_crosses_packages(tmp_path, kind, direction):
         leaf = params["block1_ffn"]["gate"]["wg"]
         assert leaf.bits == int(kind[-1])
         assert tuple(leaf.in_axes) == (0,)
+    if kind.startswith("moe") and kind.endswith(("int4", "int8")):
+        leaf = params["block1_moe"]["experts"]["wo"]
+        assert leaf.bits == int(kind[-1])
+        assert tuple(leaf.in_axes) == (0, 1)
+        assert leaf.pack_axis == (1 if kind == "moe_odd_int4" else 0)
     _assert_forward_close(got, want, kind)
 
 
@@ -224,14 +258,18 @@ def test_same_tree_same_digest(tmp_path, kind):
 
 
 @pytest.mark.parametrize("make", ["fc_net", "digits_convnet", "llama_tiny",
-                                  "vit_tiny", "resnet20_cifar"])
+                                  "vit_tiny", "resnet20_cifar",
+                                  "llama_moe_tiny", "llama_moe_sparse"])
 def test_spec_roundtrip(make):
     from torchpruner_tpu_torch import models as PM
 
     model = {"fc_net": lambda: PMLP.fc_net(8, hidden=(16,), n_classes=3),
              "digits_convnet": PM.digits_convnet,
              "llama_tiny": PM.llama_tiny, "vit_tiny": PM.vit_tiny,
-             "resnet20_cifar": PM.resnet20_cifar}[make]()
+             "resnet20_cifar": PM.resnet20_cifar,
+             "llama_moe_tiny": PM.llama_moe_tiny,
+             "llama_moe_sparse": lambda: PM.llama_moe_tiny(
+                 dispatch="sparse", capacity_factor=2.0)}[make]()
     d = PC.spec_to_dict(model)
     assert PC.spec_from_dict(json.loads(json.dumps(d))) == model
 

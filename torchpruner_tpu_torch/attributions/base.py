@@ -136,11 +136,11 @@ class AttributionMetric:
 def needs_taps(model: SegmentedModel, eval_layer: str) -> bool:
     """True when the evaluation site cannot be a segment boundary and
     metrics instrument a full forward instead: nested sites (inside a
-    ``Residual``) and attention layers (whose unit site is the head
-    context)."""
+    ``Residual``), attention layers (whose unit site is the head
+    context) and MoE layers (whose unit site is the gates)."""
     if len(L.parse_path(eval_layer)) > 1:
         return True
-    return isinstance(model.layer(eval_layer), L.MultiHeadAttention)
+    return isinstance(model.layer(eval_layer), (L.MultiHeadAttention, L.MoE))
 
 
 def cpu_generator(seed: int, calls: int) -> torch.Generator:

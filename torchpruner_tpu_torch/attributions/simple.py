@@ -54,8 +54,12 @@ class WeightNormAttributionMetric(AttributionMetric):
             # projections are shared across groups under GQA: excluded)
             norm = (p["wq"].abs().sum(dim=(0, 2))
                     + p["wo"].abs().sum(dim=(1, 2)))
+        elif isinstance(spec, L.MoE):
+            # per expert: all of its weight planes + its router column
+            norm = (p["wg"].abs().sum(dim=(1, 2))
+                    + p["wu"].abs().sum(dim=(1, 2))
+                    + p["wo"].abs().sum(dim=(1, 2))
+                    + p["router"].abs().sum(dim=0))
         else:
-            raise TypeError(
-                f"no weights to score on {type(spec).__name__} (MoE "
-                f"experts wait for the MoE layer, ROADMAP A1d)")
+            raise TypeError(f"no weights to score on {type(spec).__name__}")
         return np.asarray(norm.detach().float().cpu().numpy())

@@ -64,7 +64,7 @@ _LAYER_TYPES = {
     for cls in (L.Dense, L.Conv, L.BatchNorm, L.LayerNorm, L.RMSNorm,
                 L.Activation, L.Pool, L.GlobalPool, L.Flatten, L.Reshape,
                 L.Dropout, L.Embedding, L.PosEmbed, L.ClsToken,
-                L.MultiHeadAttention, L.GatedDense, L.Residual)
+                L.MultiHeadAttention, L.GatedDense, L.MoE, L.Residual)
 }
 
 #: the dtype names of the index (numpy's) <-> torch storage dtypes

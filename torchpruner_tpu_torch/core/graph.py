@@ -9,8 +9,10 @@ composite blocks:
   whose consumer lies within the same chain is prunable, while a
   producer whose output reaches the residual sum has its width pinned by
   the skip connection and is excluded;
-- attention heads and GLU channels form groups whose surgery stays
-  inside the layer/block, so they are always prunable;
+- attention heads, GLU channels and MoE experts form groups whose
+  surgery stays inside the layer/block, so they are always prunable; a
+  producer feeding MoE (whose output width follows its input width) is
+  width-pinned;
 - a ``Reshape`` that folds channels, and a ``ClsToken`` or ``PosEmbed``
   (whose params share the producer's width but are not sliced with
   it), end a producer's unit identity: the ViT patchify conv forms no
@@ -36,8 +38,8 @@ from torchpruner_tpu_torch.core.segment import SegmentedModel
 SHIFTABLE_ACTIVATIONS = frozenset(
     {"relu", "relu6", "leaky_relu", "sigmoid", "softplus", "tanh"})
 
-#: width-changing prunable producers (attention heads leave the layer's
-#: output width unchanged)
+#: width-changing prunable producers (attention heads and MoE experts
+#: leave the layer's output width unchanged)
 _CHANNEL_PRODUCERS = (L.Dense, L.Conv, L.GatedDense)
 _NORMS = (L.BatchNorm, L.LayerNorm, L.RMSNorm)
 
@@ -45,10 +47,11 @@ _NORMS = (L.BatchNorm, L.LayerNorm, L.RMSNorm)
 def find_best_evaluation_layer(model: SegmentedModel, name: str) -> str:
     """Walk forward from ``name`` while the next layer is a norm or a
     shiftable activation; return the last such layer (inside Residual
-    bodies too).  Attention/GLU targets are their own evaluation site."""
+    bodies too).  Attention/GLU/MoE targets are their own evaluation
+    site."""
     path = L.parse_path(name)
     spec = model.layer(name)
-    if isinstance(spec, (L.MultiHeadAttention, L.GatedDense)):
+    if isinstance(spec, (L.MultiHeadAttention, L.GatedDense, L.MoE)):
         return name
     if len(path) == 1:
         siblings = model.layers
@@ -95,7 +98,8 @@ def _join(prefix: Tuple[str, ...], name: str) -> str:
 def _consumer_entries(spec: L.LayerSpec, path: str, fan_out: int):
     """Consumer slices when ``spec``'s input width shrinks, or ``None``
     when its output width follows its input width (attention with
-    ``out_features=None``): the producer is then width-pinned."""
+    ``out_features=None``; MoE, whose output is ``wo``'s last axis): the
+    producer is then width-pinned."""
     if isinstance(spec, L.Dense):
         return [Consumer(path, "w", axis=0, fan_out=fan_out)]
     if isinstance(spec, L.Conv):  # HWIO: the in-channel axis
@@ -108,6 +112,8 @@ def _consumer_entries(spec: L.LayerSpec, path: str, fan_out: int):
             return None
         return [Consumer(path, p, axis=0, fan_out=fan_out)
                 for p in ("wq", "wk", "wv")]
+    if isinstance(spec, L.MoE):
+        return None
     raise TypeError(f"{type(spec).__name__} cannot consume")
 
 
@@ -119,7 +125,7 @@ def _walk(layers, prefix: Tuple[str, ...], in_shape: Tuple[int, ...],
     for spec, (i_shape, o_shape) in zip(layers,
                                         L.seq_shapes(layers, in_shape)):
         path = _join(prefix, spec.name)
-        if isinstance(spec, L.MultiHeadAttention):
+        if isinstance(spec, (L.MultiHeadAttention, L.MoE)):
             if current is not None:
                 entries = _consumer_entries(spec, path, current["fan_out"])
                 if entries is not None:
@@ -178,7 +184,7 @@ def _consume_into_residual(res: L.Residual, res_prefix: Tuple[str, ...],
             elif isinstance(spec, (L.Activation, L.Pool, L.GlobalPool)):
                 pass  # transparent
             elif isinstance(spec, _CHANNEL_PRODUCERS
-                            + (L.MultiHeadAttention,)):
+                            + (L.MultiHeadAttention, L.MoE)):
                 entries = _consumer_entries(spec, path, group["fan_out"])
                 if entries is None:
                     return False

@@ -4,7 +4,8 @@ Counterpart of ``torchpruner_tpu/core/layers.py``: the same frozen spec
 dataclasses with the same field names, and the same parameter layouts
 (Dense ``w (in, out)``; attention ``wq (d, H, Dh)``, ``wk``/``wv
 (d, KV, Dh)``, ``wo (H, Dh, d_out)``; GatedDense ``wg``/``wu (in,
-features)``; Embedding ``emb (vocab, features)``; PosEmbed ``emb
+features)``; MoE ``router (d, E)``, ``wg``/``wu (E, d, F)``, ``wo (E,
+F, d)``; Embedding ``emb (vocab, features)``; PosEmbed ``emb
 (max_len, features)``; ClsToken ``tok (features,)``; Conv ``w`` HWIO
 ``(kh, kw, in, out)``, permuted to OIHW only inside its apply rule;
 norm ``scale``/``bias``).  Parameters are nested dicts of tensors, one
@@ -37,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from torchpruner_tpu_torch.ops.blocksparse import BlockSparseWeight
-from torchpruner_tpu_torch.ops.fixed_order import per_rows
+from torchpruner_tpu_torch.ops.fixed_order import matmul_rows, per_rows
 from torchpruner_tpu_torch.ops.quant import QTensor, oscale, qdot, wval
 from torchpruner_tpu_torch.utils.device import resolve_device
 
@@ -250,6 +251,45 @@ class GatedDense:
 
 
 @dataclass(frozen=True)
+class MoE:
+    """Mixture-of-experts SwiGLU FFN on ``(B, S, d)`` (Mixtral-style).
+
+    The router keeps the ``top_k`` largest of ``n_experts`` logits per
+    token (every logit equal to the k-th largest survives a tie) and
+    the gates are the softmax over those.  ``dispatch``:
+
+    - ``"dense"``: every expert on every token, weighted by its (mostly
+      zero) gate;
+    - ``"sparse"``: token-expert pairs grouped by expert into buffers of
+      static capacity ``C = min(N, ceil(N * top_k / E *
+      capacity_factor))`` for ``N`` tokens; pairs past an expert's
+      capacity are dropped (contribute zero).  ``capacity_factor >=
+      n_experts / top_k`` drops nothing and equals the dense result.
+
+    Prunable: the unit is the expert; its unit site is the gate tensor
+    ``(B, S, E)`` in both dispatches."""
+
+    name: str
+    n_experts: int
+    ffn_dim: int
+    top_k: int = 2
+    fn: str = "silu"
+    dispatch: str = "dense"
+    capacity_factor: float = 1.25
+
+    def __post_init__(self):
+        if self.fn not in ACTIVATION_FNS:
+            raise ValueError(f"unknown activation {self.fn!r}")
+        if not 1 <= self.top_k <= self.n_experts:
+            raise ValueError(
+                f"top_k {self.top_k} out of range [1, {self.n_experts}]")
+        if self.dispatch not in ("dense", "sparse"):
+            raise ValueError(f"unknown dispatch {self.dispatch!r}")
+        if self.capacity_factor <= 0:
+            raise ValueError("capacity_factor must be positive")
+
+
+@dataclass(frozen=True)
 class Residual:
     """Residual block: ``y = body(x) + shortcut(x)`` (identity shortcut
     when ``shortcut`` is empty); children addressed ``"res/child"``."""
@@ -266,7 +306,7 @@ class Residual:
 
 LayerSpec = Any
 #: can be out-pruned (the JAX package's set, restricted to the port's specs)
-PRUNABLE_TYPES = (Dense, Conv, GatedDense, MultiHeadAttention)
+PRUNABLE_TYPES = (Dense, Conv, GatedDense, MultiHeadAttention, MoE)
 #: in-pruned alongside a producer
 ATTACHABLE_TYPES = (BatchNorm, Dropout, LayerNorm, RMSNorm)
 COMPOSITE_TYPES = (Residual,)
@@ -350,9 +390,11 @@ def unit_site_shape(spec: LayerSpec, in_shape: Tuple[int, ...]
                     ) -> Tuple[int, ...]:
     """Per-example shape of the activation at a layer's unit site — the
     tensor taps act on, unit axis last: the output, except attention's
-    head context ``(S, Dh, H)``."""
+    head context ``(S, Dh, H)`` and MoE's gates ``(S, E)``."""
     if isinstance(spec, MultiHeadAttention):
         return (in_shape[0], spec.head_dim, spec.num_heads)
+    if isinstance(spec, MoE):
+        return (in_shape[0], spec.n_experts)
     return out_shape(spec, in_shape)
 
 
@@ -412,6 +454,10 @@ def param_shapes(spec: LayerSpec, in_shape: Tuple[int, ...]
         if spec.use_bias:
             out.update(bg=(spec.features,), bu=(spec.features,))
         return out
+    if isinstance(spec, MoE):
+        d, E, F_ = in_shape[-1], spec.n_experts, spec.ffn_dim
+        return {"router": (d, E), "wg": (E, d, F_), "wu": (E, d, F_),
+                "wo": (E, F_, d)}
     if isinstance(spec, Residual):
         out: Dict[str, Any] = {}
         for branch in (spec.body, spec.shortcut):
@@ -502,6 +548,10 @@ def init_layer(spec: LayerSpec, gen: torch.Generator,
         elif isinstance(spec, MultiHeadAttention):
             fan = shp[0] if pname != "wo" else shp[0] * shp[1]
             params[pname] = normal(shp, 1.0 / math.sqrt(fan))
+        elif isinstance(spec, MoE):  # router (d, E), wg / wu / wo (E, ...)
+            fan = shp[0] if pname == "router" else shp[1]
+            std = math.sqrt((2.0 if pname in ("wg", "wu") else 1.0) / fan)
+            params[pname] = normal(shp, std)
         else:  # Dense / GatedDense: Kaiming normal
             params[pname] = normal(shp, math.sqrt(2.0 / shp[0]))
     return params, out_shape(spec, in_shape)
@@ -521,14 +571,16 @@ def parse_path(name) -> Tuple[str, ...]:
 
 class Taps:
     """Per-call instrumentation: unit masking, additive perturbation and
-    activation capture at named sites (paths).  ``multi_capture``
-    records every listed site into ``captures`` in one forward."""
+    activation capture at named sites (paths), and the collection of
+    auxiliary losses (MoE load balancing, train mode only) into ``aux``.
+    ``multi_capture`` records every listed site into ``captures`` in one
+    forward."""
 
     __slots__ = ("unit_mask", "perturb", "capture", "captured",
-                 "multi_capture", "captures")
+                 "multi_capture", "captures", "collect_aux", "aux")
 
     def __init__(self, unit_mask=None, perturb=None, capture=None,
-                 multi_capture=()):
+                 multi_capture=(), collect_aux=False):
         self.unit_mask = (None if unit_mask is None
                           else (parse_path(unit_mask[0]), unit_mask[1]))
         self.perturb = (None if perturb is None
@@ -537,6 +589,8 @@ class Taps:
         self.captured = None
         self.multi_capture = frozenset(parse_path(p) for p in multi_capture)
         self.captures: Dict[str, torch.Tensor] = {}
+        self.collect_aux = collect_aux
+        self.aux: Dict[str, torch.Tensor] = {}  # {path string: scalar}
 
     def empty(self) -> bool:
         return (self.unit_mask is None and self.perturb is None
@@ -572,7 +626,8 @@ def apply_seq(layers, params, state, x, *, train: bool = False,
               taps: Optional[Taps] = None, prefix: Tuple[str, ...] = (),
               fixed_order: bool = False):
     """Run a sequential pipeline of layers, applying output-site taps
-    after every non-attention layer (attention taps its own head site).
+    after every layer but attention and MoE (which tap their own head
+    context and gates).
     ``rng`` feeds every train-mode Dropout in order.  Returns ``(y,
     new_state)``: ``state`` with the entries train mode rewrote."""
     state = state if state is not None else {}
@@ -584,7 +639,7 @@ def apply_seq(layers, params, state, x, *, train: bool = False,
         x, s2 = apply_layer(spec, p, s, x, train=train, rng=rng, taps=taps,
                             path=path, fixed_order=fixed_order)
         if (taps is not None and not taps.empty()
-                and not isinstance(spec, MultiHeadAttention)):
+                and not isinstance(spec, (MultiHeadAttention, MoE))):
             x = taps.at_site(path, x)
         if s2 is not s and s2:
             new_state[spec.name] = s2
@@ -744,6 +799,8 @@ def apply_layer(spec: LayerSpec, params, state, x: torch.Tensor, *,
             g = g + params["bg"]
             u = u + params["bu"]
         return ACTIVATION_FNS[spec.fn](g) * u, state
+    if isinstance(spec, MoE):
+        return _moe(spec, params, x, train, taps, path, fixed_order), state
     if isinstance(spec, Residual):
         y, new_state = apply_seq(spec.body, params, state, x, train=train,
                                  rng=rng, taps=taps, prefix=path,
@@ -879,6 +936,151 @@ def _attention(spec: MultiHeadAttention, params, x, taps, path,
     return y
 
 
+def moe_routing(spec: MoE, params, x: torch.Tensor,
+                fixed_order: bool = False):
+    """``(raw router logits, routing gates)``, both ``(..., E)``: the
+    logits below the k-th largest (from a sort, so every logit tied with
+    it survives) are masked to the dtype's minimum before the softmax,
+    as in the JAX package (``torch.topk``'s tie order is not
+    guaranteed, so it is not used)."""
+    E = spec.n_experts
+    raw = _dot(x, params["router"], fixed_order)
+    logits = raw
+    if spec.top_k < E:
+        kth = torch.sort(logits, dim=-1).values[..., E - spec.top_k]
+        logits = torch.where(logits >= kth[..., None], logits,
+                             torch.finfo(logits.dtype).min)
+    if fixed_order:
+        return raw, per_rows(lambda c: torch.softmax(c, dim=-1), logits)
+    return raw, torch.softmax(logits, dim=-1)
+
+
+def _expert_in(x: torch.Tensor, w, fixed_order: bool) -> torch.Tensor:
+    """``einsum("bsd,edf->bsef", x, w)`` on ``w``'s widened payload, its
+    output-channel scale applied; per fixed row chunk on the fixed-order
+    path."""
+    wv = wval(w, x.dtype)
+    dt = torch.promote_types(x.dtype, wv.dtype)
+    wv = wv.to(dt)
+    if fixed_order:
+        y = per_rows(lambda c: torch.matmul(c, wv).transpose(0, 1),
+                     x.to(dt))
+    else:
+        y = torch.einsum("bsd,edf->bsef", x.to(dt), wv)
+    return oscale(y, w)
+
+
+def _expert_mm(buf: torch.Tensor, w, fixed_order: bool) -> torch.Tensor:
+    """``einsum("ecd,edf->ecf")`` of the sparse dispatch's per-expert
+    buffers on ``w``'s widened payload (each expert's rows in fixed
+    chunks on the fixed-order path), its scale multiplied positionally
+    (the buffers have the weight's rank: a scale element is constant
+    across its expert's contraction, so this is exact)."""
+    wv = wval(w, buf.dtype)
+    dt = torch.promote_types(buf.dtype, wv.dtype)
+    if fixed_order:
+        y = torch.stack([matmul_rows(buf[e], wv[e])
+                         for e in range(buf.shape[0])])
+    else:
+        y = torch.matmul(buf.to(dt), wv.to(dt))
+    return y * w.scale.to(y.dtype) if isinstance(w, QTensor) else y
+
+
+def _moe(spec: MoE, params, x, train, taps, path, fixed_order):
+    """The MoE rule: routing, the gate-site taps, the Switch balancing
+    loss (collected in train mode when ``top_k < E``), then the dense or
+    the sparse dispatch."""
+    E = spec.n_experts
+    raw, routing = moe_routing(spec, params, x, fixed_order)
+    gates = routing
+    if taps is not None and not taps.empty():
+        gates = taps.at_site(path, gates)  # the expert unit site
+    if taps is not None and taps.collect_aux and train and spec.top_k < E:
+        # E * sum_e f_e * P_e: f_e the share of top-k slots expert e
+        # takes, P_e its mean full-softmax probability; 1.0 when
+        # perfectly balanced.  With top_k == E it is a gradient-free 1.0,
+        # so it is not collected
+        full_p = torch.softmax(raw, dim=-1)
+        chosen = (routing > 0).float()
+        f = chosen.mean(dim=(0, 1)) / spec.top_k
+        taps.aux["/".join(path)] = E * torch.sum(f * full_p.mean(dim=(0, 1)))
+    if spec.dispatch == "sparse" and spec.top_k < E:
+        # the pre-tap routing decides which experts a token visits; the
+        # tapped gates only weight them, so ablation acts as in dense
+        return _moe_sparse(spec, params, x, routing, gates, fixed_order)
+    g = _expert_in(x, params["wg"], fixed_order)
+    u = _expert_in(x, params["wu"], fixed_order)
+    h = ACTIVATION_FNS[spec.fn](g) * u                   # (B, S, E, F)
+    hg = h * gates[..., None]
+    B, S = hg.shape[:2]
+    # wo contracts (E, F): its widened payload as one (E*F, d) matrix
+    wo = wval(params["wo"], hg.dtype)
+    y = _dot(hg.reshape(B, S, -1), wo.reshape(-1, wo.shape[-1]),
+             fixed_order)
+    return oscale(y, params["wo"])
+
+
+def moe_dispatch(spec: MoE, routing: torch.Tensor):
+    """The sparse dispatch's plan for ``routing (N, E)``: each token's
+    ``top_k`` experts (largest routing value first, the lower index
+    first on a tie, as ``lax.top_k``), the pairs ``t * K + k`` stably
+    sorted by expert (``order``), each sorted pair's expert, token and
+    slot in its expert's buffer, whether it fits (``keep``), and the
+    capacity ``C``."""
+    N, E = routing.shape
+    K = spec.top_k
+    top_e = torch.sort(routing, dim=-1, descending=True,
+                       stable=True).indices[:, :K]           # (N, K)
+    P = N * K
+    dev = routing.device
+    e_flat = top_e.reshape(P)
+    t_flat = torch.arange(N, device=dev).repeat_interleave(K)
+    C = min(N, int(math.ceil(N * K / E * spec.capacity_factor)))
+    order = torch.argsort(e_flat, stable=True)  # group pairs by expert
+    e_s, t_s = e_flat[order], t_flat[order]
+    counts = torch.bincount(e_flat, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts   # exclusive prefix sum
+    pos = torch.arange(P, device=dev) - starts[e_s]
+    keep = pos < C
+    slot = torch.where(keep, pos, torch.full_like(pos, C))  # C: shed
+    return {"top_e": top_e, "order": order, "e_s": e_s, "t_s": t_s,
+            "slot": slot, "keep": keep, "C": C}
+
+
+def _moe_sparse(spec: MoE, params, x, routing, gates, fixed_order):
+    """Capacity-based sparse dispatch (see :class:`MoE`): gather the kept
+    pairs into ``(E, C, d)`` buffers (the shed slot ``C`` is sliced
+    off), the three expert products at ``(E, C, ·)``, then each token's
+    ``top_k`` contributions summed in expert order — a fixed order, with
+    no float atomics, so the result is the same on every run."""
+    B, S, d = x.shape
+    E, K = spec.n_experts, spec.top_k
+    N = B * S
+    plan = moe_dispatch(spec, routing.reshape(N, E))
+    e_s, t_s, slot, keep, C = (plan[k] for k in
+                               ("e_s", "t_s", "slot", "keep", "C"))
+    xf = x.reshape(N, d)
+    buf = xf.new_zeros((E, C + 1, d)).index_put(
+        (e_s, slot), xf[t_s])[:, :C]
+    g = _expert_mm(buf, params["wg"], fixed_order)
+    u = _expert_mm(buf, params["wu"], fixed_order)
+    h = ACTIVATION_FNS[spec.fn](g) * u                   # (E, C, F)
+    out = _expert_mm(h, params["wo"], fixed_order)       # (E, C, d)
+    g_s = gates.reshape(N, E)[t_s, e_s]                  # tapped weights
+    contrib = out[e_s, slot.clamp(max=C - 1)] * torch.where(
+        keep, g_s, torch.zeros_like(g_s))[:, None]
+    # back to (token, k) order, then each token's pairs in expert order
+    inv = torch.empty_like(plan["order"])
+    inv[plan["order"]] = torch.arange(N * K, device=x.device)
+    c = contrib[inv].reshape(N, K, d)
+    kord = torch.argsort(plan["top_e"], dim=-1)
+    c = torch.take_along_dim(c, kord[..., None], dim=1)
+    y = c[:, 0]
+    for k in range(1, K):
+        y = y + c[:, k]
+    return y.reshape(B, S, d)
+
+
 # ---------------------------------------------------------------------------
 # Prunable-unit helpers
 # ---------------------------------------------------------------------------
@@ -890,6 +1092,8 @@ def n_units(spec: LayerSpec) -> int:
         return spec.features
     if isinstance(spec, MultiHeadAttention):
         return spec.num_heads
+    if isinstance(spec, MoE):
+        return spec.n_experts
     raise TypeError(f"{type(spec).__name__} has no prunable units")
 
 
@@ -897,6 +1101,9 @@ def with_features(spec: LayerSpec, features: int) -> LayerSpec:
     """Return a copy of a prunable spec with a new unit count."""
     if isinstance(spec, (Dense, Conv, GatedDense)):
         return dataclasses.replace(spec, features=features)
+    if isinstance(spec, MoE):
+        return dataclasses.replace(spec, n_experts=features,
+                                   top_k=min(spec.top_k, features))
     if isinstance(spec, MultiHeadAttention):
         if spec.kv_group is not None:
             raise ValueError(

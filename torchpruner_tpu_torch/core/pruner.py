@@ -43,7 +43,8 @@ def plan_for_group(model: SegmentedModel, group: PruneGroup) -> PrunePlan:
     axis 3 (HWIO) / ``b`` axis 0; GatedDense
     ``wg``/``wu`` axis 1; attention query heads ``wq`` axis 1, ``wo``
     axis 0, ``bq`` axis 0, plus ``wk``/``wv``/``bk``/``bv`` when KV heads
-    match query heads), attached norms (axis 0; a BatchNorm's running
+    match query heads; MoE experts ``router`` axis 1 and ``wg`` / ``wu``
+    / ``wo`` axis 0), attached norms (axis 0; a BatchNorm's running
     ``mean`` / ``var`` in the state tree) and consumer in-slices."""
     target = model.layer(group.target)
     tpath = L.parse_path(group.target)
@@ -69,6 +70,10 @@ def plan_for_group(model: SegmentedModel, group: PruneGroup) -> PrunePlan:
                        ParamSlice(tpath + ("wv",), axis=1),
                        ParamSlice(tpath + ("bk",), axis=0, optional=True),
                        ParamSlice(tpath + ("bv",), axis=0, optional=True)]
+    elif isinstance(target, L.MoE):
+        slices += [ParamSlice(tpath + ("router",), axis=1)]
+        slices += [ParamSlice(tpath + (p,), axis=0)
+                   for p in ("wg", "wu", "wo")]
     else:
         raise TypeError(
             f"cannot out-prune {type(target).__name__} {group.target!r}")

@@ -182,7 +182,8 @@ class SegmentedModel:
               unit_mask: Optional[Tuple[str, Any]] = None,
               perturb: Optional[Tuple[str, Any]] = None,
               capture: Optional[str] = None,
-              captures: Optional[Sequence[str]] = None):
+              captures: Optional[Sequence[str]] = None,
+              collect_aux: bool = False):
         """Run the segment after ``from_layer`` through ``to_layer``
         inclusive (``x`` is then ``from_layer``'s output).
 
@@ -194,10 +195,13 @@ class SegmentedModel:
         - ``capture=site`` additionally returns the activation there;
         - ``captures=(site, ...)`` additionally returns ``{site:
           activation}`` for every listed site from one forward;
+        - ``collect_aux=True`` additionally returns the auxiliary
+          training losses of the layers (MoE load balancing, train mode
+          only) as ``{layer path: scalar}``;
         - ``rng`` feeds train-mode Dropout.
 
         Returns ``(y, state)``, then the captured activation, then the
-        captures dict, when requested."""
+        captures dict, then the aux-loss dict, when requested."""
         state = state if state is not None else {}
         start = 0 if from_layer is None else self.index(from_layer) + 1
         stop = len(self.layers) if to_layer is None \
@@ -209,10 +213,11 @@ class SegmentedModel:
                 f"empty segment: from {from_layer!r} to {to_layer!r}")
         taps = None
         if (unit_mask is not None or perturb is not None
-                or capture is not None or captures):
+                or capture is not None or captures or collect_aux):
             taps = L.Taps(unit_mask=unit_mask, perturb=perturb,
                           capture=capture,
-                          multi_capture=tuple(captures) if captures else ())
+                          multi_capture=tuple(captures) if captures else (),
+                          collect_aux=collect_aux)
         y, new_state = L.apply_seq(self.layers[start:stop], params, state, x,
                                    train=train, rng=rng, taps=taps,
                                    fixed_order=False)
@@ -221,6 +226,8 @@ class SegmentedModel:
             out = out + (taps.captured,)
         if captures:
             out = out + (taps.captures,)
+        if collect_aux:
+            out = out + (taps.aux,)
         return out
 
     # -- pruning-adjacent helpers ---------------------------------------------

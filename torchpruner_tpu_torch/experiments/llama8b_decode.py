@@ -1,12 +1,15 @@
-"""Llama-3-8B served at int4 (or int8) weights — counterpart of
+"""Llama-3-8B (and Mixtral-8x7B, ``models.llama_moe()``) served at int4
+(or int8) weights — counterpart of
 ``torchpruner_tpu/experiments/llama8b_decode.py``'s parameter builder.
 
 Params are built DIRECTLY at the quantized representation: each float
 leaf is drawn on the device in bf16 from a seeded ``torch.Generator``,
 quantized, and dropped, so peak transient memory is one leaf (plus its
-f32 quantize copy, ~2.1 GB for the lm_head) on top of the quantized
-tree — no 8B float master is ever materialized.  Weights are random;
-the decode cost does not depend on their values.
+f32 quantize copies: ~2.1 GB for Llama-3-8B's lm_head, 1.88 GB a copy
+for one ``(8, 4096, 14336)`` Mixtral expert plane) on top of the
+quantized tree — no float master is ever materialized (Mixtral's would
+be 187 GB in f32).  Weights are random; the decode cost does not depend
+on their values.
 """
 
 from __future__ import annotations

@@ -213,7 +213,7 @@ def run_prune_retrain(cfg: ExperimentConfig, *, model=None, datasets=None,
     sdtype = compute_dtype(cfg.score_dtype)
     trainer = Trainer.create(model, tx, loss_fn, seed=cfg.seed,
                              compute_dtype=compute_dtype(cfg.compute_dtype),
-                             device=dev)
+                             device=dev, moe_aux_weight=cfg.moe_aux_weight)
     val_batches = val.batches(cfg.eval_batch_size)
     test_batches = test.batches(cfg.eval_batch_size)
     history: List[PruneStepRecord] = []

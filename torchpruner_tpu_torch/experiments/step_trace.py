@@ -4,7 +4,8 @@ Counterpart of ``torchpruner_tpu/experiments/step_trace.py`` for the
 serving path: builds Llama-3-8B at int4 (or int8) weights, fills a
 ``(slots, max_len)`` bf16 KV cache, and times one decode step of the slot
 array (the model walk ``generate._decode_seq`` at ``slots`` rows, each at
-its own position) two ways:
+its own position) two ways (:func:`trace_step`, which ``chip_smoke.py``
+phase 21 also runs on Mixtral-8x7B):
 
 - ``wall_ms``: host wall time of the step with a synchronize after it
   (median of five);
@@ -51,13 +52,9 @@ def _group(name: str) -> str:
 
 def run(bits: int = 4, depth: int = 32, slots: int = 4, max_len: int = 512,
         steps: int = 3, reps: int = 5, top: int = 15) -> dict:
-    import numpy as np
-    import torch
-
     from torchpruner_tpu_torch.experiments.llama8b_decode import (
         quantized_random_params,
     )
-    from torchpruner_tpu_torch.generate import _decode_seq, init_cache
     from torchpruner_tpu_torch.models import llama3_8b
     from torchpruner_tpu_torch.utils.device import (
         resolve_device,
@@ -68,6 +65,22 @@ def run(bits: int = 4, depth: int = 32, slots: int = 4, max_len: int = 512,
     strict_fp32_matmul()
     model = llama3_8b(depth=depth)
     params, _ = quantized_random_params(model, bits=bits, seed=0, device=dev)
+    out = trace_step(model, params, slots=slots, max_len=max_len,
+                     steps=steps, reps=reps, top=top)
+    return {"bits": bits, "depth": depth, **out}
+
+
+def trace_step(model, params, *, slots: int = 4, max_len: int = 512,
+               steps: int = 3, reps: int = 5, top: int = 15) -> dict:
+    """Wall, profiler kernel time and idle share of one slot-array
+    decode step of ``model`` at ``params`` (on the card), the cache
+    filled with normals and the rows at mid-run positions."""
+    import numpy as np
+    import torch
+
+    from torchpruner_tpu_torch.generate import _decode_seq, init_cache
+
+    dev = torch.device("cuda")
     cache = init_cache(model, slots, max_len, torch.bfloat16, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     for entry in cache.values():
@@ -112,8 +125,7 @@ def run(bits: int = 4, depth: int = 32, slots: int = 4, max_len: int = 512,
         g["kernels_per_step"] += e.count / steps
         g["ms_per_step"] += _device_us(e) / 1e3 / steps
     out = {
-        "bits": bits, "depth": depth, "slots": slots, "max_len": max_len,
-        "pos": pos.tolist(),
+        "slots": slots, "max_len": max_len, "pos": pos.tolist(),
         "wall_ms": wall,
         "profiler_kernel_ms": kernel_ms,
         "device_idle_share": (max(0.0, 1.0 - kernel_ms / wall)

@@ -1,4 +1,5 @@
-"""Model families of the port: Llama (serving, causal training), BERT
+"""Model families of the port: Llama (serving, causal training) and its
+Mixtral-style MoE variant (expert pruning, MoE serving), BERT
 (the GLUE Sensitivity-pruning preset), the fully-connected nets and ViT
 (the Shapley presets), VGG16-bn (the layerwise-robustness sweep), the
 convnets and ResNets (BatchNorm conv families), and the analytic
@@ -20,6 +21,8 @@ from torchpruner_tpu_torch.models.convnet import (  # noqa: F401
 from torchpruner_tpu_torch.models.llama import (  # noqa: F401
     llama,
     llama3_8b,
+    llama_moe,
+    llama_moe_tiny,
     llama_tiny,
     mfu_llama,
 )

@@ -2,7 +2,8 @@
 
 Pre-norm decoder: token embedding, ``depth`` blocks of
 ``Residual[RMSNorm, causal GQA attention with RoPE]`` +
-``Residual[RMSNorm, SwiGLU, down-proj]``, final RMSNorm, LM head.  The
+``Residual[RMSNorm, SwiGLU, down-proj]`` (``llama_moe``:
+``Residual[RMSNorm, MoE]``), final RMSNorm, LM head.  The
 same specs, names and defaults as the JAX package, so a param tree
 converts one to one (``torchpruner_tpu_torch/convert.py``).
 """
@@ -49,6 +50,71 @@ def llama(
         L.Dense("lm_head", vocab_size, use_bias=False),
     ]
     return SegmentedModel(tuple(layers), (seq_len,), input_dtype="int32")
+
+
+def llama_moe(
+    *,
+    vocab_size: int = 32000,
+    dim: int = 4096,
+    depth: int = 32,
+    num_heads: int = 32,
+    num_kv_heads: int = 8,
+    head_dim: int = 128,
+    ffn_dim: int = 14336,
+    n_experts: int = 8,
+    top_k: int = 2,
+    rope_theta: float = 1e6,
+    seq_len: int = 2048,
+    dispatch: str = "dense",
+    capacity_factor: float = 1.25,
+) -> SegmentedModel:
+    """Mixtral-style sparse-MoE decoder (the defaults are Mixtral-8x7B:
+    46.7 B parameters): each block's FFN is a top-k-routed mixture of
+    SwiGLU experts, and the expert is the prunable unit."""
+    layers: list = [L.Embedding("tok_emb", vocab_size, dim)]
+    for i in range(1, depth + 1):
+        layers += [
+            L.Residual(f"block{i}_attn", (
+                L.RMSNorm("norm"),
+                L.MultiHeadAttention(
+                    "attn", num_heads=num_heads, head_dim=head_dim,
+                    num_kv_heads=num_kv_heads, out_features=dim,
+                    causal=True, rope=True, rope_theta=rope_theta),
+            )),
+            L.Residual(f"block{i}_moe", (
+                L.RMSNorm("norm"),
+                L.MoE("experts", n_experts, ffn_dim, top_k=top_k,
+                      dispatch=dispatch, capacity_factor=capacity_factor),
+            )),
+        ]
+    layers += [
+        L.RMSNorm("final_norm"),
+        L.Dense("lm_head", vocab_size, use_bias=False),
+    ]
+    return SegmentedModel(tuple(layers), (seq_len,), input_dtype="int32")
+
+
+def llama_moe_tiny(
+    *,
+    vocab_size: int = 256,
+    dim: int = 32,
+    depth: int = 2,
+    num_heads: int = 4,
+    num_kv_heads: int = 2,
+    ffn_dim: int = 32,
+    n_experts: int = 4,
+    top_k: int = 2,
+    seq_len: int = 16,
+    dispatch: str = "dense",
+    capacity_factor: float = 1.25,
+) -> SegmentedModel:
+    """Miniature MoE decoder — tests and CPU smoke runs."""
+    return llama_moe(
+        vocab_size=vocab_size, dim=dim, depth=depth, num_heads=num_heads,
+        num_kv_heads=num_kv_heads, head_dim=dim // num_heads,
+        ffn_dim=ffn_dim, n_experts=n_experts, top_k=top_k,
+        rope_theta=10000.0, seq_len=seq_len, dispatch=dispatch,
+        capacity_factor=capacity_factor)
 
 
 def llama3_8b(seq_len: int = 2048, depth: int = 32) -> SegmentedModel:

@@ -28,13 +28,20 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
     return (lo | hi).to(torch.uint8).view(torch.int8)
 
 
-def unpack_int4(p: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`pack_int4`: ``(D//2, F)`` int8 → ``(D, F)``
-    sign-extended int8 in [-8, 7]."""
-    pi = p.to(torch.int32)
-    lo = ((pi << 28) >> 28).to(torch.int8)  # low nibble, sign-extended
-    hi = (pi >> 4).to(torch.int8)           # arithmetic shift sign-extends
-    return torch.stack([lo, hi], dim=1).reshape(-1, p.shape[-1])
+def unpack_int4(p: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Inverse of :func:`pack_int4` along ``axis``: ``(D//2, F)`` int8 →
+    ``(D, F)`` sign-extended int8 in [-8, 7] (``axis`` = the packed
+    axis of a payload of any rank, which doubles).  The shifts stay in
+    int8 (the low nibble's left shift wraps, the right shifts are
+    arithmetic) and the halves interleave in place of ``axis``, so a
+    widened copy moves a fraction of the bytes an int32 detour or a
+    transposed copy would."""
+    axis = axis % p.ndim
+    lo = (p << 4) >> 4  # low nibble, sign-extended
+    hi = p >> 4         # high nibble: the arithmetic shift sign-extends
+    shape = list(p.shape)
+    shape[axis] *= 2
+    return torch.stack([lo, hi], dim=axis + 1).reshape(shape)
 
 
 def quantize_int4(w: torch.Tensor, *, sym_max: int = 7):

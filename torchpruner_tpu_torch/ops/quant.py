@@ -10,8 +10,9 @@ On CUDA, int4 and int8 weights contracted along their leading axis with
 bf16 activations go through the hand-written dequant kernel
 (``ops/fused_matmul.py``), which reads the integer bytes and widens them
 in registers.  Other sites (attention's ``wo``, whose two contracted
-axes do not flatten onto the kernel's packed layout) consume
-:func:`wval`'s widened copy, as in the JAX package.
+axes do not flatten onto the kernel's packed layout, and the MoE expert
+planes, contracted along axis 1 or along ``(0, 1)``) consume
+:func:`wval`'s widened copy in a plain product, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,11 +66,7 @@ class QTensor:
         """The logical int8 payload (identity for bits=8)."""
         if self.bits != 4:
             return self.q
-        moved = torch.movedim(self.q, self.pack_axis, 0)
-        flat = unpack_int4(moved.reshape(moved.shape[0], -1))
-        return torch.movedim(
-            flat.reshape((moved.shape[0] * 2,) + tuple(moved.shape[1:])),
-            0, self.pack_axis)
+        return unpack_int4(self.q, self.pack_axis)
 
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         """Materialized ``q * scale`` (tests / export, not serving)."""
@@ -158,8 +155,12 @@ def oscale(y: torch.Tensor, w) -> torch.Tensor:
     return y * w.out_scale().to(y.dtype)
 
 
-#: layer-type -> {param key: contracted input axes} (the JAX table,
-#: restricted to the layer types the port serves)
+#: layer-type -> {param key: contracted input axes} (the JAX table).  MoE
+#: ``wg`` / ``wu (E, d, F)`` contract ``d``: one scale per (expert,
+#: channel).  ``wo (E, F, d)`` contracts ``(E, F)``: one scale per output
+#: ``d`` shared by the experts, because the dense dispatch's
+#: ``bsef,efd->bsd`` sums over experts, so a per-expert scale could not
+#: be taken out of the product.  The router stays float.
 _QUANT_KEYS = {
     "Dense": {"w": (0,)},
     "GatedDense": {"wg": (0,), "wu": (0,)},
@@ -172,9 +173,13 @@ _QUANT_KEYS = {
 def quantize_params(model, params, *, layers: Optional[Sequence[str]] = None,
                     bits: int = 8):
     """Quantize the matmul weights of ``model``'s Dense / GatedDense /
-    attention layers (norms and embeddings stay float).  Returns a NEW
-    params tree with :class:`QTensor` leaves.  ``layers`` restricts to
-    the named layer paths (``"block1_ffn/gate"`` style)."""
+    attention / MoE layers (norms, embeddings and routers stay float).
+    Returns a NEW params tree with :class:`QTensor` leaves.  ``layers``
+    restricts to the named layer paths (``"block1_ffn/gate"`` style).
+    Quantize after pruning: ``prune`` refuses quantized trees, and int4
+    packs along the first even contracted axis, which for an MoE ``wo``
+    is ``E`` while the expert count is even and ``F`` after an
+    odd-count prune (``pack_axis`` records which)."""
     wanted = set(layers) if layers is not None else None
     matched: set = set()
     out = _quantize_walk(model.layers, params, (), wanted, matched, bits)

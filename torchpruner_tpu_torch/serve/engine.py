@@ -65,9 +65,15 @@ bit.  That holds because every row's computation is batch-invariant
 independent of the prompt bucket, the chunk width and the cache length
 beyond the row's own positions.
 
-Left for later slices (the JAX engine has them): MoE decode (ROADMAP
-A1d), the telemetry plane (obs spans, counters, request traces; A5), the
-cost-model twin and the chaos hooks (A8).
+MoE models decode through the same walk (``generate._decode_seq``: the
+MoE rule on the fixed-order path); ``--verify`` holds for the dense
+dispatch, whose every row op is batch-invariant (the sparse dispatch's
+capacity depends on the tokens in the step, so a dropped pair depends on
+the batch).
+
+Left for later slices (the JAX engine has them): the telemetry plane
+(obs spans, counters, request traces; A5), the cost-model twin and the
+chaos hooks (A8).
 """
 
 from __future__ import annotations

@@ -38,7 +38,8 @@ def to_device(a, device) -> torch.Tensor:
 
 
 def make_loss_closure(model: SegmentedModel, loss_fn, compute_dtype=None,
-                      param_transform: Optional[Callable] = None):
+                      param_transform: Optional[Callable] = None,
+                      moe_aux_weight: float = 0.0):
     """``(params, state, x, y, rng) -> (mean loss, new_state)`` — the
     training forward policy of the JAX package's ``make_loss_closure``:
     with ``compute_dtype`` (``torch.bfloat16``) the forward and backward
@@ -53,7 +54,11 @@ def make_loss_closure(model: SegmentedModel, loss_fn, compute_dtype=None,
     :class:`~torchpruner_tpu_torch.ops.blocksparse.BlockSparseWeight` so
     the forward and backward products skip dropped blocks.  Gradients
     flow to the PLAIN param leaves; the optimizer never sees a
-    wrapper."""
+    wrapper.
+
+    ``moe_aux_weight`` > 0 adds that multiple of every MoE layer's
+    load-balancing loss (1.0 when expert dispatch is perfectly
+    balanced), in f32."""
 
     def loss(params, state, x, y, rng):
         if compute_dtype is not None:
@@ -61,11 +66,20 @@ def make_loss_closure(model: SegmentedModel, loss_fn, compute_dtype=None,
             x = cast_floats(x, compute_dtype)
         if param_transform is not None:
             params = param_transform(params)
-        out, new_state = model.apply(params, x, state=state, train=True,
-                                     rng=rng)
+        aux = {}
+        if moe_aux_weight:
+            out, new_state, aux = model.apply(params, x, state=state,
+                                              train=True, rng=rng,
+                                              collect_aux=True)
+        else:
+            out, new_state = model.apply(params, x, state=state,
+                                         train=True, rng=rng)
         if compute_dtype is not None:
             out = out.float()
-        return loss_fn(out, y).mean(), new_state
+        total = loss_fn(out, y).mean()
+        for a in aux.values():
+            total = total + moe_aux_weight * a.float()
+        return total, new_state
 
     return loss
 
@@ -122,16 +136,18 @@ class Trainer:
     step_count: int = 0
     #: rewrites the cast params inside the step (``make_loss_closure``)
     param_transform: Optional[Callable] = None
+    #: weight of the MoE load-balancing loss (``make_loss_closure``)
+    moe_aux_weight: float = 0.0
 
     @classmethod
     def create(cls, model, tx, loss_fn, seed: int = 0, params=None,
                state=None, compute_dtype=None, device=None,
-               param_transform=None):
+               param_transform=None, moe_aux_weight: float = 0.0):
         """A trainer on ``device`` (``None`` = ``cuda``; raises without a
         GPU unless ``device="cpu"``), initialized from ``seed`` unless
-        ``params`` are given.  The JAX trainer's remat, gradient
-        accumulation and MoE aux loss are not ported yet (ROADMAP A1,
-        A3); configs asking for them raise in ``run_prune_retrain``."""
+        ``params`` are given.  The JAX trainer's remat and gradient
+        accumulation are not ported yet (ROADMAP A3); configs asking for
+        them raise in ``run_prune_retrain``."""
         dev = resolve_device(device)
         if params is None:
             params, state = segment.init_model(model, seed, device=dev)
@@ -140,7 +156,8 @@ class Trainer:
                    state=state if state is not None else {}, tx=tx,
                    opt_state=tx.init(params), loss_fn=loss_fn, rng=gen,
                    compute_dtype=compute_dtype,
-                   param_transform=param_transform)
+                   param_transform=param_transform,
+                   moe_aux_weight=moe_aux_weight)
 
     def step(self, x, y) -> torch.Tensor:
         """One optimizer step on the batch ``(x, y)`` (host arrays or
@@ -149,7 +166,8 @@ class Trainer:
         x, y = to_device(x, dev), to_device(y, dev)
         loss_c = make_loss_closure(self.model, self.loss_fn,
                                    self.compute_dtype,
-                                   self.param_transform)
+                                   self.param_transform,
+                                   self.moe_aux_weight)
         leaves = [t.detach().requires_grad_() for t in
                   tree_leaves(self.params)]
         it = iter(leaves)
@@ -174,7 +192,8 @@ class Trainer:
                        loss_fn=self.loss_fn, rng=self.rng,
                        compute_dtype=self.compute_dtype,
                        step_count=self.step_count,
-                       param_transform=self.param_transform)
+                       param_transform=self.param_transform,
+                       moe_aux_weight=self.moe_aux_weight)
 
     def evaluate(self, data):
         return evaluate(self.model, self.params, self.state, data,

@@ -275,7 +275,6 @@ _UNPORTED = (
     ("chaos", {}, "ROADMAP A8 (resilience)"),
     ("guard_nonfinite", False, "ROADMAP A8 (resilience)"),
     ("remat", False, "ROADMAP A3 (remat)"),
-    ("moe_aux_weight", 0.0, "ROADMAP A1 (MoE)"),
     ("augment", False, "ROADMAP A3b (image augmentation)"),
     ("obs_grad_norm", False, "ROADMAP A5 (observability)"),
     ("plot_dir", "", "ROADMAP A8 (the sweep's figures)"),
