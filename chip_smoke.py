@@ -184,6 +184,37 @@ for phase 21's trace, and the card's memory to themselves.
     flags: device cuda, 8 requests, 0 mismatches, both serving kernels
     launched.
 
+24. Remat, gradient accumulation and ``multi_step`` on the flash
+    kernels, in a child process (a fresh profiler session): mfu_llama at
+    full width (dim 1024, 8 blocks, Dh 128, S 1024, B 8, bf16, Adam,
+    ``lm_mfu``), 3 steps each way from one start: remat off, remat on,
+    remat on at ``accum_steps`` 4; then ``multi_step`` (K 3) against
+    the first way's 3 sequential steps.  Losses finite; remat against
+    off: losses within 2**-7 relative and final params within 2**-7 x
+    the largest move a param made; accumulation against the full batch:
+    losses within 2**-7 relative and one gradient from the start within
+    2**-7 of each leaf's largest entry (final params recorded: each
+    microbatch's bf16 gradient rounds on its own, and Adam turns a
+    near-zero gradient's difference into a step of up to lr);
+    ``multi_step`` bit-equal; flash forward launches 2x a block a step
+    under remat (dQ and dK/dV 1x), 4x more with the microbatches; the
+    steps' peak memory (above what was held before them) lower with
+    remat.  Each way's step ms, peak memory and idle share (one
+    profiled step) printed.
+25. Phase 11's masked recipe (its start, drops and batches) for 5
+    block-sparse steps at ``accum_steps`` 2 against the same 5 steps at
+    ``accum_steps`` 1, both at dropout 0 (BERT-base's dropout draws
+    other masks for two microbatches than for their batch): 48 / 48 /
+    48 launches a step (twice phase 11's), masked entries exactly 0,
+    losses within 2**-5 of the largest full-batch loss.
+26. The cached sweep: phase 16's three-layer panel on its trained
+    VGG16-bn with the capture engine on, then off, and phase 14's
+    ``fc1`` Shapley rows (one batch of 250, initial weights) with and
+    without an ``ActivationCache``; cuDNN deterministic, without
+    benchmarking, for the phase.  Curves and AUCs within 1e-5 relative,
+    rows within 1e-5 x the batch's loss, hits > 0 and prefix FLOPs
+    saved > 0; both walls, hits and misses printed.
+
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
 """
@@ -1097,10 +1128,13 @@ def bs_launches() -> dict:
     return {n: getattr(BS, n).launches for n in BS_KERNELS}
 
 
-def masked_retrain_phase(dev, n_steps: int = 30) -> dict:
+def masked_retrain_phase(dev, n_steps: int = 30):
     """The masked-retrain recipe on BERT-base: block-granular Sensitivity
     drops, masks, Adam + masked_update, block-sparse steps against the
-    same steps masked dense, then one structural prune."""
+    same steps masked dense, then one structural prune.  Returns the
+    phase's record and, for phase 25, its set-up: the masked start
+    params (on the host), the drops, the batches and the block-sparse
+    step losses."""
     import numpy as np
     import torch
 
@@ -1258,9 +1292,12 @@ def masked_retrain_phase(dev, n_steps: int = 30) -> dict:
         fail(f"masked retrain: pruned forward differs from the masked "
              f"forward by {err} > {ptol}")
     log(f"masked retrain: {json.dumps(out)}")
+    setup = {"state": state, "drops": drops, "batches": batches,
+             "losses": s_loss,
+             "start": tree_map(lambda t: t.cpu(), start)}
     del sparse, dense, metric, params, start, masks
     torch.cuda.empty_cache()
-    return out
+    return out, setup
 
 
 def simulate_phase(dev, pr: dict) -> dict:
@@ -1863,7 +1900,11 @@ def vgg_sweep_phase(dev) -> dict:
                        "three layers' mean); evaluation beside the walk "
                        "not counted"}}
     log(f"vgg sweep: {json.dumps(out)}")
-    return out
+    setup = {"model": model, "params": trainer.params,
+             "state": trainer.state, "batches": test_batches,
+             "loss_fn": loss_fn, "sdtype": sdtype, "seed": cfg.seed,
+             "method_kwargs": cfg.method_kwargs}
+    return out, setup
 
 
 def resnet_phase(dev) -> dict:
@@ -2754,6 +2795,387 @@ def run_moe_child() -> dict:
              f"\n{res.stderr[-4000:]}")
     return json.loads(res.stdout.strip().splitlines()[-1])
 
+# -- phases 24-26 -----------------------------------------------------------
+
+#: phase 24: mfu_llama's training set-up (phase 9's), 3 steps each way
+P24 = dict(batch=8, steps=3, accum=4, lr=1e-4)
+#: phase 24's bound between two ways of computing the same 3 bf16 steps:
+#: losses to 2**-7 relative, params to 2**-7 x the largest move a param
+#: made from its start (one bf16 ulp at the scale of the update)
+P24_TOL = 2 ** -7
+#: phase 25: phase 11's first steps at accum_steps 2
+P25 = dict(steps=5, accum=2)
+#: phase 26: cached against uncached sweep curves and AUCs, relative
+P26_TOL = 1e-5
+
+
+def _profiled_step_idle(fn) -> dict:
+    """Wall, profiler kernel time and the device's idle share of one call
+    of ``fn`` (a training step); the idle share is not measured when the
+    profiler sees no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchpruner_tpu_torch.experiments.step_trace import _device_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernel_ms = sum(_device_us(e) for e in prof.key_averages()
+                    if _device_us(e) > 0 and e.device_type is not None
+                    and "CUDA" in str(e.device_type)) / 1e3
+    return {"profiled_wall_ms": wall, "kernel_ms": kernel_ms,
+            "device_idle_share": (max(0.0, 1.0 - kernel_ms / wall)
+                                  if kernel_ms > 0 else None)}
+
+
+def remat_phase(dev) -> dict:
+    """mfu_llama at full width, 3 bf16 Adam steps each way: remat off,
+    remat on, remat on with 4 microbatches, then ``multi_step`` (K 3)
+    against the sequential steps of the first way.  Run in a child
+    process: a fresh profiler session for the idle shares."""
+    import torch
+
+    from torchpruner_tpu_torch.core import layers as L
+    from torchpruner_tpu_torch.core.segment import init_model
+    from torchpruner_tpu_torch.data import load_dataset
+    from torchpruner_tpu_torch.models import mfu_llama
+    from torchpruner_tpu_torch.train import optim
+    from torchpruner_tpu_torch.train.loop import Trainer
+    from torchpruner_tpu_torch.utils.losses import lm_cross_entropy_loss
+    from torchpruner_tpu_torch.utils.tree import tree_leaves
+
+    model = mfu_llama()
+    n_attn = sum(isinstance(l, L.Residual) and any(
+        isinstance(c, L.MultiHeadAttention) for c in l.body)
+        for l in model.layers)
+    B, K = P24["batch"], P24["steps"]
+    batches = load_dataset("lm_mfu", "train", n=B * K, seed=0).batches(B)
+    params, state = init_model(model, 0, device=dev)
+
+    def trainer(remat, accum):
+        return Trainer.create(model, optim.adam(P24["lr"]),
+                              lm_cross_entropy_loss, seed=0, params=params,
+                              state=state, compute_dtype=torch.bfloat16,
+                              device=dev, remat=remat, accum_steps=accum)
+
+    ways = {}
+    for name, remat, accum in (("plain", False, 1), ("remat", True, 1),
+                               ("remat_accum", True, P24["accum"])):
+        t = trainer(remat, accum)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_launches()
+        losses, walls = [], []
+        for i, (x, y) in enumerate(batches):
+            if i == K - 1:  # the last step under the profiler
+                prof = _profiled_step_idle(
+                    lambda: losses.append(float(t.step(x, y))))
+                continue
+            t0 = time.perf_counter()
+            losses.append(float(t.step(x, y)))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ways[name] = {
+            "remat": remat, "accum_steps": accum, "losses": losses,
+            "first_step_ms": walls[0], "step_ms": walls[-1], **prof,
+            # the steps' working set: the peak above what was allocated
+            # before them (this way's params and optimizer state, and the
+            # earlier ways' trainers kept for the comparisons)
+            "step_peak_mem_gb": (torch.cuda.max_memory_allocated()
+                                 - held) / 1e9,
+            "held_mem_gb": held / 1e9,
+            "launches": flash_launches(), "trainer": t}
+    # multi_step from the same start, against the plain way's 3 steps
+    t = trainer(False, 1)
+    xs = torch.stack([torch.from_numpy(x) for x, _ in batches])
+    ys = torch.stack([torch.from_numpy(y) for _, y in batches])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    multi = t.multi_step(xs, ys).tolist()
+    torch.cuda.synchronize()
+    multi_s = time.perf_counter() - t0
+    seq = ways["plain"]["trainer"]
+    multi_equal = multi == ways["plain"]["losses"] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(t.params),
+                                           tree_leaves(seq.params)))
+
+    moved = max(float((p1 - p0).abs().max()) for p1, p0 in zip(
+        tree_leaves(ways["plain"]["trainer"].params), tree_leaves(params)))
+
+    def apart(a, b) -> dict:
+        """Loss and param distances of two ways' 3 steps, with the
+        bounds: losses to 2**-7 relative, params to 2**-7 x the largest
+        move the plain way made from the start."""
+        la, lb = ways[a]["losses"], ways[b]["losses"]
+        d = [(p1 - p2).abs() for p1, p2 in zip(
+            tree_leaves(ways[a]["trainer"].params),
+            tree_leaves(ways[b]["trainer"].params))]
+        return {"loss_max_rel_diff": max(abs(u - v) / abs(v)
+                                         for u, v in zip(la, lb)),
+                "params_max_abs_diff": max(float(t.max()) for t in d),
+                "params_l2_diff": math.sqrt(sum(float(t.square().sum())
+                                                for t in d)),
+                "loss_tol": P24_TOL, "params_tol": P24_TOL * moved}
+
+    remat = apart("remat", "plain")
+    # accumulation against the full batch: the 3 steps' losses to 2**-7,
+    # and one gradient from the start, summed over the 4 microbatches,
+    # against the full batch's, each leaf to 2**-7 of its largest entry.
+    # Param distances after 3 steps are recorded, not bounded: each
+    # microbatch's bf16 gradient rounds on its own, and Adam turns any
+    # difference in a near-zero gradient into a step of up to lr (0.88 x
+    # the largest move on a CPU rehearsal of this phase).
+    accum = apart("remat_accum", "remat")
+    g_full = trainer(True, 1).loss_and_grads(*batches[0])[1]
+    g_acc = trainer(True, P24["accum"]).loss_and_grads(*batches[0])[1]
+    accum["grad_max_rel_diff"] = max(
+        float((a - b).abs().max() / b.abs().max())
+        for a, b in zip(tree_leaves(g_acc), tree_leaves(g_full)))
+    accum["grad_tol"] = P24_TOL
+    del accum["params_tol"], g_full, g_acc
+    for w in ways.values():
+        del w["trainer"]
+    out = {"card": smi_line(), "model": "mfu_llama", "batch": B,
+           "seq": 1024, "attention_blocks": n_attn, "ways": ways,
+           "checks": {"remat_vs_plain": remat,
+                      "accum_vs_full_batch": accum},
+           "multi_step": {"losses": multi, "bit_equal": multi_equal,
+                          "wall_s": multi_s}}
+    log(f"remat: {json.dumps(out)}")
+    bad = [f"{n} losses {w['losses']}" for n, w in ways.items()
+           if not all(math.isfinite(v) for v in w["losses"])]
+    if not (remat["loss_max_rel_diff"] <= P24_TOL
+            and remat["params_max_abs_diff"] <= remat["params_tol"]):
+        bad.append(f"remat against plain {remat}")
+    if not (accum["loss_max_rel_diff"] <= P24_TOL
+            and accum["grad_max_rel_diff"] <= P24_TOL):
+        bad.append(f"accumulation against the full batch {accum}")
+    if not multi_equal:
+        bad.append(f"multi_step losses {multi} are not the sequential "
+                   f"steps' {ways['plain']['losses']} bit for bit")
+    want = {"plain": n_attn * K, "remat": 2 * n_attn * K,
+            "remat_accum": 2 * n_attn * K * P24["accum"]}
+    for name, n in want.items():
+        got = ways[name]["launches"]
+        if got["flash_fwd"] != n or got["flash_dq"] != n // (
+                1 if name == "plain" else 2):
+            bad.append(f"{name}: flash launches {got}, expected {n} "
+                       f"forward ({n_attn} attention blocks x {K} steps"
+                       f"{' x 2 (recomputed)' if name != 'plain' else ''}"
+                       f"{' x 4 microbatches' if name == 'remat_accum' else ''}"
+                       f")")
+    if not (ways["remat"]["step_peak_mem_gb"]
+            < ways["plain"]["step_peak_mem_gb"]):
+        bad.append("the steps' peak memory with remat is not below the "
+                   "peak without")
+    if bad:
+        fail("remat phase: " + "; ".join(bad))
+    return out
+
+
+def run_remat_child() -> dict:
+    """Phase 24 in a child process; its result is its last stdout line."""
+    import torch
+
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--remat-phase"], cwd=HERE, capture_output=True,
+                         text=True, timeout=600)
+    for line in res.stdout.strip().splitlines()[:-1]:
+        log(f"  {line}")
+    if res.returncode != 0:
+        fail(f"phase 24 exited {res.returncode}:\n{res.stdout[-4000:]}"
+             f"\n{res.stderr[-4000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def accum_masked_phase(dev, p11: dict) -> dict:
+    """Phase 11's masked recipe for 5 steps at accum_steps 2 against the
+    same 5 steps at accum_steps 1, from phase 11's masked start, both at
+    dropout 0 (BERT-base's dropout would draw other masks for two
+    microbatches than for their batch): twice phase 11's launches a
+    step, masked entries exactly 0, losses within phase 11's bound."""
+    import torch
+
+    from torchpruner_tpu_torch.core import masking
+    from torchpruner_tpu_torch.models.bert import bert
+    from torchpruner_tpu_torch.train import optim
+    from torchpruner_tpu_torch.train.loop import Trainer
+    from torchpruner_tpu_torch.utils.losses import cross_entropy_loss
+    from torchpruner_tpu_torch.utils.tree import tree_map
+
+    model = bert(dropout=0.0)  # bert_base's widths and depth
+    drops, n = p11["drops"], P25["steps"]
+    start = tree_map(lambda t: t.to(dev), p11["start"])
+    masks, _ = masking.drop_masks(model, start, drops, state=p11["state"])
+
+    def run(accum):
+        trainer = Trainer.create(
+            model, optim.chain(optim.adam(1e-4),
+                               masking.masked_update(masks)),
+            cross_entropy_loss, seed=0, params=start, state=p11["state"],
+            compute_dtype=torch.bfloat16, device=dev,
+            param_transform=masking.blocksparse_transform(model, drops),
+            accum_steps=accum)
+        reset_launches()
+        with _timed_steps() as steps:
+            for x, y in p11["batches"][:n]:
+                trainer.step(x, y)
+        return trainer, steps, bs_launches()
+
+    full, f_steps, f_launch = run(1)
+    trainer, steps, launches = run(P25["accum"])
+    got = [l for l, _ in steps]
+    ref = [l for l, _ in f_steps]
+    tol = 2 ** -5 * max(abs(l) for l in ref)
+    out = {"card": smi_line(), "model": "bert_base, dropout 0",
+           "batch": 32,
+           "accum_steps": P25["accum"],
+           **_step_stats(steps, "accumulated masked retrain"),
+           "full_batch": _step_stats(f_steps, "masked retrain, dropout 0"),
+           "launches": launches, "launches_full_batch": f_launch,
+           "losses": got, "full_batch_losses": ref,
+           "phase11_losses": p11["losses"][:n], "loss_tol": tol,
+           "loss_max_abs_diff": max(abs(a - b) for a, b in zip(got, ref))}
+    log(f"accumulated masked retrain: {json.dumps(out)}")
+    want = {k: 2 * 24 * n for k in BS_KERNELS}
+    if launches != want or f_launch != {k: 24 * n for k in BS_KERNELS}:
+        fail(f"accumulated masked retrain: launches {launches} (full batch "
+             f"{f_launch}), expected {want} (2 microbatches x 24 a step)")
+    if not out["loss_max_abs_diff"] <= tol:
+        fail(f"accumulated masked retrain: losses {got} differ from the "
+             f"full batch's {ref} by more than {tol}")
+    for target, drop in drops.items():
+        mlp = trainer.params[target.split("/")[0]]
+        idx = torch.as_tensor(drop, device=dev)
+        if not (bool((mlp["fc1"]["w"][:, idx] == 0).all())
+                and bool((mlp["fc1"]["b"][idx] == 0).all())
+                and bool((mlp["fc2"]["w"][idx] == 0).all())):
+            fail(f"accumulated masked retrain: a masked entry of {target} "
+                 f"moved off 0")
+    del trainer, full, start, masks
+    torch.cuda.empty_cache()
+    return out
+
+
+def cached_sweep_phase(dev, p16: dict) -> dict:
+    """Phase 16's three-layer panel on its trained VGG16-bn with the
+    capture engine on, then off; phase 14's ``fc1`` Shapley rows (one
+    batch, initial weights) with and without the cache.  cuDNN runs
+    deterministic algorithms, chosen without benchmarking, for the whole
+    phase, so each convolution takes the same algorithm in both runs."""
+    import numpy as np
+    import torch
+
+    from torchpruner_tpu_torch.attributions.base import ActivationCache
+    from torchpruner_tpu_torch.attributions.shapley import (
+        ShapleyAttributionMetric,
+    )
+    from torchpruner_tpu_torch.core.segment import init_model
+    from torchpruner_tpu_torch.data import load_dataset
+    from torchpruner_tpu_torch.experiments import robustness as R
+    from torchpruner_tpu_torch.experiments.presets import (
+        MODEL_REGISTRY,
+        get_preset,
+    )
+    from torchpruner_tpu_torch.utils.losses import cross_entropy_loss
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    made = []
+
+    class Recorded(ActivationCache):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    orig_cache = R.ActivationCache
+    R.ActivationCache = Recorded
+    try:
+        walls, res = {}, {}
+        for capture in (True, False):
+            methods = R.method_panel(
+                p16["model"], p16["params"], p16["batches"], p16["loss_fn"],
+                state=p16["state"], compute_dtype=p16["sdtype"],
+                seed=p16["seed"], **p16["method_kwargs"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[capture] = R.layerwise_robustness(
+                p16["model"], p16["params"], p16["state"], p16["batches"],
+                methods, p16["loss_fn"], layers=VGG_LAYERS,
+                compute_dtype=p16["sdtype"], capture=capture,
+                verbose=False)
+            torch.cuda.synchronize()
+            walls[capture] = time.perf_counter() - t0
+        # phase 14's fc1 rows (site act1), one batch, with and without
+        cfg = get_preset("mnist_mlp_shapley")
+        model = MODEL_REGISTRY[cfg.model][0]()
+        params, _ = init_model(model, seed=cfg.seed, device=dev)
+        batch = [load_dataset(cfg.dataset, "val", n=cfg.score_examples,
+                              seed=cfg.seed).batches(cfg.eval_batch_size)[0]]
+        cache = Recorded(model, params, batch, sites=("act1",))
+        rows, row_s = {}, {}
+        for cached in (True, False):
+            m = ShapleyAttributionMetric(model, params, batch,
+                                         cross_entropy_loss, seed=cfg.seed,
+                                         reduction="none",
+                                         **cfg.method_kwargs)
+            m.capture_cache = cache if cached else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows[cached] = m.run("fc1", find_best_evaluation_layer=True)
+            row_s[cached] = time.perf_counter() - t0
+        with torch.no_grad():
+            x, y = (torch.as_tensor(a, device=dev) for a in batch[0])
+            base = float(cross_entropy_loss(model.apply(params, x)[0],
+                                            y).mean())
+    finally:
+        R.ActivationCache = orig_cache
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    sweep_cache, row_cache = made[0], made[-1]
+    curve_err = 0.0
+    for layer in VGG_LAYERS:
+        for m, runs in res[False][layer].items():
+            for a, b in zip(res[True][layer][m], runs):
+                for k in ("loss", "acc"):
+                    den = np.maximum(np.abs(b[k]), 1e-30)
+                    curve_err = max(curve_err, float(
+                        (np.abs(np.asarray(a[k]) - b[k]) / den).max()))
+                curve_err = max(curve_err, abs(a["auc"] - b["auc"])
+                                / max(abs(b["auc"]), 1e-30))
+    row_err = float(np.abs(rows[True] - rows[False]).max())
+    out = {"card": smi_line(),
+           "sweep_s": {"capture": walls[True], "uncached": walls[False]},
+           "sweep_cache": sweep_cache.stats(),
+           "curves_max_rel_diff": curve_err, "curves_tol": P26_TOL,
+           "mlp_fc1_rows": {"rows": list(rows[True].shape),
+                            "max_abs_diff": row_err, "atol": 1e-5 * base,
+                            "cached_s": row_s[True],
+                            "uncached_s": row_s[False],
+                            "cache": row_cache.stats()},
+           "cudnn": {"deterministic": True, "benchmark": False}}
+    log(f"cached sweep: {json.dumps(out)}")
+    if not curve_err <= P26_TOL:
+        fail(f"cached sweep: curves or AUCs differ from the uncached "
+             f"sweep's by {curve_err} relative > {P26_TOL}")
+    if not (sweep_cache.hits > 0 and sweep_cache.prefix_flops_saved > 0):
+        fail(f"cached sweep: the cache served nothing: "
+             f"{sweep_cache.stats()}")
+    if not (row_err <= 1e-5 * base and row_cache.hits > 0
+            and row_cache.prefix_flops_saved > 0):
+        fail(f"cached sweep: fc1 Shapley rows {out['mlp_fc1_rows']}")
+    return out
+
 
 def per_step(cases, key, weight):
     return sum(c[key] * weight(c) for c in cases)
@@ -2812,6 +3234,11 @@ def main() -> int:
         out = moe_slice(dev)
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--remat-phase"]:  # phase 24, as a child
+        _build.build()
+        out = remat_phase(dev)
+        print(json.dumps(out), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     info = _build.build()
@@ -2845,7 +3272,7 @@ def main() -> int:
     bs = [blocksparse_case(dev, *c, dtn) for c in BS_CASES
           for dtn in ("float32", "bfloat16")]
     log("phase 11: masked block-sparse retraining, BERT-base full width")
-    mr = masked_retrain_phase(dev)
+    mr, p11 = masked_retrain_phase(dev)
     log("phase 12: --config with simulate=true, BERT-base full width")
     sim = simulate_phase(dev, pr)
     log("phase 13: mfu_llama GatedDense through the block-sparse kernels")
@@ -2858,7 +3285,7 @@ def main() -> int:
     log("phase 16: vgg16_digits32_layerwise, VGG16-bn full width: train, "
         "then the 8-method panel on conv1, conv13, fc1")
     t0 = time.perf_counter()
-    vgg_sweep_phase(dev)
+    _, p16 = vgg_sweep_phase(dev)
     log(f"phase 16: {time.perf_counter() - t0:.1f} s")
     log("phase 17: resnet50_taylor, ResNet-50 full width, stage 4")
     t0 = time.perf_counter()
@@ -2886,6 +3313,22 @@ def main() -> int:
     log("phases 21-23: the MoE slice (Mixtral-8x7B), in a child process")
     moe = run_moe_child()
     log(f"phases 21-23: {time.perf_counter() - t0:.1f} s")
+    log("phase 24: remat, gradient accumulation and multi_step, mfu_llama "
+        "full width, bf16, in a child process")
+    t0 = time.perf_counter()
+    rm = run_remat_child()
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    log("phase 25: accumulated masked retraining (accum_steps 2), BERT-base "
+        "full width")
+    t0 = time.perf_counter()
+    am = accum_masked_phase(dev, p11)
+    log(f"phase 25: {time.perf_counter() - t0:.1f} s")
+    log("phase 26: the cached sweep: phase 16's panel with capture on and "
+        "off, phase 14's fc1 Shapley rows with and without the cache")
+    t0 = time.perf_counter()
+    cs = cached_sweep_phase(dev, p16)
+    del p11, p16
+    log(f"phase 26: {time.perf_counter() - t0:.1f} s")
 
     # per-kernel line: the work of one full-depth 8B int4 decode step at
     # 4 slots (sum over that step's calls), every case beside it
@@ -2970,6 +3413,10 @@ def main() -> int:
             "launches_causal": ca["launches"][name],
             # phase 22: Mixtral expert pruning (f32 Taylor, bf16 SGD)
             "launches_moe_prune": moe["prune"]["launches"][name],
+            # phase 24: 3 mfu_llama steps each way (remat recomputes the
+            # forward in the backward; accumulation adds 4 microbatches)
+            **{f"launches_{w}": rm["ways"][w]["launches"][name]
+               for w in ("plain", "remat", "remat_accum")},
             # a ViT-B/16 scoring batch (B 64, S 197, H 12, Dh 64, f32, not
             # causal); launches: phase 15's run
             "vit_scoring": {
@@ -3023,6 +3470,8 @@ def main() -> int:
                    "D 768, F 3072, 12 of 24 output blocks kept); "
                    "library_ms: torch.matmul on the dense masked weight",
             "launches_gated": gd["launches"][name],
+            # phase 25: 5 masked steps at accum_steps 2
+            "launches_accum_masked": am["launches"][name],
             "body": path["plan"][name]["body"],
             # the f32 body (the documented masked-retraining recipe's
             # dtype) at fc1 and fc2; bound_ms at 3xTF32's rate, the FMA
@@ -3045,6 +3494,8 @@ def main() -> int:
     kernels[0]["serve_v2"] = {"prefix_sharing": px, "checkpoint_swap": ck,
                               "http": hp}
     kernels[0]["moe"] = moe
+    kernels[0]["training_v2"] = {"remat": rm, "accum_masked": am,
+                                 "cached_sweep": cs}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

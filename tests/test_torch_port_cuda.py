@@ -454,3 +454,38 @@ def test_blocksparse_tf32x3_matches_plain(dev, R, D, F, block, in_frac,
         assert BS.plan(mode, R, D, F, block, len(ik), len(ok),
                        torch.float32).body == "tf32x3"
     _bs_check(x, w, g, ik, ok, block)
+
+
+def test_remat_recomputes_the_flash_forward_once_a_block(dev):
+    """Phase 24's structural check on a small causal Llama (2 blocks,
+    Dh 128, S 256, bf16, Adam): a step launches the flash forward once
+    a block without remat and twice with it (the recomputation in the
+    backward), dQ and dK/dV once a block either way; the two steps'
+    losses are equal, and 2 microbatches double every count."""
+    from torchpruner_tpu_torch.models.llama import llama
+    from torchpruner_tpu_torch.ops import flash_attention as FA
+    from torchpruner_tpu_torch.train import optim
+    from torchpruner_tpu_torch.train.loop import Trainer
+    from torchpruner_tpu_torch.utils.losses import lm_cross_entropy_loss
+
+    model = llama(vocab_size=512, dim=256, depth=2, num_heads=2,
+                  num_kv_heads=2, head_dim=128, ffn_dim=512, seq_len=256)
+    x = np.random.default_rng(0).integers(0, 512, size=(4, 256)).astype(
+        np.int32)
+
+    def step(remat, accum=1):
+        t = Trainer.create(model, optim.adam(1e-3), lm_cross_entropy_loss,
+                           seed=0, compute_dtype=torch.bfloat16, device=dev,
+                           remat=remat, accum_steps=accum)
+        for n in ("flash_fwd", "flash_dq", "flash_dkv"):
+            getattr(FA, n).launches = 0
+        loss = float(t.step(x, x))
+        torch.cuda.synchronize()
+        return loss, [getattr(FA, n).launches
+                      for n in ("flash_fwd", "flash_dq", "flash_dkv")]
+
+    l0, n0 = step(False)
+    l1, n1 = step(True)
+    l2, n2 = step(True, accum=2)
+    assert n0 == [2, 2, 2] and n1 == [4, 2, 2] and n2 == [8, 4, 4]
+    assert l0 == l1 and abs(l2 - l1) <= 2 ** -7 * abs(l1)

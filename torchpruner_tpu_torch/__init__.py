@@ -22,4 +22,17 @@ compiled at their first launch, and every entry point runs on ``cuda``
 unless the caller asks for the CPU.
 """
 
-__all__: list = []
+__all__ = ["ActivationCache", "nan_cascade_oracle"]
+
+
+def __getattr__(name):
+    # the exports load on first use, so importing the package stays light
+    if name == "ActivationCache":
+        from torchpruner_tpu_torch.attributions.base import ActivationCache
+
+        return ActivationCache
+    if name == "nan_cascade_oracle":
+        from torchpruner_tpu_torch.core.graph import nan_cascade_oracle
+
+        return nan_cascade_oracle
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -13,7 +13,10 @@ loss, taken with ``torch.autograd.grad``:
   forward; here one forward serves both, since ``z + 0 == z``).
 
 Params are not differentiated: only the path from the site to the loss
-carries a gradient.
+carries a gradient.  Top-level rows go through the same from-``z`` core
+whether ``z`` is computed here or read from a sweep's
+``ActivationCache``; with a cache the gradient metrics also share one
+suffix gradient per (site, loss) (``ActivationCache.grads_for``).
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ from torchpruner_tpu_torch.attributions.base import (
 
 class _GradRowsMetric(AttributionMetric):
     """Shared base of the forward/backward activation metrics: one
-    ``mode`` string selects the row math."""
+    ``mode`` string selects the row math; cached (from ``z``) and
+    uncached rows come from the same core."""
 
     mode: str = ""
 
@@ -44,6 +48,34 @@ class _GradRowsMetric(AttributionMetric):
     def make_row_fn(self, eval_layer, **kw):
         return grad_rows_fn(self.model, eval_layer, self.loss_fn,
                             self._mode())
+
+    def make_cached_row_fn(self, eval_layer, **kw):
+        if needs_taps(self.model, eval_layer):
+            return None  # the from-z core resumes at a segment boundary
+        return grad_rows_from_z_fn(self.model, eval_layer, self.loss_fn,
+                                   self._mode())
+
+    def cached_row_stream(self, eval_layer, **kw):
+        """The gradient modes share one memoized suffix gradient per
+        (site, loss) across the panel; APoZ and every miss take the base
+        class's path."""
+        cache = self.capture_cache
+        mode = self._mode()
+        if (cache is None or mode == "apoz" or not cache.matches(self)
+                or not cache.has(eval_layer)
+                or needs_taps(self.model, eval_layer)):
+            return super().cached_row_stream(eval_layer, **kw)
+        cache.record_hit(eval_layer)
+        finish = finish_rows_fn(mode)
+        params = self.cast(self.params)
+
+        def gen():
+            grads = cache.grads_for(eval_layer, self.loss_fn, params,
+                                    self.state)
+            for (z, _y), g in zip(cache.batches_for(eval_layer), grads):
+                yield finish(z, g)
+
+        return gen()
 
 
 def _finish(mode: str, z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -86,19 +118,51 @@ def grad_rows_fn(model, eval_layer, loss_fn, mode: str):
         return fn
 
     prefix = prefix_fn(model, eval_layer)
-    suffix = suffix_loss_fn(model, eval_layer, loss_fn)
+    from_z = grad_rows_from_z_fn(model, eval_layer, loss_fn, mode)
 
     def fn(params, state, x, y):
-        z = prefix(params, state, x)
+        return from_z(params, state, prefix(params, state, x), y)
+
+    return fn
+
+
+@functools.lru_cache(maxsize=512)
+def grad_rows_from_z_fn(model, eval_layer, loss_fn, mode: str):
+    """``(params, state, z, y) -> (batch, n_units)`` rows from the
+    evaluation-site activation ``z``: the prefix-free core of
+    :func:`grad_rows_fn` (which computes ``z`` and calls it), and what a
+    sweep's activation cache feeds."""
+    grad = suffix_grad_fn(model, eval_layer, loss_fn)
+
+    def fn(params, state, z, y):
         if mode == "apoz":
             return spatial_sum((z > 0).float())
+        return _finish(mode, z, grad(params, state, z, y))
+
+    return fn
+
+
+@functools.lru_cache(maxsize=512)
+def suffix_grad_fn(model, eval_layer, loss_fn):
+    """``(params, state, z, y) -> dL/dz`` of the batch-mean loss through
+    the model suffix after ``eval_layer``: the one gradient Sensitivity,
+    Taylor and signed Taylor share at a site."""
+    suffix = suffix_loss_fn(model, eval_layer, loss_fn)
+
+    def fn(params, state, z, y):
         z = z.detach().requires_grad_()
         with torch.enable_grad():
             loss = suffix(params, state, z, y).mean()
             (g,) = torch.autograd.grad(loss, z)
-        return _finish(mode, z.detach(), g)
+        return g
 
     return fn
+
+
+@functools.lru_cache(maxsize=16)
+def finish_rows_fn(mode: str):
+    """``(z, g) -> rows``: the per-mode row math on a shared gradient."""
+    return functools.partial(_finish, mode)
 
 
 class APoZAttributionMetric(_GradRowsMetric):

@@ -18,7 +18,9 @@ forwards on ``B`` rows:
   ``(S·B, n)``.
 
 Permutations are drawn on a CPU generator and then moved to the device,
-so the CPU and the card drop the same units.
+so the CPU and the card drop the same units.  Under a sweep's
+``ActivationCache`` the fast path resumes from the cached activation
+(``make_cached_row_fn``); the masking path scores uncached.
 """
 
 from __future__ import annotations
@@ -168,19 +170,36 @@ class ShapleyAttributionMetric(AttributionMetric):
         device)."""
         S, partial = self._resolve(eval_layer, sv_samples, use_partial)
         perms = self._draw_perms(self.n_units(eval_layer), S)
-        fn = shapley_rows_fn(self.model, eval_layer, self.loss_fn, partial)
-        placed = {}
-
-        def row_fn(params, state, x, y):
-            if x.device not in placed:
-                placed[x.device] = perms.to(x.device)
-            return fn(params, state, x, y, placed[x.device])
-
-        return row_fn
+        return _with_perms(
+            shapley_rows_fn(self.model, eval_layer, self.loss_fn, partial),
+            perms)
 
     def make_cached_row_fn(self, eval_layer: str, sv_samples=None,
                            use_partial=None):
-        """The prefix-free form waits for the one-pass capture engine
-        (ROADMAP A2c): ``None``, so scoring runs uncached, as the JAX
-        package's masking path does."""
-        return None
+        """The prefix-free form ``(params, state, z, y) -> rows`` from
+        the captured activation.  Only the ``use_partial`` fast path
+        resumes from ``z``; the forced masking path (``use_partial=
+        False``, or a site segmentation cannot cut) returns ``None`` and
+        scores uncached.  The permutations are drawn as
+        :meth:`make_row_fn` draws them, so cached and uncached requests
+        see the same sequence."""
+        S, partial = self._resolve(eval_layer, sv_samples, use_partial)
+        if not partial:
+            return None
+        perms = self._draw_perms(self.n_units(eval_layer), S)
+        return _with_perms(
+            shapley_rows_from_z_fn(self.model, eval_layer, self.loss_fn),
+            perms)
+
+
+def _with_perms(fn, perms: torch.Tensor):
+    """``fn(params, state, a, y, perms)`` as a row function of ``(params,
+    state, a, y)``; the permutations follow the batch to its device."""
+    placed = {}
+
+    def row_fn(params, state, a, y):
+        if a.device not in placed:
+            placed[a.device] = perms.to(a.device)
+        return fn(params, state, a, y, placed[a.device])
+
+    return row_fn

@@ -1,6 +1,4 @@
-"""Pruning-graph inference — counterpart of ``torchpruner_tpu/core/graph.py``
-(without the NaN oracle, which only validates the static graph in the
-JAX package's tests).
+"""Pruning-graph inference — counterpart of ``torchpruner_tpu/core/graph.py``.
 
 The graph is derived statically from the model spec, recursing into
 composite blocks:
@@ -22,16 +20,23 @@ composite blocks:
   group's fan-out by the spatial size it folds;
 - a producer feeding a projection-shortcut Residual (a ResNet stem conv)
   cascades into the first prunable layer of both chains.
+
+:func:`nan_cascade_oracle` finds the same cascade indices empirically,
+by NaN propagation on flat models: a check of the static graph.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
 
 from torchpruner_tpu_torch.core import layers as L
 from torchpruner_tpu_torch.core.plan import AttachedNorm, Consumer, PruneGroup
 from torchpruner_tpu_torch.core.segment import SegmentedModel
+from torchpruner_tpu_torch.utils.tree import device_of
 
 #: activations that evaluation-point shifting may skip over (the JAX
 #: package's set)
@@ -205,3 +210,43 @@ def _close(build: dict) -> PruneGroup:
                       attached_bn=tuple(build["bn"]),
                       attached_dropout=tuple(build["dropout"]),
                       consumers=tuple(build["consumers"]))
+
+
+# ---------------------------------------------------------------------------
+# NaN oracle (a check of the static graph)
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def nan_cascade_oracle(model: SegmentedModel, params, state, target: str,
+                       drop: Sequence[int], batch: int = 2, seed: int = 0
+                       ) -> Dict[str, Tuple[np.ndarray, int]]:
+    """Cascade indices found by NaN propagation, on flat top-level models
+    (composite models are checked by prune-versus-mask equality
+    instead).  NaN goes into the dropped unit positions of ``target``'s
+    output, the model runs in eval mode on a seeded normal batch on the
+    params' device, and every later Dense, Conv, BatchNorm and Dropout
+    reports the NaN-tainted positions of its input's unit axis:
+    ``{layer: (in_indices, original_len)}``."""
+    dev = device_of(params)
+    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    x = torch.randn((batch,) + tuple(model.input_shape),
+                    generator=gen).to(dev)
+    drop = torch.as_tensor(np.asarray(drop, dtype=np.int64), device=dev)
+    report: Dict[str, Tuple[np.ndarray, int]] = {}
+    ti = model.index(target)
+    detect_types = (L.Dense, L.Conv, L.BatchNorm, L.Dropout)
+    for i, spec in enumerate(model.layers):
+        if i > ti and isinstance(spec, detect_types):
+            # sum out batch and spatial axes, keep the trailing unit axis
+            summed = x.reshape(-1, x.shape[-1]).sum(dim=0)
+            nan_idx = torch.nonzero(torch.isnan(summed))[:, 0].cpu().numpy()
+            if nan_idx.size:
+                report[spec.name] = (nan_idx, int(summed.shape[0]))
+        p = params.get(spec.name, {})
+        s = state.get(spec.name, {}) if state else {}
+        x, _ = L.apply_layer(spec, p, s, x, train=False)
+        if i == ti and drop.numel():
+            x = x.clone()
+            x[..., drop] = float("nan")
+    return report

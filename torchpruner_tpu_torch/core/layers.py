@@ -624,26 +624,78 @@ class Taps:
 def apply_seq(layers, params, state, x, *, train: bool = False,
               rng: Optional[torch.Generator] = None,
               taps: Optional[Taps] = None, prefix: Tuple[str, ...] = (),
-              fixed_order: bool = False):
+              fixed_order: bool = False, remat: bool = False):
     """Run a sequential pipeline of layers, applying output-site taps
     after every layer but attention and MoE (which tap their own head
     context and gates).
-    ``rng`` feeds every train-mode Dropout in order.  Returns ``(y,
-    new_state)``: ``state`` with the entries train mode rewrote."""
+    ``rng`` feeds every train-mode Dropout in order.  ``remat=True``
+    recomputes each ``Residual`` block's forward in the backward instead
+    of keeping its internals (:func:`_remat_block`), unless taps
+    instrument the forward: a capture escapes the block by mutation,
+    which recomputation cannot replay, and scoring never needs remat.
+    Returns ``(y, new_state)``: ``state`` with the entries train mode
+    rewrote."""
     state = state if state is not None else {}
     new_state = dict(state)
     for spec in layers:
         p = params.get(spec.name, {}) if params else {}
         s = state.get(spec.name, {})
         path = prefix + (spec.name,)
-        x, s2 = apply_layer(spec, p, s, x, train=train, rng=rng, taps=taps,
-                            path=path, fixed_order=fixed_order)
+        if (remat and isinstance(spec, Residual)
+                and (taps is None or taps.empty())):
+            x, s2 = _remat_block(spec, p, s, x, train=train, rng=rng,
+                                 taps=taps, path=path)
+        else:
+            x, s2 = apply_layer(spec, p, s, x, train=train, rng=rng,
+                                taps=taps, path=path,
+                                fixed_order=fixed_order)
         if (taps is not None and not taps.empty()
                 and not isinstance(spec, (MultiHeadAttention, MoE))):
             x = taps.at_site(path, x)
         if s2 is not s and s2:
             new_state[spec.name] = s2
     return x, new_state
+
+
+def _remat_block(spec: Residual, params, state, x: torch.Tensor, *,
+                 train: bool, rng: Optional[torch.Generator],
+                 taps: Optional[Taps], path: Tuple[str, ...]):
+    """One ``Residual`` block under ``torch.utils.checkpoint``: the
+    backward runs the block's forward a second time.  What the first
+    forward does must not happen twice:
+
+    - Dropout draws from a copy of ``rng`` set to the state ``rng`` had
+      before the block, in the forward and again in the recomputation,
+      so both draw the same masks; ``rng`` then moves on to where the
+      first forward left the copy, as it would without remat;
+    - the block's MoE aux losses and its BatchNorm statistics are
+      outputs of the block: only the first forward's reach the caller.
+    """
+    from torch.utils.checkpoint import checkpoint
+
+    collect = taps is not None and taps.collect_aux
+    start = None if rng is None else rng.get_state()
+    end = {}
+
+    def block(p, xx):
+        gen = None
+        if start is not None:
+            gen = torch.Generator(device=rng.device)
+            gen.set_state(start)
+        t = Taps(collect_aux=True) if collect else None
+        y, s = apply_layer(spec, p, state, xx, train=train, rng=gen, taps=t,
+                           path=path)
+        if gen is not None:
+            end["rng"] = gen.get_state()
+        return y, s, (t.aux if collect else {})
+
+    y, new_state, aux = checkpoint(block, params, x, use_reentrant=False,
+                                   preserve_rng_state=False)
+    if start is not None:
+        rng.set_state(end["rng"])
+    if collect:
+        taps.aux.update(aux)
+    return y, new_state
 
 
 def _rope(x: torch.Tensor, theta: float, offset=0) -> torch.Tensor:

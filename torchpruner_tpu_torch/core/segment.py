@@ -183,7 +183,7 @@ class SegmentedModel:
               perturb: Optional[Tuple[str, Any]] = None,
               capture: Optional[str] = None,
               captures: Optional[Sequence[str]] = None,
-              collect_aux: bool = False):
+              collect_aux: bool = False, remat: bool = False):
         """Run the segment after ``from_layer`` through ``to_layer``
         inclusive (``x`` is then ``from_layer``'s output).
 
@@ -198,7 +198,10 @@ class SegmentedModel:
         - ``collect_aux=True`` additionally returns the auxiliary
           training losses of the layers (MoE load balancing, train mode
           only) as ``{layer path: scalar}``;
-        - ``rng`` feeds train-mode Dropout.
+        - ``rng`` feeds train-mode Dropout;
+        - ``remat=True`` recomputes each ``Residual`` block's forward in
+          the backward instead of keeping its internals (training memory
+          for deep stacks; see ``layers.apply_seq``).
 
         Returns ``(y, state)``, then the captured activation, then the
         captures dict, then the aux-loss dict, when requested."""
@@ -220,7 +223,7 @@ class SegmentedModel:
                           collect_aux=collect_aux)
         y, new_state = L.apply_seq(self.layers[start:stop], params, state, x,
                                    train=train, rng=rng, taps=taps,
-                                   fixed_order=False)
+                                   fixed_order=False, remat=remat)
         out = (y, dict(new_state))
         if capture is not None:
             out = out + (taps.captured,)

@@ -43,6 +43,26 @@ DATASET_SHAPES = {
 #: fixed deterministic split of the 1,797 digits examples
 _DIGITS_SPLIT = {"train": (0, 1297), "val": (1297, 1497), "test": (1497, 1797)}
 
+
+def norm_zero(name: str) -> Optional[np.ndarray]:
+    """Where a raw-zero pixel lands after ``name``'s normalization:
+    ``-mean/std`` per channel, or None when ``data/prepare.py`` does not
+    standardize the dataset (flat variants, which augmentation passes
+    through, and scaled-only sets such as digits, where 0 is the raw
+    zero).  The border fill that makes augmentation after normalization
+    (``data/augment.py``) match the reference's pad-then-normalize
+    order."""
+    from torchpruner_tpu_torch.data import prepare
+
+    stats = {
+        "mnist": ((prepare.MNIST_MEAN,), (prepare.MNIST_STD,)),
+        "cifar10": (prepare.IMAGENET_MEAN, prepare.IMAGENET_STD),
+    }.get(name)
+    if stats is None:
+        return None
+    mean, std = (np.asarray(v, np.float32) for v in stats)
+    return -mean / std
+
 #: (seq_len, vocab_size, n_classes) — token datasets; ``n_classes=None``
 #: marks language-modeling data (targets = inputs, next-token loss).
 TOKEN_DATASET_SHAPES = {

@@ -213,7 +213,8 @@ def run_prune_retrain(cfg: ExperimentConfig, *, model=None, datasets=None,
     sdtype = compute_dtype(cfg.score_dtype)
     trainer = Trainer.create(model, tx, loss_fn, seed=cfg.seed,
                              compute_dtype=compute_dtype(cfg.compute_dtype),
-                             device=dev, moe_aux_weight=cfg.moe_aux_weight)
+                             device=dev, moe_aux_weight=cfg.moe_aux_weight,
+                             remat=cfg.remat, accum_steps=cfg.accum_steps)
     val_batches = val.batches(cfg.eval_batch_size)
     test_batches = test.batches(cfg.eval_batch_size)
     history: List[PruneStepRecord] = []
@@ -252,9 +253,11 @@ def run_prune_retrain(cfg: ExperimentConfig, *, model=None, datasets=None,
                 trainer = trainer.rebuild(res.model, res.params, res.state,
                                           res.opt_state)
             for epoch_i in range(cfg.finetune_epochs):
+                # accumulation cannot split a ragged tail batch: drop it
                 train_epoch(trainer,
                             train.batches(cfg.batch_size, shuffle=True,
-                                          seed=cfg.seed + epoch_i),
+                                          seed=cfg.seed + epoch_i,
+                                          drop_remainder=cfg.accum_steps > 1),
                             epoch=epoch_i, verbose=False)
             post_loss, post_acc = trainer.evaluate(test_batches)
             n_params, flops = model_cost(trainer.model, trainer.params,

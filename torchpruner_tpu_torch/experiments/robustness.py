@@ -11,13 +11,16 @@ computed once, and each of the ``n`` unit steps is ONE suffix call on
 cumulative mask.  The base metrics come from the unmasked suffix;
 logits are promoted to f32 before the loss.
 
-The sweep runs uncached: every metric and walk recomputes the prefix
-forward.  The JAX package's one-pass capture engine (``cfg.capture``)
-computes the same numbers from a shared activation; the port accepts
-the flag and runs the uncached path (ROADMAP A2c adds the cache).  A
-mesh (A7), ``run_dir`` (A8) and ``plot_dir`` (A8) raise.  Without
-trained params, ``cfg.checkpoint_path`` names the training checkpoint
-to sweep (``checkpoint.py``, written by either package).
+With ``capture`` on (``cfg.capture``, the default) the sweep runs the
+one-pass capture engine: one ``ActivationCache`` over every layer's
+evaluation site, filled by one forward a batch, serves each metric, run
+and walk at its site instead of a prefix forward each; a site is
+released once no later layer shares it.  Metrics built from other
+params or data fall back to their own prefix, counted as misses; the
+numbers are the same either way.  A mesh (A7), ``run_dir`` (A8) and
+``plot_dir`` (A8) raise.  Without trained params,
+``cfg.checkpoint_path`` names the training checkpoint to sweep
+(``checkpoint.py``, written by either package).
 """
 
 from __future__ import annotations
@@ -30,7 +33,10 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from torchpruner_tpu_torch.attributions.base import prefix_fn
+from torchpruner_tpu_torch.attributions.base import (
+    ActivationCache,
+    prefix_fn,
+)
 from torchpruner_tpu_torch.core.graph import (
     find_best_evaluation_layer,
     pruning_graph,
@@ -85,40 +91,64 @@ def _walk_batch(model: SegmentedModel, eval_layer: str, loss_fn, params,
 def ablation_curves_batch(model: SegmentedModel, params, state, layer: str,
                           rankings, data, loss_fn, *,
                           eval_layer: Optional[str] = None,
-                          compute_dtype=None) -> List[Dict[str, np.ndarray]]:
+                          compute_dtype=None,
+                          capture_cache: Optional[ActivationCache] = None
+                          ) -> List[Dict[str, np.ndarray]]:
     """Simulated pruning of ``layer``'s units in each ranking's order:
     ``rankings`` is ``(R, n)``; returns R dicts ``{"loss": (n,), "acc":
     (n,), "base_loss", "base_acc"}``, the mean test loss and accuracy
     after each cumulative removal at ``eval_layer`` (default: the layer
     itself).  ``compute_dtype`` (``torch.bfloat16``) runs the forwards
-    on params and inputs cast to it."""
+    on params and inputs cast to it.  ``capture_cache`` (built from the
+    same model, params, state, data and dtype) supplies the site's
+    activation per batch, so the walk skips the prefix; one that cannot
+    is counted as a miss."""
     eval_layer = eval_layer or layer
     dev = device_of(params)
     rankings = torch.as_tensor(np.asarray(rankings, dtype=np.int64),
                                device=dev)
+    use_cache = (capture_cache is not None
+                 and capture_cache.has(eval_layer)
+                 and capture_cache.provides_for(model, params, state, data,
+                                                compute_dtype))
+    if capture_cache is not None and not use_cache:
+        capture_cache.record_miss(eval_layer)
     if compute_dtype is not None:
         params = cast_floats(params, compute_dtype)
-    prefix = prefix_fn(model, eval_layer)
+    if use_cache:
+        capture_cache.record_hit(eval_layer)
+        batches = capture_cache.batches_for(eval_layer)
+    else:
+        batches = _prefix_batches(model, eval_layer, params, state, data,
+                                  compute_dtype)
     tot_l = tot_c = None
     base_l = base_c = 0.0
     n_examples = n_preds = 0
-    for x, y in (data() if callable(data) else data):
-        x, y = to_device(x, dev), to_device(y, dev)
-        if compute_dtype is not None:
-            x = cast_floats(x, compute_dtype)
-        z = prefix(params, state, x)
+    for z, y in batches:
         l, c, bl, bc, n_pred = _walk_batch(model, eval_layer, loss_fn,
                                            params, state, z, y, rankings)
         tot_l = l if tot_l is None else tot_l + l
         tot_c = c if tot_c is None else tot_c + c
         base_l += float(bl)
         base_c += float(bc)
-        n_examples += x.shape[0]
+        n_examples += z.shape[0]
         n_preds += int(n_pred)
     tot_l, tot_c = tot_l.cpu().numpy(), tot_c.cpu().numpy()
     return [{"loss": tot_l[r] / n_examples, "acc": tot_c[r] / n_preds,
              "base_loss": base_l / n_examples, "base_acc": base_c / n_preds}
             for r in range(rankings.shape[0])]
+
+
+def _prefix_batches(model, eval_layer, params, state, data, compute_dtype):
+    """``(z, y)`` per batch of ``data``: the activation at ``eval_layer``
+    from a prefix forward on the (cast) params' device."""
+    dev = device_of(params)
+    prefix = prefix_fn(model, eval_layer)
+    for x, y in (data() if callable(data) else data):
+        x = to_device(x, dev)
+        if compute_dtype is not None:
+            x = cast_floats(x, compute_dtype)
+        yield prefix(params, state, x), to_device(y, dev)
 
 
 def ablation_curve(model: SegmentedModel, params, state, layer: str,
@@ -184,30 +214,39 @@ def layerwise_robustness(model: SegmentedModel, params, state, test_data,
                          stochastic: Sequence[str] = ("random", "shapley",
                                                       "sv"),
                          find_best_evaluation_layer_: bool = True,
-                         compute_dtype=None, verbose: bool = True
+                         compute_dtype=None, capture: bool = True,
+                         verbose: bool = True
                          ) -> Dict[str, Dict[str, List[Dict]]]:
     """The sweep: every layer (default: every prunable layer) x every
     method, ``runs_stochastic`` runs of a method whose name contains a
     ``stochastic`` word.  Per layer, every (method, run) is scored, then
     ONE batched walk ablates all the rankings at the layer's evaluation
     site (the post-BN/activation layer, whatever site a method scored
-    at).  Returns ``results[layer][method] = [{scores, loss, acc,
-    base_loss, base_acc, auc, seconds}, ...]``; ``seconds`` is the run's
-    scoring time plus its share of the walk."""
+    at).  ``capture`` installs one :class:`ActivationCache` over every
+    layer's site on each metric and the walks (module docstring).
+    Returns ``results[layer][method] = [{scores, loss, acc, base_loss,
+    base_acc, auc, seconds}, ...]``; ``seconds`` is the run's scoring
+    time plus its share of the walk."""
     if layers is None:
         layers = [g.target for g in pruning_graph(model)]
+    sites = [find_best_evaluation_layer(model, layer)
+             if find_best_evaluation_layer_ else layer for layer in layers]
+    cache = None
+    if capture and layers:
+        cache = ActivationCache(model, params, test_data, sites=sites,
+                                state=state, compute_dtype=compute_dtype)
     results: Dict[str, Dict[str, List[Dict]]] = {}
-    for layer in layers:
+    for li, (layer, eval_layer) in enumerate(zip(layers, sites)):
         results[layer] = {}
-        eval_layer = (find_best_evaluation_layer(model, layer)
-                      if find_best_evaluation_layer_ else layer)
         pending = []  # (name, scores, score seconds)
         for name, factory in methods.items():
             n_runs = (runs_stochastic
                       if any(s in name.lower() for s in stochastic) else 1)
             for run in range(n_runs):
                 t0 = time.perf_counter()
-                scores = factory(run).run(
+                metric = factory(run)
+                metric.capture_cache = cache
+                scores = metric.run(
                     layer,
                     find_best_evaluation_layer=find_best_evaluation_layer_)
                 pending.append((name, scores, time.perf_counter() - t0))
@@ -217,7 +256,8 @@ def layerwise_robustness(model: SegmentedModel, params, state, test_data,
         curves = ablation_curves_batch(
             model, params, state, layer,
             np.stack([np.argsort(s) for _, s, _ in pending]), test_data,
-            loss_fn, eval_layer=eval_layer, compute_dtype=compute_dtype)
+            loss_fn, eval_layer=eval_layer, compute_dtype=compute_dtype,
+            capture_cache=cache)
         walk_share = (time.perf_counter() - t0) / len(pending)
         for (name, scores, score_s), curve in zip(pending, curves):
             results[layer].setdefault(name, []).append({
@@ -232,6 +272,8 @@ def layerwise_robustness(model: SegmentedModel, params, state, test_data,
                 print(f"[robustness] {layer} / {name}: auc "
                       f"{np.mean(aucs):.4f} ± {np.std(aucs):.4f} "
                       f"({runs[0]['seconds']:.1f}s/run)", flush=True)
+        if cache is not None and eval_layer not in sites[li + 1:]:
+            cache.drop(eval_layer)  # no later layer reads this site
     return results
 
 
@@ -325,7 +367,7 @@ def run_robustness_config(cfg, *, model=None, datasets=None, params=None,
         model, params, state, test_batches, methods, loss_fn,
         layers=filter_targets([g.target for g in pruning_graph(model)], cfg),
         find_best_evaluation_layer_=cfg.find_best_evaluation_layer,
-        compute_dtype=sdtype, verbose=verbose)
+        compute_dtype=sdtype, capture=cfg.capture, verbose=verbose)
     aucs = auc_summary(results)
     if cfg.results_path:
         _write_results(cfg.results_path, cfg.name, aucs, results)

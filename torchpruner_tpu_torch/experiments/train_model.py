@@ -8,8 +8,13 @@ background prefetch: ``prefetch`` gives the same batches either way).
 With ``cfg.checkpoint_path`` set the run resumes from the checkpoint
 there (its ``extra["epoch"]``) and saves to it every
 ``cfg.checkpoint_every_epochs`` and at the end, in the format both
-packages read (``checkpoint.py``).  Augmentation (ROADMAP A3b) is not
-ported and raises.
+packages read (``checkpoint.py``).  With ``cfg.augment`` each image
+batch is flipped and shift-cropped (``data/augment.py``), seeded
+``(cfg.seed * 1000 + epoch) * 1_000_003 + b`` for batch ``b``, its
+border filled with ``data.datasets.norm_zero``'s value: the JAX
+package's batches bit for bit.  ``cfg.remat`` and ``cfg.accum_steps`` go to the trainer; as in
+the JAX package, an epoch's ragged tail batch that ``accum_steps`` does
+not divide raises.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from torchpruner_tpu_torch.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from torchpruner_tpu_torch.data.augment import augment_batch
+from torchpruner_tpu_torch.data.datasets import norm_zero
 from torchpruner_tpu_torch.data.shuffle import shuffled_indices
 from torchpruner_tpu_torch.train.logger import CSVLogger
 from torchpruner_tpu_torch.train.loop import Trainer
@@ -36,16 +43,19 @@ from torchpruner_tpu_torch.utils.device import (
 
 def epoch_batches(dataset, cfg: ExperimentConfig, epoch: int
                   ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-    """One epoch's batches: the splitmix64 permutation seeded
-    ``cfg.seed * 1000 + epoch``, cut into ``cfg.batch_size`` slices (the
-    last one ragged)."""
-    if cfg.augment:
-        raise NotImplementedError(
-            "augment=True is not ported yet (ROADMAP A3b)")
-    idx = shuffled_indices(len(dataset), cfg.seed * 1000 + epoch)
-    for i in range(0, len(dataset), cfg.batch_size):
+    """One epoch's batches: the splitmix64 permutation seeded ``seed =
+    cfg.seed * 1000 + epoch``, cut into ``cfg.batch_size`` slices (the
+    last one ragged); with ``cfg.augment`` batch ``b`` augmented with
+    seed ``seed * 1_000_003 + b``."""
+    seed = cfg.seed * 1000 + epoch
+    idx = shuffled_indices(len(dataset), seed)
+    fill = norm_zero(cfg.dataset) if cfg.augment else None
+    for b, i in enumerate(range(0, len(dataset), cfg.batch_size)):
         j = idx[i:i + cfg.batch_size]
-        yield dataset.x[j], dataset.y[j]
+        x = dataset.x[j]
+        if cfg.augment:
+            x = augment_batch(x, seed=seed * 1_000_003 + b, fill=fill)
+        yield x, dataset.y[j]
 
 
 def run_train(cfg: ExperimentConfig, *, model=None, datasets=None,
@@ -84,7 +94,8 @@ def run_train(cfg: ExperimentConfig, *, model=None, datasets=None,
     trainer = Trainer.create(model, tx, LOSS_REGISTRY[cfg.loss],
                              seed=cfg.seed, params=params, state=state,
                              compute_dtype=compute_dtype(cfg.compute_dtype),
-                             device=dev)
+                             device=dev, remat=cfg.remat,
+                             accum_steps=cfg.accum_steps)
     if opt_state is not None:
         trainer.opt_state = opt_state
     test_batches = test.batches(cfg.eval_batch_size)

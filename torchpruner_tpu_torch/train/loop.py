@@ -4,8 +4,12 @@
 The JAX package compiles one donated step per model spec; the port runs
 the same step eagerly: the forward on params cast to the compute dtype,
 ``torch.autograd.grad`` with respect to the f32 master params, then the
-functional optimizer (``train/optim.py``).  After a prune step changes
-shapes, ``Trainer.rebuild`` carries the bundle over to the new spec.
+functional optimizer (``train/optim.py``).  ``remat`` recomputes each
+block's forward in the backward (``torch.utils.checkpoint``);
+``accum_steps`` splits a batch into equal microbatches whose gradients
+are summed before one update; ``multi_step`` runs K steps as a loop of
+``step`` calls.  After a prune step changes shapes, ``Trainer.rebuild``
+carries the bundle over to the new spec.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ def to_device(a, device) -> torch.Tensor:
 
 def make_loss_closure(model: SegmentedModel, loss_fn, compute_dtype=None,
                       param_transform: Optional[Callable] = None,
-                      moe_aux_weight: float = 0.0):
+                      moe_aux_weight: float = 0.0, remat: bool = False):
     """``(params, state, x, y, rng) -> (mean loss, new_state)`` — the
     training forward policy of the JAX package's ``make_loss_closure``:
     with ``compute_dtype`` (``torch.bfloat16``) the forward and backward
@@ -58,7 +62,8 @@ def make_loss_closure(model: SegmentedModel, loss_fn, compute_dtype=None,
 
     ``moe_aux_weight`` > 0 adds that multiple of every MoE layer's
     load-balancing loss (1.0 when expert dispatch is perfectly
-    balanced), in f32."""
+    balanced), in f32.  ``remat`` recomputes each ``Residual`` block's
+    forward in the backward (``SegmentedModel.apply``)."""
 
     def loss(params, state, x, y, rng):
         if compute_dtype is not None:
@@ -70,10 +75,10 @@ def make_loss_closure(model: SegmentedModel, loss_fn, compute_dtype=None,
         if moe_aux_weight:
             out, new_state, aux = model.apply(params, x, state=state,
                                               train=True, rng=rng,
-                                              collect_aux=True)
+                                              collect_aux=True, remat=remat)
         else:
             out, new_state = model.apply(params, x, state=state,
-                                         train=True, rng=rng)
+                                         train=True, rng=rng, remat=remat)
         if compute_dtype is not None:
             out = out.float()
         total = loss_fn(out, y).mean()
@@ -138,16 +143,19 @@ class Trainer:
     param_transform: Optional[Callable] = None
     #: weight of the MoE load-balancing loss (``make_loss_closure``)
     moe_aux_weight: float = 0.0
+    #: recompute each block's forward in the backward
+    remat: bool = False
+    #: > 1 = gradient accumulation over that many equal microbatches
+    accum_steps: int = 1
 
     @classmethod
     def create(cls, model, tx, loss_fn, seed: int = 0, params=None,
                state=None, compute_dtype=None, device=None,
-               param_transform=None, moe_aux_weight: float = 0.0):
+               param_transform=None, moe_aux_weight: float = 0.0,
+               remat: bool = False, accum_steps: int = 1):
         """A trainer on ``device`` (``None`` = ``cuda``; raises without a
         GPU unless ``device="cpu"``), initialized from ``seed`` unless
-        ``params`` are given.  The JAX trainer's remat and gradient
-        accumulation are not ported yet (ROADMAP A3); configs asking for
-        them raise in ``run_prune_retrain``."""
+        ``params`` are given."""
         dev = resolve_device(device)
         if params is None:
             params, state = segment.init_model(model, seed, device=dev)
@@ -157,33 +165,66 @@ class Trainer:
                    opt_state=tx.init(params), loss_fn=loss_fn, rng=gen,
                    compute_dtype=compute_dtype,
                    param_transform=param_transform,
-                   moe_aux_weight=moe_aux_weight)
+                   moe_aux_weight=moe_aux_weight, remat=remat,
+                   accum_steps=accum_steps)
 
     def step(self, x, y) -> torch.Tensor:
         """One optimizer step on the batch ``(x, y)`` (host arrays or
-        tensors); returns the mean loss as a 0-d tensor."""
-        dev = device_of(self.params)
-        x, y = to_device(x, dev), to_device(y, dev)
-        loss_c = make_loss_closure(self.model, self.loss_fn,
-                                   self.compute_dtype,
-                                   self.param_transform,
-                                   self.moe_aux_weight)
-        leaves = [t.detach().requires_grad_() for t in
-                  tree_leaves(self.params)]
-        it = iter(leaves)
-        params = tree_map(lambda _: next(it), self.params)
-        with torch.enable_grad():
-            loss, new_state = loss_c(params, self.state, x, y, self.rng)
-            grads = torch.autograd.grad(loss, leaves)
-        it = iter(grads)
-        grads = tree_map(lambda _: next(it), self.params)
+        tensors): :meth:`loss_and_grads`, then one update.  Returns the
+        mean loss as a 0-d tensor."""
+        loss, grads, state = self.loss_and_grads(x, y)
         with torch.no_grad():
             updates, self.opt_state = self.tx.update(grads, self.opt_state,
                                                      self.params)
             self.params = apply_updates(self.params, updates)
-        self.state = new_state
+        self.state = state
         self.step_count += 1
-        return loss.detach()
+        return loss
+
+    def loss_and_grads(self, x, y):
+        """``(mean loss, grads, new state)`` of the batch ``(x, y)`` at
+        the current params, which it leaves as they are.
+
+        With ``accum_steps`` > 1 the batch splits into that many equal
+        microbatches, run in order (BatchNorm state and the dropout
+        generator thread through them); their gradients are summed and
+        divided by ``accum_steps``, and the loss is their mean.  A batch
+        that does not divide raises ``ValueError``."""
+        dev = device_of(self.params)
+        x, y = to_device(x, dev), to_device(y, dev)
+        k = self.accum_steps
+        if x.shape[0] % k:
+            raise ValueError(f"batch {x.shape[0]} not divisible by "
+                             f"accum_steps={k}")
+        loss_c = make_loss_closure(self.model, self.loss_fn,
+                                   self.compute_dtype,
+                                   self.param_transform,
+                                   self.moe_aux_weight, self.remat)
+        leaves = [t.detach().requires_grad_() for t in
+                  tree_leaves(self.params)]
+        it = iter(leaves)
+        params = tree_map(lambda _: next(it), self.params)
+        state, loss, grads = self.state, None, None
+        for xb, yb in zip(x.split(x.shape[0] // k), y.split(x.shape[0] // k)):
+            with torch.enable_grad():
+                l, state = loss_c(params, state, xb, yb, self.rng)
+                g = torch.autograd.grad(l, leaves)
+            loss = l.detach() if loss is None else loss + l.detach()
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        if k > 1:
+            loss = loss / k
+            grads = [g / k for g in grads]
+        it = iter(grads)
+        return loss, tree_map(lambda _: next(it), self.params), state
+
+    def multi_step(self, xs, ys) -> torch.Tensor:
+        """K optimizer steps over stacked batches ``xs`` of shape ``(K,
+        B, ...)``: exactly K :meth:`step` calls in order.  Returns the
+        ``(K,)`` losses.  The JAX package scans the K steps inside one
+        compiled program to pay one dispatch; here they are a plain loop
+        (one CUDA graph of the K steps is ROADMAP A6a)."""
+        return torch.stack([self.step(xs[i], ys[i])
+                            for i in range(len(xs))])
 
     def rebuild(self, model, params, state, opt_state) -> "Trainer":
         return Trainer(model=model, params=params,
@@ -193,7 +234,8 @@ class Trainer:
                        compute_dtype=self.compute_dtype,
                        step_count=self.step_count,
                        param_transform=self.param_transform,
-                       moe_aux_weight=self.moe_aux_weight)
+                       moe_aux_weight=self.moe_aux_weight,
+                       remat=self.remat, accum_steps=self.accum_steps)
 
     def evaluate(self, data):
         return evaluate(self.model, self.params, self.state, data,

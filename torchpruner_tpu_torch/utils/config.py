@@ -241,13 +241,9 @@ class ExperimentConfig:
     def unported(self):
         """``[(setting, ROADMAP item)]`` for every setting of this config
         that the port does not run yet (empty when it runs them all)."""
-        out = [(f"{name}={getattr(self, name)!r}", item)
-               for name, default, item in _UNPORTED
-               if getattr(self, name) != default]
-        if self.accum_steps > 1:
-            out.append((f"accum_steps={self.accum_steps}",
-                        "ROADMAP A3 (gradient accumulation)"))
-        return out
+        return [(f"{name}={getattr(self, name)!r}", item)
+                for name, default, item in _UNPORTED
+                if getattr(self, name) != default]
 
     def to_json(self, path: str):
         with open(path, "w") as f:
@@ -274,8 +270,6 @@ _UNPORTED = (
     ("run_dir", "", "ROADMAP A8 (resilience)"),
     ("chaos", {}, "ROADMAP A8 (resilience)"),
     ("guard_nonfinite", False, "ROADMAP A8 (resilience)"),
-    ("remat", False, "ROADMAP A3 (remat)"),
-    ("augment", False, "ROADMAP A3b (image augmentation)"),
     ("obs_grad_norm", False, "ROADMAP A5 (observability)"),
     ("plot_dir", "", "ROADMAP A8 (the sweep's figures)"),
 )
