@@ -151,7 +151,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
     /v1/generate`` answered with tokens, ``/healthz`` ready, ``POST
     /swap`` to A answered 202 with ``/healthz`` through
     ``staging_swap`` back to ready, one generation after the swap,
-    ``/metrics`` and ``/profile`` 501 (telemetry not ported), then
+    ``GET /metrics`` 200 with the server's obs counters (5 requests) and
+    ``POST /profile`` 409 (no ``--obs-dir``, so no profiler), then
     SIGTERM: exit code 0 and the drained summary (5 completed, 1 swap,
     both kernels launched).
 
@@ -214,6 +215,42 @@ for phase 21's trace, and the card's memory to themselves.
     benchmarking, for the phase.  Curves and AUCs within 1e-5 relative,
     rows within 1e-5 x the batch's loss, hits > 0 and prefix FLOPs
     saved > 0; both walls, hits and misses printed.
+
+27. Observability on serving, in this process after phases 1-26: phase
+    3's model and the first 4 of its 8 greedy requests (traced, as a
+    fleet router mints trace ids) through ``ServeEngine`` inside ``obs.configure(dir,
+    profile_every=4, profile_steps=3)``, 3 windows at most, one armed on
+    demand once the first has closed; the same serve with no session
+    and with a session that opens no window (tokens equal phase 3's
+    every way, walls printed).  3 windows (2 cadence, 1 on demand),
+    each with device kernel events, ``profile_empty_windows_total`` 0;
+    each window's table names ``decode_split`` (32 launches a step) and
+    ``dq_mma`` (the wrappers' launches a step of ``trace_step``'s step,
+    plus one a projection for each prefill inside the window), never
+    more and at most 1 % fewer, each miss printed (the profiler has
+    come back 3 launches short; ROADMAP C3); in the windows without a
+    prefill both kernels' ms a step within 0.75-1.33x of
+    ``experiments/step_trace.py trace_step``'s in this process; coverage
+    and ``1 - coverage`` printed beside ``trace_step``'s idle share;
+    ``metrics.prom``'s ``serve_*`` counters equal ``summary()``; a
+    prefill span per request; each request's trace passes admission,
+    prefill, first_token, decode and complete in order; ``trace.json``
+    holds spans and kernel events.
+28. Observability on the prune loop: phase 7's preset on its first 2
+    targets through ``--config`` with ``--obs-dir``, in process: the
+    units dropped and the widths equal phase 7's first 2, the span tree
+    ``run`` -> ``prune_retrain`` -> ``setup`` / ``attribution`` /
+    ``eval`` / ``prune`` / ``retrain`` per target, 2 ledgered rounds
+    with finite score distributions, ``obs report`` renders them; one
+    Sensitivity scoring pass of the first target inside an on-demand
+    window names ``fwd_tf32x3``; phase 8's bf16 fine-tune with
+    ``obs_grad_norm`` and ``--profile-every 150 --profile-steps 2``: its
+    windows name
+    ``fwd_wgmma``, ``dq_wgmma`` and ``dkv_wgmma``, none empty, and the
+    ``grad_norm`` gauge is finite and > 0.
+
+``python3 chip_smoke.py --obs-slice`` runs phases 3, 7, 8, 27 and 28
+alone (the kernels built first).
 
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -520,6 +557,9 @@ def serve_phase(dev, *, bits: int, depth: int) -> dict:
            "verify_mismatches": mism, "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"serve int{bits} depth {depth}: {json.dumps(out)}")
+    # phase 27 serves the same traffic again, telemetry on
+    out["tokens"] = [list(r.tokens) for r in
+                     sorted(engine.results(), key=lambda r: r.id)]
     if summary["requests_completed"] != 8:
         fail(f"int{bits} serve completed "
              f"{summary['requests_completed']}/8 requests")
@@ -833,7 +873,9 @@ def _dropped_counts(text: str) -> list:
     return [int(n) for n in re.findall(r"pruned (\d+) units from", text)]
 
 
-def preset_phase(dev) -> dict:
+def preset_phase(dev):
+    """Phase 7: ``--preset bert_glue_sensitivity`` in process; returns
+    its summary and the ``(target, dropped units)`` of every round."""
     import torch
 
     from torchpruner_tpu_torch.experiments.presets import get_preset
@@ -843,7 +885,8 @@ def preset_phase(dev) -> dict:
     n_before = len(_csv_rows(cfg.log_path))
     reset_launches()
     t0 = time.perf_counter()
-    text = _cli(["--preset", "bert_glue_sensitivity"])
+    with _recorded_prunes() as drops:  # phase 28 holds its first 2
+        text = _cli(["--preset", "bert_glue_sensitivity"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, fixed = flash_launches(), per_rows.calls
@@ -869,9 +912,11 @@ def preset_phase(dev) -> dict:
            "launches": launches, "fixed_order_calls": fixed,
            "final_acc": summary["final_acc"],
            "final_params": summary["final_params"],
+           "layers": [r["layer"] for r in rows],
+           "widths": [r["widths"] for r in rows],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"preset: {json.dumps(out)}")
-    return out
+    return out, drops
 
 
 def _timed_steps():
@@ -2247,7 +2292,8 @@ def checkpoint_phase(dev, tmp: str) -> dict:
     return out
 
 
-def _http(port: int, method: str, path: str, body=None, timeout=300):
+def _http(port: int, method: str, path: str, body=None, timeout=300,
+          parse=json.loads):
     import urllib.error
     import urllib.request
 
@@ -2257,17 +2303,18 @@ def _http(port: int, method: str, path: str, body=None, timeout=300):
         headers={"Content-Type": "application/json"})
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
-            return resp.status, json.loads(resp.read())
+            return resp.status, parse(resp.read())
     except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read())
+        return e.code, parse(e.read())
 
 
 def http_phase(tmp: str) -> dict:
     """Phase 20: ``serve --checkpoint B --http 0`` in a subprocess: four
     concurrent generations, ``/healthz`` ready, ``POST /swap`` to A (202,
     ``staging_swap``, then ready again), one generation after the swap,
-    the obs routes at 501, then SIGTERM: exit code 0 and the drained
-    summary."""
+    ``GET /metrics`` 200 with the session's counters and ``POST
+    /profile`` 409 (no ``--obs-dir``, no profiler), then SIGTERM: exit
+    code 0 and the drained summary."""
     import re
     import signal
     import threading
@@ -2345,9 +2392,14 @@ def http_phase(tmp: str) -> dict:
         if code != 200 or len(body.get("tokens", [])) != 16:
             fail(f"phase 20: /v1/generate after the swap: {code} {body}")
         stats = _http(port, "GET", "/stats")[1]
-        if _http(port, "GET", "/metrics")[0] != 501 \
-                or _http(port, "POST", "/profile")[0] != 501:
-            fail("phase 20: the obs routes did not answer 501")
+        # the server's obs session (no --obs-dir: in memory, so no
+        # profiler): Prometheus text of its counters; no window to arm
+        code, prom = _http(port, "GET", "/metrics", parse=bytes.decode)
+        if code != 200 or "serve_requests_total 5" not in prom.splitlines():
+            fail(f"phase 20: GET /metrics answered {code}:\n{prom[:800]}")
+        code, body = _http(port, "POST", "/profile")
+        if code != 409 or body.get("armed"):
+            fail(f"phase 20: POST /profile answered {code} {body}")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=120)
         reader.join(timeout=10)
@@ -3177,6 +3229,506 @@ def cached_sweep_phase(dev, p16: dict) -> dict:
     return out
 
 
+# -- phases 27-28 (the telemetry plane) -------------------------------------
+
+#: phase 27: a capture window every 4 decode steps, 3 steps each; 3
+#: windows in all: 2 on the cadence and 1 armed on demand after the first
+OBS_PROFILE_EVERY, OBS_PROFILE_STEPS, OBS_WINDOWS = 4, 3, 3
+#: phase 27 serves the first 4 of phase 3's 8 requests (the script's
+#: time limit); their decode outlasts the three windows
+OBS_REQUESTS = 4
+#: the request-trace stages every served request must pass, in order
+OBS_STAGES = ("admission", "prefill", "first_token", "decode", "complete")
+#: phase 28's fine-tune: phase 8's target, and a 2-step capture window
+#: every 150 of its 313 steps
+OBS_RETRAIN_TARGET = "block12_mlp/"
+OBS_RETRAIN_EVERY = 150
+
+
+def _read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _prom_values(path: str) -> dict:
+    """``name -> value`` of a Prometheus textfile's samples."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith("#") or not line.strip():
+                continue
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def _span_tree(events: list) -> list:
+    """``(name, parent name, target)`` of every span, in order."""
+    names, out = {}, []
+    for e in events:
+        if e.get("event") == "span_begin":
+            names[e["span"]] = e["name"]
+            out.append((e["name"], names.get(e.get("parent")),
+                        e.get("target")))
+    return out
+
+
+class _ArmAfterFirstWindow:
+    """Phase 27's traffic: phase 3's open loop, plus one on-demand capture
+    window armed (the call ``POST /profile`` makes) at the first loop
+    boundary after the first cadence window closed."""
+
+    def __init__(self, inner, profiler):
+        self.inner, self.profiler, self.armed = inner, profiler, False
+
+    @property
+    def exhausted(self):
+        return self.inner.exhausted
+
+    def drain(self):
+        return self.inner.drain()
+
+    def pump(self, engine):
+        from torchpruner_tpu_torch import obs
+
+        n = self.inner.pump(engine)
+        if not self.armed and self.profiler.windows:
+            self.armed = obs.request_profile_window()
+        return n
+
+
+def _missing_allowed(launches: float) -> int:
+    """Kernel events a capture window's table may miss against the
+    wrappers' count: the profiler has come back with a few launches
+    fewer (3 of 772 in a window, after phases 1-26; ROADMAP C3), never
+    more, so the table is held to at most 1 % fewer, and every miss is
+    printed."""
+    return int(launches // 100)
+
+
+def _window_rows(w: dict) -> dict:
+    """One capture window's kernel table, by base kernel name."""
+    from torchpruner_tpu_torch.obs.profile.kernels import (
+        kernel_table,
+        merge_ops,
+        summarize_window,
+    )
+
+    s = summarize_window(w["dir"])
+    if s is None:
+        fail(f"phase 27: window {w['index']} holds no parseable trace")
+    merged = merge_ops([s])
+    rows = kernel_table(merged, steps=max(1, w["steps"]), top=400)
+    return {"rows": {r["kernel"]: r for r in rows},
+            "launches": {k: v["count"] for k, v in merged.items()},
+            "op_ms": s["total_ms"]}
+
+
+def obs_serve_phase(dev, s3: dict, smi: str) -> dict:
+    """Phase 27: phase 3's model and traffic through ``ServeEngine``
+    inside ``obs.configure(dir, profile_every=4, profile_steps=3)``,
+    with one window armed on demand; the same serve with no session and
+    with a session that opens no window."""
+    import tempfile
+
+    import torch
+
+    from torchpruner_tpu_torch import obs
+    from torchpruner_tpu_torch.experiments.llama8b_decode import (
+        quantized_random_params,
+    )
+    from torchpruner_tpu_torch.experiments.step_trace import trace_step
+    from torchpruner_tpu_torch.models import llama3_8b
+    from torchpruner_tpu_torch.obs import reqtrace
+    from torchpruner_tpu_torch.ops import decode_attention as DA
+    from torchpruner_tpu_torch.ops import fused_matmul as FM
+    from torchpruner_tpu_torch.serve.engine import ServeEngine
+    from torchpruner_tpu_torch.serve.traffic import (
+        open_loop,
+        synthetic_requests,
+    )
+
+    model = llama3_8b(depth=DEPTH)
+    params, _ = quantized_random_params(model, bits=4, seed=0, device=dev)
+
+    def serve(wrap=None):
+        engine = ServeEngine(model, params, n_slots=4, max_len=512,
+                             cache_dtype=torch.bfloat16, device=dev)
+        reqs = synthetic_requests(8, vocab=128256, prompt_lens=[16, 40, 100],
+                                  max_new=[16, 24, 32], seed=0)
+        reqs = reqs[:OBS_REQUESTS]
+        for r in reqs:  # traced, as a fleet router mints them
+            r.trace_id = reqtrace.mint_trace_id(f"r{r.id}")
+        traffic = open_loop(reqs)
+        if wrap is not None:
+            traffic = wrap(traffic)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = engine.run(traffic)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        done = sorted(engine.results(), key=lambda r: r.id)
+        return summary, wall, [list(r.tokens) for r in done], reqs
+
+    obs.shutdown()
+    _, wall_off, tok_off, _ = serve()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs27_") as tmp:
+        obs.configure(os.path.join(tmp, "plain"))
+        _, wall_plain, tok_plain, _ = serve()
+        obs.shutdown()
+        d = os.path.join(tmp, "windows")
+        reqtrace.reset(sample_every=1)  # every request's stages
+        session = obs.configure(d, profile_every=OBS_PROFILE_EVERY,
+                                profile_steps=OBS_PROFILE_STEPS)
+        prof = session.profiler
+        prof.max_windows = OBS_WINDOWS
+        summary, wall_on, tok_on, reqs = serve(
+            lambda t: _ArmAfterFirstWindow(t, prof))
+        obs.shutdown()
+        reqtrace.reset()
+        # the reference: trace_step's own profiler session of one decode
+        # step of the same model, in this process; the kernels' wrappers
+        # count its launches (2 warm-up, 3 timed and 3 profiled steps)
+        reset_serve_launches()
+        ts = trace_step(model, params, slots=4, max_len=512, steps=3,
+                        reps=3)
+        torch.cuda.synchronize()
+        wrapper = {"decode_split": DA.decode_attention.launches / 8,
+                   "dq_mma": FM.dequant_matmul.launches / 8}
+        events = _read_jsonl(os.path.join(d, "events.jsonl"))
+        prom = _prom_values(os.path.join(d, "metrics.prom"))
+        with open(os.path.join(d, "profile.json")) as f:
+            profile = json.load(f)
+        with open(os.path.join(d, "trace.json")) as f:
+            trace_cats = {e.get("cat") for e in json.load(f)["traceEvents"]}
+        windows = [dict(w) for w in prof.windows]
+        tables = [_window_rows(w) for w in windows]
+    del params
+    torch.cuda.empty_cache()
+
+    for name, toks in (("no session", tok_off), ("no windows", tok_plain),
+                       ("windows", tok_on)):
+        # every request's tokens are its solo decode's (the serving
+        # contract), so the first requests alone give phase 3's tokens
+        if toks != s3["tokens"][:OBS_REQUESTS]:
+            fail(f"phase 27: the tokens served with {name} differ from "
+                 f"phase 3's")
+    # windows: 3 in this one process, 2 cadence + 1 on demand, each with
+    # device kernel events
+    if len(windows) != OBS_WINDOWS or prof.failed \
+            or sorted(w["on_demand"] for w in windows) != [False, False,
+                                                            True]:
+        fail(f"phase 27: windows {[(w['index'], w['on_demand']) for w in windows]}"
+             f" (failed {prof.failed})")
+    if any(w["device_events"] <= 0 for w in windows) \
+            or prom.get("profile_empty_windows_total") != 0:
+        fail(f"phase 27: device events per window "
+             f"{[w['device_events'] for w in windows]}, empty windows "
+             f"{prom.get('profile_empty_windows_total')}")
+    # prefills that ran inside each window (their dequant launches count)
+    bounds, prefills = {}, {}
+    for e in events:
+        if e.get("event") in ("profile_window_begin", "profile_window_end"):
+            bounds.setdefault(e["window"], []).append(e["ts"])
+    for e in events:
+        if e.get("event") == "span_begin" and e["name"] == "serve_prefill":
+            for i, (t0, t1) in bounds.items():
+                if t0 <= e["ts"] <= t1:
+                    prefills[i] = prefills.get(i, 0) + 1
+    ref = {"decode_split": ts["by_group"]["decode_attention"],
+           "dq_mma": ts["by_group"]["dequant_matmul"]}
+    if wrapper["decode_split"] != DEPTH \
+            or wrapper["dq_mma"] != int(wrapper["dq_mma"]):
+        fail(f"phase 27: trace_step's step launched {wrapper} (wrapper "
+             f"counts a step)")
+    per_window = []
+    for w, t in zip(windows, tables):
+        rows, steps = t["rows"], w["steps"]
+        n_pre = prefills.get(w["index"], 0)
+        rec = {"index": w["index"], "on_demand": w["on_demand"],
+               "steps": steps, "prefills": n_pre,
+               "device_events": w["device_events"],
+               "op_ms_per_step": t["op_ms"] / max(1, steps),
+               "coverage": t["op_ms"] / (w["step_seconds"] * 1e3)
+               if w["step_seconds"] else None}
+        rec["idle_share"] = (1.0 - rec["coverage"]
+                             if rec["coverage"] is not None else None)
+        for k in ("decode_split", "dq_mma"):
+            if k not in rows:
+                fail(f"phase 27: window {w['index']} names no {k} "
+                     f"(kernels {sorted(rows)[:12]})")
+            rec[k] = {"ms_per_step": rows[k]["ms_per_step"],
+                      "launches": t["launches"][k],
+                      "trace_step_ms": ref[k]["ms_per_step"],
+                      "ratio": rows[k]["ms_per_step"]
+                      / ref[k]["ms_per_step"]}
+        # decode attention runs once a layer a decode step; a prefill runs
+        # every projection once, as a decode step does (the wrappers'
+        # count of trace_step's step is the reference)
+        for k, want in (("decode_split", DEPTH * steps),
+                        ("dq_mma", wrapper["dq_mma"] * (steps + n_pre))):
+            short = want - rec[k]["launches"]
+            rec[k]["expected"], rec[k]["missing"] = want, short
+            if not 0 <= short <= _missing_allowed(want):
+                fail(f"phase 27: window {w['index']}: {k} "
+                     f"{rec[k]['launches']} launches in the table, the "
+                     f"wrappers {want:g} for {steps} steps and {n_pre} "
+                     f"prefills")
+        per_window.append(rec)
+    clean = [r for r in per_window if r["prefills"] == 0]
+    if not clean:
+        fail("phase 27: every window held a prefill; no decode-only "
+             "window to compare with trace_step")
+    for r in clean:
+        for k in ("decode_split", "dq_mma"):
+            if not 0.75 <= r[k]["ratio"] <= 1.33:
+                fail(f"phase 27: window {r['index']}: {k} "
+                     f"{r[k]['ms_per_step']:.4f} ms a step against "
+                     f"trace_step's {r[k]['trace_step_ms']:.4f}")
+    # counters against the engine's own summary
+    want = {"serve_requests_total": len(reqs),
+            "serve_completed_total": summary["requests_completed"],
+            "serve_prefill_tokens_total": summary["prefilled_tokens"],
+            "serve_decode_steps_total": summary["decode_steps"]}
+    got = {k: prom.get(k) for k in want}
+    if got != {k: float(v) for k, v in want.items()}:
+        fail(f"phase 27: metrics.prom {got} against summary {want}")
+    # spans and request traces
+    prefill_reqs = {e.get("request") for e in events
+                    if e.get("event") == "span_begin"
+                    and e["name"] in ("serve_prefill", "serve_prefill_chunk")}
+    if prefill_reqs != {r.id for r in reqs}:
+        fail(f"phase 27: prefill spans for requests {sorted(prefill_reqs)}")
+    stages = {}
+    for e in events:
+        if e.get("event") == "req_stage":
+            stages.setdefault(e["trace"], []).append(e["stage"])
+    for r in reqs:
+        seq = [s for s in stages.get(r.trace_id, []) if s in OBS_STAGES]
+        if tuple(seq) != OBS_STAGES:
+            fail(f"phase 27: request {r.id} stages "
+                 f"{stages.get(r.trace_id)}")
+    if not {"obs", "device_op"} <= trace_cats:
+        fail(f"phase 27: trace.json event categories {sorted(trace_cats)}")
+    names = {k["kernel"] for k in profile["kernels"]}
+    out = {
+        "card": smi, "windows": per_window,
+        "profile_coverage": profile["coverage"],
+        "profile_idle_share": (1.0 - profile["coverage"]
+                               if profile["coverage"] is not None
+                               else None),
+        "trace_step": {"wall_ms": ts["wall_ms"],
+                       "kernel_ms": ts["profiler_kernel_ms"],
+                       "idle_share": ts["device_idle_share"],
+                       "decode_split": ref["decode_split"],
+                       "dq_mma": ref["dq_mma"],
+                       "wrapper_launches_a_step": wrapper},
+        "kernels_named": sorted(names)[:40],
+        "top_kernels": [(k["kernel"], k["ms_per_step"],
+                         k["launches_per_step"])
+                        for k in profile["kernels"][:10]],
+        "wall_s": {"no_session": wall_off, "session_no_windows": wall_plain,
+                   "session_with_windows": wall_on},
+        "decode_steps": summary["decode_steps"],
+        "counters": got,
+    }
+    log(f"obs serve: {json.dumps(out)}")
+    log(f"obs serve ({smi}): serve wall {wall_off:.3f} s with no session, "
+        f"{wall_plain:.3f} s with a session and no window, {wall_on:.3f} s "
+        f"with 3 windows; coverage {profile['coverage']} (idle "
+        f"{out['profile_idle_share']}), trace_step idle "
+        f"{ts['device_idle_share']:.3f}")
+    return out
+
+
+def _recorded_prunes():
+    """Record ``(target, dropped indices)`` of every prune the port's
+    prune loop makes while the context is open."""
+    import contextlib
+
+    from torchpruner_tpu_torch.experiments import prune_retrain as PPR
+
+    drops = []
+    orig = PPR.prune
+
+    def prune(model, params, layer, drop, **kw):
+        drops.append((str(layer), sorted(int(d) for d in drop)))
+        return orig(model, params, layer, drop, **kw)
+
+    @contextlib.contextmanager
+    def ctx():
+        PPR.prune = prune
+        try:
+            yield drops
+        finally:
+            PPR.prune = orig
+
+    return ctx()
+
+
+def obs_prune_phase(dev, pr: dict, pr_drops: list, rt: dict,
+                    smi: str) -> dict:
+    """Phase 28: phase 7's preset on its first 2 targets with
+    ``--obs-dir``; one Sensitivity scoring pass inside an on-demand
+    capture window; phase 8's bf16 fine-tune with ``obs_grad_norm`` and
+    ``--profile-every``."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from torchpruner_tpu_torch import obs
+    from torchpruner_tpu_torch.core.segment import init_model
+    from torchpruner_tpu_torch.experiments import prune_retrain as PPR
+    from torchpruner_tpu_torch.experiments.presets import get_preset
+
+    os.makedirs("logs", exist_ok=True)
+    base = get_preset("bert_glue_sensitivity")
+    first = pr["layers"][:2]
+    cfg = dataclasses.replace(base, target_filter=tuple(first),
+                              log_path="logs/chip_smoke_obs_prune.csv")
+    path = os.path.join("logs", "chip_smoke_obs_prune.json")
+    cfg.to_json(path)
+    retrain_cfg = dataclasses.replace(
+        base, finetune_epochs=1, target_filter=(OBS_RETRAIN_TARGET,),
+        obs_grad_norm=True, log_path="logs/chip_smoke_obs_retrain.csv")
+    retrain_path = os.path.join("logs", "chip_smoke_obs_retrain.json")
+    retrain_cfg.to_json(retrain_path)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs28_") as tmp:
+        d1 = os.path.join(tmp, "prune")
+        n_before = len(_csv_rows(cfg.log_path))
+        t0 = time.perf_counter()
+        with _recorded_prunes() as drops:
+            _cli(["--config", path, "--obs-dir", d1])
+        prune_wall = time.perf_counter() - t0
+        rows = _csv_rows(cfg.log_path)[n_before:]
+        events = _read_jsonl(os.path.join(d1, "events.jsonl"))
+        ledger = _read_jsonl(os.path.join(d1, "ledger.jsonl"))
+        report = _cli(["obs", "report", d1])
+        # a scoring pass of the first target inside an on-demand window
+        model, (_train, val, _test) = PPR.resolve_model_and_data(cfg)
+        params, state = init_model(model, cfg.seed, device=dev)
+        metric = PPR.build_metric(
+            cfg.method, model, params, val.batches(cfg.eval_batch_size),
+            PPR.LOSS_REGISTRY[cfg.loss], state=state,
+            reduction=cfg.reduction, seed=cfg.seed,
+            compute_dtype=PPR.compute_dtype(cfg.score_dtype))
+        d2 = os.path.join(tmp, "score")
+        session = obs.configure(d2)
+        if not obs.request_profile_window():
+            fail("phase 28: the scoring window was not armed")
+        obs.profile_tick()  # a loop boundary: the armed window opens
+        t0 = time.perf_counter()
+        metric.run(first[0])
+        score_s = time.perf_counter() - t0
+        obs.shutdown()  # closes the window on this thread
+        score_windows = [dict(w) for w in session.profiler.windows]
+        with open(os.path.join(d2, "profile.json")) as f:
+            score_profile = json.load(f)
+        del model, params, state, metric
+        torch.cuda.empty_cache()
+        # phase 8's fine-tune with the gradient norm and capture windows
+        d3 = os.path.join(tmp, "retrain")
+        t0 = time.perf_counter()
+        with _timed_steps() as steps:
+            _cli(["--config", retrain_path, "--obs-dir", d3,
+                  "--profile-every", str(OBS_RETRAIN_EVERY),
+                  "--profile-steps", "2"])
+        retrain_wall = time.perf_counter() - t0
+        prom = _prom_values(os.path.join(d3, "metrics.prom"))
+        retrain_profile = {"kernels": [], "coverage": None}
+        if os.path.exists(os.path.join(d3, "profile.json")):
+            with open(os.path.join(d3, "profile.json")) as f:
+                retrain_profile = json.load(f)
+        retrain_windows = []
+        pdir = os.path.join(d3, "profile")
+        for w in sorted(os.listdir(pdir) if os.path.isdir(pdir) else []):
+            with open(os.path.join(pdir, w, "window.json")) as f:
+                retrain_windows.append(json.load(f))
+
+    # results unchanged: phase 7's first 2 drops and widths
+    if drops != pr_drops[:2]:
+        fail(f"phase 28: dropped units differ from phase 7's first 2 "
+             f"({[(t, len(i)) for t, i in drops]} against "
+             f"{[(t, len(i)) for t, i in pr_drops[:2]]})")
+    if [r["widths"] for r in rows] != pr["widths"][:2] \
+            or [r["layer"] for r in rows] != first:
+        fail(f"phase 28: records {[(r['layer'], r['widths']) for r in rows]}")
+    # the span tree: run -> prune_retrain -> setup / attribution / eval /
+    # prune / retrain, per target
+    tree = _span_tree(events)
+    if tree[:3] != [("run", None, None), ("prune_retrain", "run", None),
+                    ("setup", "prune_retrain", None)]:
+        fail(f"phase 28: span tree starts {tree[:3]}")
+    for target in first:
+        for name in ("attribution", "eval", "prune", "retrain"):
+            if (name, "prune_retrain", target) not in tree:
+                fail(f"phase 28: no {name} span of {target} under "
+                     f"prune_retrain")
+    rounds = [r for r in ledger if r.get("event") == "round"]
+    finite = all(math.isfinite(v) for r in rounds
+                 for v in r["score_dist"].values()
+                 if isinstance(v, float))
+    if [r["target"] for r in rounds] != first or not finite:
+        fail(f"phase 28: ledger rounds {[r.get('target') for r in rounds]}"
+             f" (finite score distributions: {finite})")
+    if not all(t in report for t in first):
+        fail("phase 28: obs report does not render both rounds")
+    score_names = {k["kernel"] for k in score_profile["kernels"]}
+    if len(score_windows) != 1 or score_windows[0]["device_events"] <= 0 \
+            or "fwd_tf32x3" not in score_names:
+        fail(f"phase 28: scoring window {score_windows}, kernels "
+             f"{sorted(score_names)[:20]}")
+    retrain_names = {k["kernel"] for k in retrain_profile["kernels"]}
+    want = {"fwd_wgmma", "dq_wgmma", "dkv_wgmma"}
+    if not want <= retrain_names or not retrain_windows \
+            or any(w["device_events"] <= 0 for w in retrain_windows) \
+            or prom.get("profile_empty_windows_total") != 0:
+        fail(f"phase 28: retrain windows {len(retrain_windows)}, kernels "
+             f"{sorted(retrain_names)[:20]}, empty "
+             f"{prom.get('profile_empty_windows_total')}")
+    gnorm = prom.get("grad_norm")
+    if gnorm is None or not (math.isfinite(gnorm) and gnorm > 0):
+        fail(f"phase 28: grad_norm gauge {gnorm}")
+    stats = _step_stats(steps, "obs retrain")
+    out = {
+        "card": smi, "prune_wall_s": prune_wall,
+        "records": [(r["layer"], r["widths"]) for r in rows],
+        "n_dropped": [len(i) for _, i in drops],
+        "rounds": len(rounds), "span_names": sorted({t[0] for t in tree}),
+        "scoring_window": {
+            "seconds": score_s, "device_events":
+                score_windows[0]["device_events"],
+            "kernels": [(k["kernel"], k["ms_per_step"],
+                         k["launches_per_step"])
+                        for k in score_profile["kernels"][:8]],
+            # the flash bodies' rows: ms and launches in the window
+            "flash": {k["kernel"]: (k["ms_per_step"],
+                                    k["launches_per_step"])
+                      for k in score_profile["kernels"]
+                      if k["category"] == "attention"}},
+        "retrain": {
+            "wall_s": retrain_wall, "windows": len(retrain_windows),
+            "device_events": [w["device_events"] for w in retrain_windows],
+            "coverage": retrain_profile["coverage"],
+            "idle_share": (1.0 - retrain_profile["coverage"]
+                           if retrain_profile["coverage"] is not None
+                           else None),
+            "kernels": [(k["kernel"], k["ms_per_step"],
+                         k["launches_per_step"])
+                        for k in retrain_profile["kernels"][:10]],
+            "flash": {k["kernel"]: (k["ms_per_step"],
+                                    k["launches_per_step"])
+                      for k in retrain_profile["kernels"]
+                      if k["category"] == "attention"},
+            "grad_norm": gnorm, **stats,
+            "phase8_step_ms_median": rt["step_ms_median"],
+            "phase8_last_loss": rt["last_loss"]},
+    }
+    log(f"obs prune: {json.dumps(out)}")
+    return out
+
+
 def per_step(cases, key, weight):
     return sum(c[key] * weight(c) for c in cases)
 
@@ -3239,6 +3791,16 @@ def main() -> int:
         out = remat_phase(dev)
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--obs-slice"]:  # phases 3, 7, 8, 27 and 28 alone
+        _build.build()
+        s4 = serve_phase(dev, bits=4, depth=DEPTH)
+        pr, pr_drops = preset_phase(dev)
+        rt = retrain_phase(dev)
+        out = {"serve": obs_serve_phase(dev, s4, smi),
+               "prune": obs_prune_phase(dev, pr, pr_drops, rt, smi)}
+        log(f"total {time.perf_counter() - t_start:.1f} s ({smi})")
+        print(json.dumps(out), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     info = _build.build()
@@ -3263,7 +3825,7 @@ def main() -> int:
     log("phase 6: flash attention kernels vs plain versions")
     fl = [flash_case(dev, *c) for c in FLASH_CASES]
     log("phase 7: --preset bert_glue_sensitivity, BERT-base full width")
-    pr = preset_phase(dev)
+    pr, pr_drops = preset_phase(dev)
     log("phase 8: retrain block12_mlp one epoch, bf16, through --config")
     rt = retrain_phase(dev)
     log("phase 9: mfu_llama causal training, 3 steps, bf16")
@@ -3329,6 +3891,17 @@ def main() -> int:
     cs = cached_sweep_phase(dev, p16)
     del p11, p16
     log(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    log("phase 27: observability on serving: Llama-3-8B int4 full width "
+        "and depth, 3 capture windows in one process")
+    t0 = time.perf_counter()
+    o27 = obs_serve_phase(dev, s4, smi)
+    log(f"phase 27: {time.perf_counter() - t0:.1f} s ({smi})")
+    log("phase 28: observability on the prune loop: BERT-base, 2 targets "
+        "with --obs-dir, a scoring window, the bf16 fine-tune with "
+        "obs_grad_norm and --profile-every")
+    t0 = time.perf_counter()
+    o28 = obs_prune_phase(dev, pr, pr_drops, rt, smi)
+    log(f"phase 28: {time.perf_counter() - t0:.1f} s ({smi})")
 
     # per-kernel line: the work of one full-depth 8B int4 decode step at
     # 4 slots (sum over that step's calls), every case beside it
@@ -3496,6 +4069,8 @@ def main() -> int:
     kernels[0]["moe"] = moe
     kernels[0]["training_v2"] = {"remat": rm, "accum_masked": am,
                                  "cached_sweep": cs}
+    # phases 27-28: what the program's own capture windows name
+    kernels[0]["obs"] = {"serve": o27, "prune": o28}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

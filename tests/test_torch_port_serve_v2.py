@@ -651,21 +651,25 @@ def test_queue_bound_sheds_and_queue_wait(tiny):
 # -- the front ends -----------------------------------------------------------
 
 
-def _http(port, method, path, body=None):
+def _http(port, method, path, body=None, parse=json.loads):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", method=method,
         data=None if body is None else json.dumps(body).encode(),
         headers={"Content-Type": "application/json"})
     try:
         with urllib.request.urlopen(req, timeout=60) as resp:
-            return resp.status, json.loads(resp.read())
+            return resp.status, parse(resp.read())
     except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read())
+        return e.code, parse(e.read())
 
 
 def test_http_front_end(tiny, tmp_path):
     """127.0.0.1, port 0: generate, healthz, stats, swap (202, then
-    staging_swap until it lands), the obs routes at 501."""
+    staging_swap until it lands), and the obs routes as the JAX front
+    end answers them: ``/metrics`` 503 without a session and 200 with
+    one, ``POST /profile`` 409 without a profiler, then 202 and 409
+    while the window is armed."""
+    from torchpruner_tpu_torch import obs
     from torchpruner_tpu_torch.serve.frontend import _http_server
 
     model, params = tiny
@@ -695,8 +699,32 @@ def test_http_front_end(tiny, tmp_path):
         code, stats = _http(port, "GET", "/stats")
         assert code == 200 and stats["admits"] == 3
         assert stats["prefix"]["hits"] > 0 and stats["state"] == "ready"
-        assert _http(port, "GET", "/metrics")[0] == 501
-        assert _http(port, "POST", "/profile")[0] == 501
+        text = bytes.decode
+        assert _http(port, "GET", "/metrics", parse=text)[0] == 503
+        assert _http(port, "POST", "/profile")[0] == 409
+        # one-step windows: an idle engine closes one after 1 s
+        session = obs.configure(str(tmp_path / "obs"), profile_steps=1)
+        code, body = _http(port, "POST", "/v1/generate", {
+            "prompt_ids": reqs[0].prompt_ids.tolist(),
+            "max_new": reqs[0].max_new, "seed": reqs[0].sampling.seed})
+        assert code == 200 and body["tokens"] == _solo(model, params,
+                                                       reqs[0])
+        code, prom = _http(port, "GET", "/metrics", parse=text)
+        assert code == 200
+        assert "serve_requests_total 1" in prom.splitlines()
+        assert "serve_completed_total 1" in prom.splitlines()
+        code, body = _http(port, "POST", "/profile")
+        assert code == 202 and body["armed"]
+        code, body = _http(port, "POST", "/profile")
+        assert code == 409 and not body["armed"]
+        # the idle engine loop opens the window and closes it (its own
+        # thread owns the profiler session)
+        for _ in range(200):
+            if session.profiler.windows:
+                break
+            time.sleep(0.05)
+        assert len(session.profiler.windows) == 1
+        assert not session.profiler.windows[0].get("torn")
         assert _http(port, "POST", "/v1/generate", {"max_new": 2})[0] == 400
         assert _http(port, "GET", "/nope")[0] == 404
         code, body = _http(port, "POST", "/swap",
@@ -715,7 +743,8 @@ def test_http_front_end(tiny, tmp_path):
         loop.join(timeout=60)
         server.shutdown()
         serve.join(timeout=10)
-    assert out["requests_completed"] == 3 and out["swaps"] == 1
+        obs.shutdown()
+    assert out["requests_completed"] == 4 and out["swaps"] == 1
 
 
 def test_stdin_front_end(monkeypatch, capsys):
@@ -736,7 +765,10 @@ def test_stdin_front_end(monkeypatch, capsys):
     results = out[1:]
     assert [r["state"] for r in results] == ["done"] * 3
     assert all(len(r["tokens"]) == 4 for r in results)
-    summary = json.loads(cap.err.strip().splitlines()[-1])
+    # the obs session's summary table follows the JSON summary on stderr
+    summary = json.loads(next(line for line in
+                              reversed(cap.err.strip().splitlines())
+                              if line.startswith("{")))
     assert summary["requests_completed"] == 3
     assert summary["prefix_hits"] == 2
 

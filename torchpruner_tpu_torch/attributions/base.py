@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from torchpruner_tpu_torch import obs
 from torchpruner_tpu_torch.core import layers as L
 from torchpruner_tpu_torch.core.graph import find_best_evaluation_layer
 from torchpruner_tpu_torch.core.plan import _get_path
@@ -82,7 +83,12 @@ class AttributionMetric:
         eval_layer = self.find_evaluation_layer(layer,
                                                 find_best_evaluation_layer)
         rows = self.compute_rows(layer, eval_layer, **kw)
-        return self.aggregate_over_samples(rows)
+        scores = self.aggregate_over_samples(rows)
+        # provenance: the per-unit score distribution (percentiles, not
+        # raw scores) goes to the run ledger, keyed by scoring site
+        obs.record_scores(eval_layer, scores, layer=layer,
+                          method=type(self).__name__, run=self.seed)
+        return scores
 
     def find_evaluation_layer(self, layer: str, find_best: bool = False
                               ) -> str:
@@ -266,10 +272,11 @@ class ActivationCache:
       weights computes its own prefix instead of reading another's
       activations.
 
-    The JAX package also records each fill in an obs ``capture_fill``
-    span and each hit or miss in obs counters; those wait for the
-    telemetry plane (ROADMAP A5), and :meth:`stats` carries the same
-    counts today.  Its mesh placement waits for ROADMAP A7.
+    Each fill runs inside an obs ``capture_fill`` span and each hit or
+    miss bumps the obs capture counters (``attrib_capture_hits_total``,
+    ``attrib_capture_misses_total``, the ``prefix_flops_saved`` gauge),
+    as in the JAX package; :meth:`stats` carries the same counts.  Its
+    mesh placement waits for ROADMAP A7.
     """
 
     def __init__(self, model: SegmentedModel, params, data, *,
@@ -352,7 +359,8 @@ class ActivationCache:
         dev = device_of(params)
         filled = []
         n = 0
-        with torch.no_grad():
+        with torch.no_grad(), obs.span("capture_fill",
+                                       sites=len(self.sites)):
             for x, y in (self.data() if callable(self.data)
                          else iter(self.data)):
                 x = to_device(x, dev)
@@ -410,13 +418,15 @@ class ActivationCache:
         forwards it saved."""
         self._fill()
         self.hits += 1
-        self.prefix_flops_saved += (self._site_flops.get(site, 0.0)
-                                    * self._examples)
+        saved = self._site_flops.get(site, 0.0) * self._examples
+        self.prefix_flops_saved += saved
+        obs.record_capture(hits=1, prefix_flops_saved=saved)
 
     def record_miss(self, site: str):
         """One scoring pass that recomputed its prefix despite the cache
         (an unsupported metric or site, or other inputs)."""
         self.misses += 1
+        obs.record_capture(misses=1)
 
     def stats(self) -> Dict[str, float]:
         return {"sites": len(self.sites),

@@ -108,19 +108,30 @@ def prune(model: SegmentedModel, params, layer: Union[str, PruneGroup],
     """Prune units ``drop`` from prunable layer ``layer`` (or an explicit
     group), cascading into attached norms/Dropout and consumer layers,
     and slicing every param-shaped optimizer-state leaf in step.  Leaves
-    the plan does not touch are shared with the input trees."""
+    the plan does not touch are shared with the input trees.  The
+    decision is ledgered (``obs.record_prune``) and the plan and its
+    application run in obs ``plan`` / ``apply_plan`` spans."""
     if any(isinstance(leaf, QTensor) for leaf in tree_leaves(params)):
         raise ValueError(
             "params contain quantized QTensor weights — prune BEFORE "
             "quantizing (prune → fine-tune → quantize)")
+    from torchpruner_tpu_torch import obs
+
     group = layer if isinstance(layer, PruneGroup) \
         else G.group_for(model, layer)
     drop = np.unique(np.asarray(drop, dtype=np.int64).reshape(-1))
-    plan = plan_for_group(model, group)
-    new_params, new_state, new_opt = apply_plan(
-        plan, drop, params, state=state, opt_state=opt_state)
-    return PruneResult(pruned_model_spec(model, group, drop), new_params,
-                       new_state, new_opt)
+    # provenance: the concrete decision (site + rows) goes to the run
+    # ledger before the plan is applied, so a run that dies inside
+    # apply_plan still leaves a record of what it was about to remove
+    obs.record_prune(group.target, drop,
+                     L.n_units(model.layer(group.target)))
+    with obs.span("plan", target=group.target):
+        plan = plan_for_group(model, group)
+    with obs.span("apply_plan", target=group.target, n_drop=len(drop)):
+        new_params, new_state, new_opt = apply_plan(
+            plan, drop, params, state=state, opt_state=opt_state)
+        new_model = pruned_model_spec(model, group, drop)
+    return PruneResult(new_model, new_params, new_state, new_opt)
 
 
 def pruned_model_spec(model: SegmentedModel, group: PruneGroup,

@@ -14,6 +14,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from torchpruner_tpu_torch import obs
 from torchpruner_tpu_torch.attributions import (
     APoZAttributionMetric,
     RandomAttributionMetric,
@@ -188,7 +189,15 @@ def run_prune_retrain(cfg: ExperimentConfig, *, model=None, datasets=None,
     ``model`` / ``datasets=(train, val, test)`` may be injected.  A
     setting the port does not run yet raises ``NotImplementedError``, and
     so does another experiment (``experiments/train_model.py``,
-    ``experiments/robustness.py`` run those)."""
+    ``experiments/robustness.py`` run those).
+
+    Telemetry, as in the JAX package: when an obs session is active the
+    run emits nested phase spans — ``prune_retrain`` → ``setup``, then
+    per target ``attribution`` / ``eval`` / ``prune`` (``plan``,
+    ``apply_plan``) / ``retrain`` / ``eval`` / ``flops`` — ledgers each
+    round (``record_round`` with the score distribution), and the CSV
+    rows carry the active span id.  The resumable journal is ROADMAP
+    A8."""
     if cfg.experiment != "prune_retrain":
         raise NotImplementedError(
             f"run_prune_retrain runs experiment='prune_retrain' only, not "
@@ -198,76 +207,118 @@ def run_prune_retrain(cfg: ExperimentConfig, *, model=None, datasets=None,
     dev = resolve_device(device)
     if dev.type == "cuda":
         strict_fp32_matmul()
-    model, (train, val, test) = resolve_model_and_data(cfg, model, datasets)
-    groups = list(pruning_graph(model))
-    if cfg.prune_order == "reverse":
-        groups = groups[::-1]  # outermost layer first (reference recipe)
-    targets = filter_targets([g.target for g in groups], cfg)
+    obs.annotate_run(experiment=cfg.name, kind="prune_retrain",
+                     model=cfg.model, method=cfg.method, policy=cfg.policy)
+    with obs.span("prune_retrain", experiment=cfg.name):
+        return _run_prune_retrain(cfg, dev, model=model, datasets=datasets,
+                                  verbose=verbose)
 
-    spe = max(1, len(train) // cfg.batch_size)
-    # one opt_state spans every target's fine-tune pass, so decaying
-    # schedules are sized for the whole run
-    tx = make_optimizer(cfg, steps_per_epoch=spe,
-                        total_epochs=cfg.finetune_epochs * max(1, len(targets)))
-    loss_fn = LOSS_REGISTRY[cfg.loss]
-    sdtype = compute_dtype(cfg.score_dtype)
-    trainer = Trainer.create(model, tx, loss_fn, seed=cfg.seed,
-                             compute_dtype=compute_dtype(cfg.compute_dtype),
-                             device=dev, moe_aux_weight=cfg.moe_aux_weight,
-                             remat=cfg.remat, accum_steps=cfg.accum_steps)
+
+def _run_prune_retrain(cfg: ExperimentConfig, dev, *, model=None,
+                       datasets=None, verbose: bool = True
+                       ) -> List[PruneStepRecord]:
+    with obs.span("setup"):
+        model, (train, val, test) = resolve_model_and_data(cfg, model,
+                                                           datasets)
+        groups = list(pruning_graph(model))
+        if cfg.prune_order == "reverse":
+            groups = groups[::-1]  # outermost layer first (reference recipe)
+        targets = filter_targets([g.target for g in groups], cfg)
+
+        spe = max(1, len(train) // cfg.batch_size)
+        # one opt_state spans every target's fine-tune pass, so decaying
+        # schedules are sized for the whole run
+        tx = make_optimizer(
+            cfg, steps_per_epoch=spe,
+            total_epochs=cfg.finetune_epochs * max(1, len(targets)))
+        loss_fn = LOSS_REGISTRY[cfg.loss]
+        sdtype = compute_dtype(cfg.score_dtype)
+        trainer = Trainer.create(
+            model, tx, loss_fn, seed=cfg.seed,
+            compute_dtype=compute_dtype(cfg.compute_dtype), device=dev,
+            moe_aux_weight=cfg.moe_aux_weight, remat=cfg.remat,
+            accum_steps=cfg.accum_steps, grad_norm=cfg.obs_grad_norm)
+        _configure_mfu(cfg, trainer)
     val_batches = val.batches(cfg.eval_batch_size)
     test_batches = test.batches(cfg.eval_batch_size)
     history: List[PruneStepRecord] = []
     with CSVLogger(cfg.log_path, experiment=cfg.name) as logger:
         for target in targets:
-            metric = build_metric(
-                cfg.method, trainer.model, trainer.params, val_batches,
-                loss_fn, state=trainer.state, reduction=cfg.reduction,
-                seed=cfg.seed, compute_dtype=sdtype, **cfg.method_kwargs)
-            t0 = time.perf_counter()
-            scores = metric.run(
-                target,
-                find_best_evaluation_layer=cfg.find_best_evaluation_layer)
-            pre_loss, pre_acc = trainer.evaluate(test_batches)
+            with obs.span("attribution", target=target, method=cfg.method):
+                metric = build_metric(
+                    cfg.method, trainer.model, trainer.params, val_batches,
+                    loss_fn, state=trainer.state, reduction=cfg.reduction,
+                    seed=cfg.seed, compute_dtype=sdtype, **cfg.method_kwargs)
+                t0 = time.perf_counter()
+                scores = metric.run(
+                    target,
+                    find_best_evaluation_layer=cfg.find_best_evaluation_layer)
+            with obs.span("eval", target=target, which="pre"):
+                pre_loss, pre_acc = trainer.evaluate(test_batches)
+            # one policy evaluation feeds the prune and the ledger's
+            # decision record, so the two cannot disagree
             policy, fraction = policy_for_target(cfg, target)
             drop_idx = score_drop_indices(scores, policy=policy,
                                           fraction=fraction,
                                           bucket=cfg.bucket)
+            score_dist = obs.score_distribution(scores, drop_idx)
             if cfg.simulate:
                 # mask the same slices a real prune would remove: shapes
                 # never change across the sweep
-                pm, sm = drop_masks(trainer.model, trainer.params,
-                                    {target: drop_idx}, state=trainer.state)
-                trainer.params = apply_masks(trainer.params, pm)
-                if trainer.state:
-                    trainer.state = apply_masks(trainer.state, sm)
+                with obs.span("prune", target=target, simulate=True):
+                    obs.record_prune(target, drop_idx,
+                                     L.n_units(trainer.model.layer(target)),
+                                     simulate=True)
+                    pm, sm = drop_masks(trainer.model, trainer.params,
+                                        {target: drop_idx},
+                                        state=trainer.state)
+                    trainer.params = apply_masks(trainer.params, pm)
+                    if trainer.state:
+                        trainer.state = apply_masks(trainer.state, sm)
                 prune_time = time.perf_counter() - t0
                 n_dropped = len(drop_idx)
             else:
-                res = prune(trainer.model, trainer.params, target, drop_idx,
-                            state=trainer.state,
-                            opt_state=trainer.opt_state)
-                prune_time = time.perf_counter() - t0
-                n_dropped = L.n_units(trainer.model.layer(target)) \
-                    - L.n_units(res.model.layer(target))
-                trainer = trainer.rebuild(res.model, res.params, res.state,
-                                          res.opt_state)
-            for epoch_i in range(cfg.finetune_epochs):
-                # accumulation cannot split a ragged tail batch: drop it
-                train_epoch(trainer,
-                            train.batches(cfg.batch_size, shuffle=True,
-                                          seed=cfg.seed + epoch_i,
-                                          drop_remainder=cfg.accum_steps > 1),
-                            epoch=epoch_i, verbose=False)
-            post_loss, post_acc = trainer.evaluate(test_batches)
-            n_params, flops = model_cost(trainer.model, trainer.params,
-                                         trainer.state)
+                with obs.span("prune", target=target):
+                    res = prune(trainer.model, trainer.params, target,
+                                drop_idx, state=trainer.state,
+                                opt_state=trainer.opt_state)
+                    prune_time = time.perf_counter() - t0
+                    n_dropped = L.n_units(trainer.model.layer(target)) \
+                        - L.n_units(res.model.layer(target))
+                    trainer = trainer.rebuild(res.model, res.params,
+                                              res.state, res.opt_state)
+                _configure_mfu(cfg, trainer)
+            with obs.span("retrain", target=target,
+                          epochs=cfg.finetune_epochs):
+                for epoch_i in range(cfg.finetune_epochs):
+                    # accumulation cannot split a ragged tail batch: drop
+                    # it
+                    train_epoch(
+                        trainer,
+                        train.batches(cfg.batch_size, shuffle=True,
+                                      seed=cfg.seed + epoch_i,
+                                      drop_remainder=cfg.accum_steps > 1),
+                        epoch=epoch_i, verbose=False)
+            with obs.span("eval", target=target, which="post"):
+                post_loss, post_acc = trainer.evaluate(test_batches)
+            with obs.span("flops", target=target):
+                n_params, flops = model_cost(trainer.model, trainer.params,
+                                             trainer.state)
             rec = PruneStepRecord(
                 layer=target, pre_loss=pre_loss, pre_acc=pre_acc,
                 post_loss=post_loss, post_acc=post_acc, n_params=n_params,
                 n_dropped=n_dropped, prune_time=prune_time,
                 widths=trainer.model.widths())
             history.append(rec)
+            obs.record_round(
+                target=target, round=len(history) - 1, method=cfg.method,
+                policy=cfg.policy, n_dropped=int(n_dropped),
+                simulate=bool(cfg.simulate), score_dist=score_dist,
+                pre={"loss": float(pre_loss), "acc": float(pre_acc)},
+                post={"loss": float(post_loss), "acc": float(post_acc)},
+                params=int(n_params), flops=flops, widths=rec.widths,
+                prune_time=float(prune_time),
+                runtime=obs.runtime_snapshot())
             logger.log_prune_step(
                 layer=target, method=cfg.method, test_loss=pre_loss,
                 test_acc=pre_acc, test_loss_pp=post_loss,
@@ -278,3 +329,20 @@ def run_prune_retrain(cfg: ExperimentConfig, *, model=None, datasets=None,
                       f"acc {pre_acc:.4f}→{post_acc:.4f}, params {n_params}",
                       flush=True)
     return history
+
+
+def _configure_mfu(cfg: ExperimentConfig, trainer):
+    """Point the obs step telemetry at the CURRENT model's training FLOPs
+    (3x a forward at the training batch size, re-aimed after every prune
+    since the model shrinks).  Costs one counted forward, so it runs only
+    while a session is active."""
+    if obs.get() is None:
+        return
+    try:
+        _, fwd = model_cost(trainer.model, trainer.params, trainer.state,
+                            batch_size=cfg.batch_size)
+        if fwd:
+            obs.configure_step_flops(
+                flops_per_step=obs.train_flops_per_step(fwd))
+    except Exception:
+        pass

@@ -17,7 +17,9 @@ evaluation site, filled by one forward a batch, serves each metric, run
 and walk at its site instead of a prefix forward each; a site is
 released once no later layer shares it.  Metrics built from other
 params or data fall back to their own prefix, counted as misses; the
-numbers are the same either way.  A mesh (A7), ``run_dir`` (A8) and
+numbers are the same either way.  Each layer's panel runs in an obs
+``robustness_layer`` span and is ledgered (``record_sweep_layer``: the
+methods' AUCs).  A mesh (A7), ``run_dir`` (A8) and
 ``plot_dir`` (A8) raise.  Without trained params,
 ``cfg.checkpoint_path`` names the training checkpoint to sweep
 (``checkpoint.py``, written by either package).
@@ -33,6 +35,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from torchpruner_tpu_torch import obs
 from torchpruner_tpu_torch.attributions.base import (
     ActivationCache,
     prefix_fn,
@@ -237,43 +240,59 @@ def layerwise_robustness(model: SegmentedModel, params, state, test_data,
                                 state=state, compute_dtype=compute_dtype)
     results: Dict[str, Dict[str, List[Dict]]] = {}
     for li, (layer, eval_layer) in enumerate(zip(layers, sites)):
-        results[layer] = {}
-        pending = []  # (name, scores, score seconds)
-        for name, factory in methods.items():
-            n_runs = (runs_stochastic
-                      if any(s in name.lower() for s in stochastic) else 1)
-            for run in range(n_runs):
-                t0 = time.perf_counter()
-                metric = factory(run)
-                metric.capture_cache = cache
-                scores = metric.run(
-                    layer,
-                    find_best_evaluation_layer=find_best_evaluation_layer_)
-                pending.append((name, scores, time.perf_counter() - t0))
-        if not pending:
-            continue
-        t0 = time.perf_counter()
-        curves = ablation_curves_batch(
-            model, params, state, layer,
-            np.stack([np.argsort(s) for _, s, _ in pending]), test_data,
-            loss_fn, eval_layer=eval_layer, compute_dtype=compute_dtype,
-            capture_cache=cache)
-        walk_share = (time.perf_counter() - t0) / len(pending)
-        for (name, scores, score_s), curve in zip(pending, curves):
-            results[layer].setdefault(name, []).append({
-                "scores": scores, "loss": curve["loss"], "acc": curve["acc"],
-                "base_loss": curve["base_loss"],
-                "base_acc": curve["base_acc"],
-                "auc": loss_increase_auc(curve),
-                "seconds": score_s + walk_share})
-        if verbose:
-            for name, runs in results[layer].items():
-                aucs = [r["auc"] for r in runs]
-                print(f"[robustness] {layer} / {name}: auc "
-                      f"{np.mean(aucs):.4f} ± {np.std(aucs):.4f} "
-                      f"({runs[0]['seconds']:.1f}s/run)", flush=True)
-        if cache is not None and eval_layer not in sites[li + 1:]:
-            cache.drop(eval_layer)  # no later layer reads this site
+        with obs.span("robustness_layer", layer=layer):
+            results[layer] = {}
+            pending = []  # (name, scores, score seconds)
+            for name, factory in methods.items():
+                n_runs = (runs_stochastic
+                          if any(s in name.lower() for s in stochastic)
+                          else 1)
+                for run in range(n_runs):
+                    t0 = time.perf_counter()
+                    metric = factory(run)
+                    metric.capture_cache = cache
+                    scores = metric.run(
+                        layer, find_best_evaluation_layer=(
+                            find_best_evaluation_layer_))
+                    pending.append((name, scores,
+                                    time.perf_counter() - t0))
+            if not pending:
+                continue
+            t0 = time.perf_counter()
+            curves = ablation_curves_batch(
+                model, params, state, layer,
+                np.stack([np.argsort(s) for _, s, _ in pending]),
+                test_data, loss_fn, eval_layer=eval_layer,
+                compute_dtype=compute_dtype, capture_cache=cache)
+            walk_share = (time.perf_counter() - t0) / len(pending)
+            for (name, scores, score_s), curve in zip(pending, curves):
+                results[layer].setdefault(name, []).append({
+                    "scores": scores, "loss": curve["loss"],
+                    "acc": curve["acc"],
+                    "base_loss": curve["base_loss"],
+                    "base_acc": curve["base_acc"],
+                    "auc": loss_increase_auc(curve),
+                    "seconds": score_s + walk_share})
+            # provenance: one ledger record per finished layer panel
+            # (method AUCs; the raw curves stay in the results)
+            obs.record_sweep_layer(layer=layer, eval_layer=eval_layer,
+                                   methods={
+                name: {
+                    "auc_mean": float(np.mean([r["auc"] for r in runs])),
+                    "auc_std": float(np.std([r["auc"] for r in runs])),
+                    "n_runs": len(runs),
+                    "seconds_mean": float(np.mean([r["seconds"]
+                                                   for r in runs])),
+                }
+                for name, runs in results[layer].items()})
+            if verbose:
+                for name, runs in results[layer].items():
+                    aucs = [r["auc"] for r in runs]
+                    print(f"[robustness] {layer} / {name}: auc "
+                          f"{np.mean(aucs):.4f} ± {np.std(aucs):.4f} "
+                          f"({runs[0]['seconds']:.1f}s/run)", flush=True)
+            if cache is not None and eval_layer not in sites[li + 1:]:
+                cache.drop(eval_layer)  # no later layer reads this site
     return results
 
 

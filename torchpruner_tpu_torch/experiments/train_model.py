@@ -14,7 +14,9 @@ batch is flipped and shift-cropped (``data/augment.py``), seeded
 border filled with ``data.datasets.norm_zero``'s value: the JAX
 package's batches bit for bit.  ``cfg.remat`` and ``cfg.accum_steps`` go to the trainer; as in
 the JAX package, an epoch's ragged tail batch that ``accum_steps`` does
-not divide raises.
+not divide raises.  Each epoch's training and evaluation run in obs
+``train`` / ``eval`` spans, and the epoch is ledgered
+(``obs.record_epoch``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Iterator, Tuple
 
 import numpy as np
 
+from torchpruner_tpu_torch import obs
 from torchpruner_tpu_torch.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -103,17 +106,20 @@ def run_train(cfg: ExperimentConfig, *, model=None, datasets=None,
     with CSVLogger(cfg.log_path, experiment=cfg.name) as logger:
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
-            # losses stay on the device until the epoch ends
-            losses = [trainer.step(x, y)
-                      for x, y in epoch_batches(train, cfg, epoch)]
-            losses = [float(l) for l in losses]
-            test_loss, test_acc = trainer.evaluate(test_batches)
+            with obs.span("train", epoch=epoch):
+                # losses stay on the device until the epoch ends
+                losses = [trainer.step(x, y)
+                          for x, y in epoch_batches(train, cfg, epoch)]
+                losses = [float(l) for l in losses]
+            with obs.span("eval", epoch=epoch):
+                test_loss, test_acc = trainer.evaluate(test_batches)
             rec = {"epoch": epoch,
                    "train_loss": float(np.mean(losses)) if losses
                    else float("nan"),
                    "test_loss": test_loss, "test_acc": test_acc,
                    "seconds": time.perf_counter() - t0}
             history.append(rec)
+            obs.record_epoch(**rec)
             logger.log_epoch(epoch=epoch, train_loss=rec["train_loss"],
                              test_loss=test_loss, test_acc=test_acc,
                              seconds=rec["seconds"])

@@ -8,6 +8,11 @@ minutes for a source that includes PyTorch's headers.  Libraries land in
 name carrying a digest of the source, the shared headers and the flags,
 so an edited source or header is never served by a stale library.  :func:`build` compiles every missing
 library in parallel, one ``nvcc`` per source, all started together.
+
+Every build and every load is reported to the callables in
+:data:`listeners` as ``listener(event, name, seconds)`` with ``event``
+``"build"`` or ``"load"`` — how the telemetry plane counts the port's
+compiles (``obs/compile_watch.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -36,9 +41,21 @@ KERNELS = ("dequant_matmul", "decode_attention", "flash_attention",
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+#: build/load observers, called ``(event, name, seconds)`` on the
+#: building or loading thread; an observer that raises is ignored
+listeners: List[Callable[[str, str, float], None]] = []
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}
+
+
+def _report(event: str, name: str, seconds: float) -> None:
+    for fn in list(listeners):
+        try:
+            fn(event, name, seconds)
+        except Exception:
+            pass
 
 
 def nvcc() -> str:
@@ -94,6 +111,9 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
             info[name] = {"seconds": time.perf_counter() - t0,
                           "ptxas": (stdout + stderr).strip(),
                           "cached": False}
+    for name, v in info.items():
+        if not v["cached"]:
+            _report("build", name, v["seconds"])
     return info
 
 
@@ -102,10 +122,15 @@ def library(name: str) -> ctypes.CDLL:
     lib: Optional[ctypes.CDLL] = _libs.get(name)
     if lib is None:
         build([name])
+        loaded = None
         with _lock:
             lib = _libs.get(name)
             if lib is None:
+                t0 = time.perf_counter()
                 lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+                loaded = time.perf_counter() - t0
+        if loaded is not None:
+            _report("load", name, loaded)
     return lib
 
 

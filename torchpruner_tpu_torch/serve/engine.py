@@ -71,9 +71,16 @@ dispatch, whose every row op is batch-invariant (the sparse dispatch's
 capacity depends on the tokens in the step, so a dropped pair depends on
 the batch).
 
-Left for later slices (the JAX engine has them): the telemetry plane
-(obs spans, counters, request traces; A5), the cost-model twin and the
-chaos hooks (A8).
+Telemetry, at the JAX engine's call sites and under its names: spans
+``serve_prefill``, ``serve_prefill_chunk``, ``serve_prefix_map`` /
+``serve_prefix_publish`` and ``serve_swap_compile``; the ``serve_*`` and
+``tenant_*`` counters and histograms; request-trace stages (admission →
+prefill → first_token → decode → complete); ``obs.profile_step`` after
+every decode step and ``obs.profile_tick`` / ``obs.timeseries_tick`` in
+the loop, which drive the capture windows; ``record_serve`` ledger
+records of swaps and summaries.  Every call is a no-op without an obs
+session.  Left for later slices (the JAX engine has them): the
+cost-model twin and the chaos hooks (A8).
 """
 
 from __future__ import annotations
@@ -88,6 +95,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from torchpruner_tpu_torch import obs
 from torchpruner_tpu_torch.generate import (
     _attn_layers,
     _decode_seq,
@@ -95,6 +103,7 @@ from torchpruner_tpu_torch.generate import (
     init_cache,
     sample_row,
 )
+from torchpruner_tpu_torch.obs import reqtrace
 from torchpruner_tpu_torch.serve.allocator import (
     KVCacheAllocator,
     bucket_for,
@@ -373,6 +382,10 @@ class ServeEngine:
         #: whether decode steps launch the decode-attention kernel
         self.decode_kernel = _decode_kernel_active(
             model, max_len, cache_dtype, self.device)
+        obs.gauge_set(
+            "serve_decode_kernel_active", float(self.decode_kernel),
+            help="1 when the decode-attention kernel serves this "
+                 "engine's cache geometry")
         self.scheduler = Scheduler(
             allocator, queue_bound=queue_bound,
             prefill_token_cap=prefill_token_cap, qos=qos)
@@ -471,8 +484,13 @@ class ServeEngine:
         req.served_by = self.programs
         req.tokens.append(tok)
         self.gen_tokens += 1
-        if req.ttft_s is not None and self.slo is not None:
-            self.slo.on_ttft(req.ttft_s)
+        if req.ttft_s is not None:
+            obs.observe("serve_ttft_seconds", req.ttft_s,
+                        help="request arrival -> first token")
+            reqtrace.stage(req.trace_id, "first_token", request=req.id,
+                           ttft_s=round(req.ttft_s, 6))
+            if self.slo is not None:
+                self.slo.on_ttft(req.ttft_s)
         self._pos[slot] = int(req.prompt_ids.size)
         self._tok[slot] = tok
         self._temp[slot] = s.temperature
@@ -490,16 +508,29 @@ class ServeEngine:
         padded[0, :n] = req.prompt_ids
         s = req.sampling
         t_adm = time.perf_counter()
+        if req.admitted_s is not None:
+            # admission stage: slot granted -> this request's prefill
+            # starting (a batch admission serializes prefills)
+            reqtrace.stage(req.trace_id, "admission",
+                           dur_s=max(0.0, t_adm - req.admitted_s),
+                           request=req.id)
         gen = torch.Generator().manual_seed(int(s.seed))
-        tok, small = P.prefill_for(bucket)(
-            P.params, torch.as_tensor(padded, device=self.device), n, gen,
-            s.temperature, s.top_k or 0,
-            1.0 if s.top_p is None else s.top_p)
-        P.insert(P.cache, small, req.slot)
+        with obs.span("serve_prefill", request=req.id, bucket=bucket):
+            tok, small = P.prefill_for(bucket)(
+                P.params, torch.as_tensor(padded, device=self.device), n,
+                gen, s.temperature, s.top_k or 0,
+                1.0 if s.top_p is None else s.top_p)
+            P.insert(P.cache, small, req.slot)
         now = time.perf_counter()
         req.prefill_s = now - t_adm
         req.prefilled_tokens = n
         self.prefill_tokens_total += n
+        obs.inc("serve_prefill_tokens_total", n=n,
+                help="prompt tokens actually prefilled (chunked real "
+                     "tokens or whole-bucket prompt lengths; prefix "
+                     "hits skip theirs)")
+        reqtrace.stage(req.trace_id, "prefill", dur_s=req.prefill_s,
+                       request=req.id, bucket=bucket)
         self._start_decoding(req, tok, gen, now)
         if len(req.tokens) >= req.max_new or tok == self._eos[req.slot]:
             self._finish(req)
@@ -518,15 +549,40 @@ class ServeEngine:
         slot = req.slot
         n = int(req.prompt_ids.size)
         t_adm = time.perf_counter()
+        if req.admitted_s is not None:
+            reqtrace.stage(req.trace_id, "admission",
+                           dur_s=max(0.0, t_adm - req.admitted_s),
+                           request=req.id)
         pos0 = 0
         match = alloc.match_prefix(req.prompt_ids, max_tokens=n - 1)
         if match is not None:
             Lp = alloc.page_len
-            for i, pg in enumerate(match.pages):
-                P.map_page(P.cache, P.prefix_pool, pg, slot, i * Lp)
+            with obs.span("serve_prefix_map", request=req.id,
+                          pages=len(match.pages)):
+                for i, pg in enumerate(match.pages):
+                    P.map_page(P.cache, P.prefix_pool, pg, slot, i * Lp)
             pos0 = match.tokens
             alloc.lease_of(slot).prefix_match = match
             req.prefix_hit_tokens = pos0
+            obs.inc("serve_prefix_hits_total",
+                    help="admissions whose prompt matched resident "
+                         "prefix pages")
+            obs.inc("serve_prefix_hit_tokens_total", n=pos0,
+                    help="prompt tokens served by mapping shared "
+                         "prefix pages instead of re-prefilling")
+            # pages the trie held but the cap refused: the copy-on-write
+            # boundary, privately re-prefilled
+            cow = -(-(min(getattr(match, "available", pos0), n)
+                      - pos0) // Lp)
+            if cow > 0:
+                obs.inc("serve_prefix_cow_pages_total", n=cow,
+                        help="resident pages re-prefilled privately at "
+                             "the divergence/write boundary (COW)")
+            reqtrace.stage(req.trace_id, "prefix_hit", request=req.id,
+                           tokens=pos0)
+        elif alloc.prefix_enabled:
+            obs.inc("serve_prefix_misses_total",
+                    help="admissions with no resident prefix page")
         # park the slot's decode write row on max_len - 1: never
         # attendable before decode overwrites it (the final decode
         # step's pos is at most total_len - 2), and this slot's step
@@ -576,11 +632,18 @@ class ServeEngine:
         m = min(c, n - pos)
         toks = np.zeros((1, c), np.int64)
         toks[0, :m] = req.prompt_ids[pos:pos + m]
-        logits = P.chunk_prefill(
-            P.params, P.cache, torch.as_tensor(toks, device=self.device),
-            slot, pos)
+        with obs.span("serve_prefill_chunk", request=req.id, chunk=c):
+            logits = P.chunk_prefill(
+                P.params, P.cache,
+                torch.as_tensor(toks, device=self.device), slot, pos)
         st["pos"] = pos + m
         self.prefill_tokens_total += m
+        obs.inc("serve_prefill_tokens_total", n=m,
+                help="prompt tokens actually prefilled (chunked real "
+                     "tokens or whole-bucket prompt lengths; prefix "
+                     "hits skip theirs)")
+        obs.inc("serve_prefill_chunks_total",
+                help="chunk-prefill program applications")
         if st["pos"] >= n:
             self._finish_prefill(slot, st, logits, pos)
 
@@ -598,11 +661,35 @@ class ServeEngine:
         now = time.perf_counter()
         req.prefill_s = now - st["t0"]
         req.prefilled_tokens = n - st["start"]
+        reqtrace.stage(req.trace_id, "prefill", dur_s=req.prefill_s,
+                       request=req.id, chunk=self.prefill_chunk,
+                       hit_tokens=st["start"])
         self._start_decoding(req, tok, gen, now)
         if alloc.prefix_enabled:
-            Lp = alloc.page_len
-            for pi, pg in alloc.publish_prefix(req.prompt_ids, n):
-                P.publish_page(P.prefix_pool, P.cache, slot, pi * Lp, pg)
+            ev0, full0 = alloc.prefix_evictions, \
+                alloc.prefix_pool_exhausted
+            plan = alloc.publish_prefix(req.prompt_ids, n)
+            if plan:
+                Lp = alloc.page_len
+                with obs.span("serve_prefix_publish", request=req.id,
+                              pages=len(plan)):
+                    for pi, pg in plan:
+                        P.publish_page(P.prefix_pool, P.cache, slot,
+                                       pi * Lp, pg)
+                obs.inc("serve_prefix_published_pages_total",
+                        n=len(plan),
+                        help="whole prompt pages published into the "
+                             "shared pool")
+            if alloc.prefix_evictions > ev0:
+                obs.inc("serve_prefix_evicted_pages_total",
+                        n=alloc.prefix_evictions - ev0,
+                        help="pool pages reclaimed by refcount-aware "
+                             "LRU eviction")
+            if alloc.prefix_pool_exhausted > full0:
+                obs.inc("serve_prefix_pool_exhausted_total",
+                        n=alloc.prefix_pool_exhausted - full0,
+                        help="publications truncated with every pool "
+                             "page pinned (evict-while-shared refusal)")
         del self._prefilling[slot]
         if len(req.tokens) >= req.max_new or tok == self._eos[slot]:
             self._finish(req)
@@ -616,9 +703,37 @@ class ServeEngine:
         self._gens[req.slot] = None
         self._temp[req.slot] = 0.0
         self.scheduler.evict(req, state=DONE)
+        if req.tenant:
+            # per-tenant SLO breakdown inputs (obs report groups the
+            # tenant_* scalars into one table per tenant)
+            obs.inc(f"tenant_{req.tenant}_completed_total",
+                    help="this tenant's completed requests")
+            if req.ttft_s is not None:
+                obs.observe(f"tenant_{req.tenant}_ttft_seconds",
+                            req.ttft_s,
+                            help="this tenant's arrival -> first token")
+        if req.first_token_s is not None and req.done_s is not None:
+            reqtrace.stage(req.trace_id, "decode",
+                           dur_s=max(0.0,
+                                     req.done_s - req.first_token_s),
+                           request=req.id, tokens=len(req.tokens))
+        if req.trace_id:
+            reqtrace.stage(req.trace_id, "complete", request=req.id)
+            e2e = (req.done_s - req.arrival_s
+                   if req.done_s is not None and req.arrival_s is not None
+                   else None)
+            reqtrace.finish(
+                req.trace_id, outcome="complete",
+                ttft_s=(round(req.ttft_s, 6)
+                        if req.ttft_s is not None else None),
+                # the local e2e (submit -> done): the sampled recorder's
+                # slowest-K rank key
+                e2e_s=(round(e2e, 6) if e2e is not None else None),
+                tokens=len(req.tokens))
 
     def _decode_once(self) -> None:
         P = self.programs
+        t0 = time.perf_counter()
         # inactive slots decode junk under a clamped position; their
         # results are discarded and their cache rows are stale-safe
         pos = np.minimum(self._pos, self.max_len - 1)
@@ -628,6 +743,11 @@ class ServeEngine:
             self._temp, self._topk, self._topp)
         now = time.perf_counter()
         self.steps += 1
+        obs.inc("serve_decode_steps_total",
+                help="batched continuous-batching decode steps")
+        # capture-cadence hook only — decode steps stay out of the
+        # train step telemetry (obs.profile)
+        obs.profile_step(now - t0)
         for slot, req in list(self.scheduler.running.items()):
             if slot in self._prefilling:
                 continue  # mid-chunked-prefill: junk at its parked row
@@ -636,6 +756,9 @@ class ServeEngine:
             self.gen_tokens += 1
             gap = now - self._last_token_s[slot]
             req.token_gaps_s.append(gap)
+            obs.observe("serve_token_seconds", gap,
+                        help="per-token latency (gap between a "
+                             "request's successive tokens)")
             if self.slo is not None:
                 self.slo.on_token(gap)
             self._last_token_s[slot] = now
@@ -695,7 +818,7 @@ class ServeEngine:
                       if self.device.type == "cuda" else None)
             ctx = (torch.cuda.stream(stream) if stream is not None
                    else contextlib.nullcontext())
-            with ctx:
+            with ctx, obs.span("serve_swap_compile", checkpoint=path):
                 model, params, _state, _opt, meta = restore_checkpoint(
                     path, device=self.device)
                 staged = _Programs(
@@ -721,6 +844,9 @@ class ServeEngine:
         this call."""
         if self._swap_error is not None:
             err, self._swap_error = self._swap_error, None
+            obs.inc("serve_swap_errors_total",
+                    help="hot-swap stagings that failed (bad/corrupt "
+                         "checkpoint); serving continues on the old one")
             print(f"[serve] hot-swap failed, keeping current checkpoint: "
                   f"{type(err).__name__}: {err}", file=sys.stderr,
                   flush=True)
@@ -743,6 +869,9 @@ class ServeEngine:
                 "new_digest": (new.meta or {}).get("digest"),
                 "checkpoint": (new.meta or {}).get("checkpoint"),
                 "widths": new.model.widths(), "at_step": self.steps})
+            obs.inc("serve_swaps_total",
+                    help="checkpoint hot-swaps completed")
+            obs.record_serve(kind="hot_swap", **self.swap_log[-1])
             return True
         return False
 
@@ -772,7 +901,12 @@ class ServeEngine:
         for req in queued:
             req.state = DRAINED
             req._event.set()
+            if req.trace_id:
+                reqtrace.finish(req.trace_id, outcome="drained")
         self.drained.extend(queued)
+        if queued:
+            obs.inc("serve_drained_total", n=len(queued),
+                    help="queued requests snapshotted at drain")
         if self.run_dir:
             from torchpruner_tpu_torch.resilience.manifest import (
                 atomic_write_json,
@@ -818,6 +952,11 @@ class ServeEngine:
             did = self.step(admit=not draining and self._staged is None)
             if self.slo is not None:
                 self.slo.maybe_check(self.steps)
+            # on-demand capture windows (POST /profile) open and close
+            # even while the slot array idles between requests
+            obs.profile_tick()
+            # windowed time series: the run loop is the engine's clock
+            obs.timeseries_tick()
             if not self.scheduler.has_work():
                 if draining:
                     break
@@ -831,6 +970,9 @@ class ServeEngine:
                     break
                 if not did:
                     time.sleep(_IDLE_WAIT_S)
+        if draining:
+            obs.inc("serve_preempt_drains_total",
+                    help="preemption drains completed")
         return self.summary()
 
     # -- reporting ----------------------------------------------------------
@@ -900,4 +1042,12 @@ class ServeEngine:
             })
         if self.scheduler.rejected:
             out["rejected"] = dict(self.scheduler.rejected)
+        if out["sustained_gen_tok_s"] is not None:
+            obs.gauge_set("serve_gen_tokens_per_s",
+                          out["sustained_gen_tok_s"],
+                          help="sustained generated tokens per second")
+        obs.record_serve(
+            kind="summary",
+            checkpoint_digest=(self.programs.meta or {}).get("digest"),
+            **out)
         return out

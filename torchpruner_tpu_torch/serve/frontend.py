@@ -16,16 +16,22 @@ Three front ends over one engine loop, all SIGTERM-drain-safe:
   ``--queue-bound``ed queue is full or a drain began); ``GET /healthz``
   answers 200 only when ``ready`` (503 carrying ``draining`` /
   ``staging_swap`` / ``slo_breach``); ``GET /stats`` reports the serving
-  gauges; ``POST /swap {"checkpoint": DIR}`` stages a hot-swap (202).
-  ``GET /metrics`` and ``POST /profile`` need the telemetry plane (ROADMAP
-  A5) and answer 501 until it is ported.  Handler threads only touch
+  gauges; ``POST /swap {"checkpoint": DIR}`` stages a hot-swap (202);
+  ``GET /metrics`` answers the obs session's registry as Prometheus text
+  (503 without a session, ``--no-obs``); ``POST /profile`` arms one
+  capture window (202; 409 without a profiler — no ``--obs-dir`` — or
+  with a window already open or armed).  Handler threads only touch
   host state: every CUDA call runs on the engine thread or the swap's
   staging thread.
 - ``--stdin`` — one JSON request per line (same schema), results echoed
   as JSON lines; EOF drains and exits.
 
 Runs on ``cuda`` unless ``--cpu`` is given; without a GPU and without
-``--cpu`` it fails.
+``--cpu`` it fails.  Telemetry as in the JAX package: an obs session
+unless ``--no-obs`` (its summary table goes to stderr at exit);
+``--obs-dir DIR`` writes the event stream, metrics, ledger, report and
+trace there; ``--profile-every N`` opens a kernel capture window every N
+decode steps (``python -m torchpruner_tpu_torch obs profile DIR``).
 
 Examples::
 
@@ -145,10 +151,6 @@ def _stats(engine) -> dict:
     return stats
 
 
-_NO_OBS = {"error": "not implemented: the telemetry plane (obs) is not "
-                    "ported yet (ROADMAP A5)"}
-
-
 def _http_server(engine, port: int, request_timeout_s: float):
     """Threaded HTTP front end on 127.0.0.1 (``port`` 0 picks a free
     one); handlers submit into the engine loop running on the main
@@ -163,6 +165,15 @@ def _http_server(engine, port: int, request_timeout_s: float):
                   headers: Optional[dict] = None):
             http_json(self, code, payload, headers)
 
+        def _text(self, code: int, body: str,
+                  content_type: str = "text/plain; version=0.0.4"):
+            data = body.encode()
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
         def do_GET(self):
             import time as _time
 
@@ -174,13 +185,34 @@ def _http_server(engine, port: int, request_timeout_s: float):
             elif self.path == "/stats":
                 self._json(200, _stats(engine))
             elif self.path == "/metrics":
-                self._json(501, _NO_OBS)
+                # live Prometheus exposition of the obs session's
+                # registry; 503 without a session
+                from torchpruner_tpu_torch import obs
+                from torchpruner_tpu_torch.obs.exporters import (
+                    prometheus_text,
+                )
+
+                session = obs.get()
+                if session is None:
+                    self._text(503, "# no obs session (run with "
+                                    "--obs-dir or without --no-obs)\n")
+                    return
+                if engine.slo is not None:
+                    engine.slo.check(engine.steps)  # fresh rolling p99s
+                self._text(200, prometheus_text(session.metrics))
             else:
                 self._json(404, {"error": "not found"})
 
         def do_POST(self):
             if self.path == "/profile":
-                self._json(501, _NO_OBS)
+                from torchpruner_tpu_torch import obs
+
+                armed = obs.request_profile_window()
+                self._json(202 if armed else 409, {
+                    "armed": armed,
+                    **({} if armed else
+                       {"error": "no obs session/profiler, or a window "
+                                 "is already open/armed"})})
                 return
             if self.path == "/swap":
                 try:
@@ -325,6 +357,25 @@ def serve_main(argv=None) -> int:
                    help="bound the waiting queue: a submission landing on "
                         "a full queue is shed (HTTP: 503 + Retry-After); "
                         "0 = unbounded")
+    p.add_argument("--obs-dir", metavar="DIR",
+                   help="write runtime telemetry into DIR (events, "
+                        "metrics, ledger, report and trace; see `obs "
+                        "report`)")
+    p.add_argument("--no-obs", action="store_true",
+                   help="no telemetry session (GET /metrics answers 503)")
+    p.add_argument("--profile-every", type=int, default=None,
+                   metavar="N",
+                   help="with --obs-dir: a kernel capture window every N "
+                        "decode steps (obs.profile; `obs profile "
+                        "<obs-dir>` renders the table; the HTTP front "
+                        "end can also arm one via POST /profile)")
+    p.add_argument("--profile-steps", type=int, default=None, metavar="K",
+                   help="decode steps per capture window (default 3)")
+    p.add_argument("--trace-sample-every", type=int, default=None,
+                   metavar="N",
+                   help="request-trace exemplar policy (obs.reqtrace): "
+                        "full stage detail for 1-in-N requests plus the "
+                        "slowest-K per window; 1 = every request")
     p.add_argument("--tenants", metavar="JSON",
                    help="multi-tenant QoS policy table (serve.qos), e.g. "
                         "'{\"chat\": {\"priority\": \"interactive\"}, "
@@ -332,9 +383,13 @@ def serve_main(argv=None) -> int:
                         "\"burst\": 8, \"page_quota\": 16}}'; requests opt "
                         "in via their \"tenant\" field")
     args = p.parse_args(argv)
+    if args.obs_dir and args.no_obs:
+        p.error("--obs-dir and --no-obs are mutually exclusive")
+    if args.profile_every is not None and not args.obs_dir:
+        p.error("--profile-every needs --obs-dir (the capture windows "
+                "live under it)")
 
-    from torchpruner_tpu_torch.resilience.guards import PreemptionHandler
-    from torchpruner_tpu_torch.serve.engine import ServeEngine
+    from torchpruner_tpu_torch import obs
     from torchpruner_tpu_torch.utils.device import (
         resolve_device,
         strict_fp32_matmul,
@@ -343,6 +398,32 @@ def serve_main(argv=None) -> int:
     device = resolve_device("cpu" if args.cpu else None)
     if device.type == "cuda":
         strict_fp32_matmul()
+    session = None
+    if not args.no_obs:
+        session = obs.configure(args.obs_dir,
+                                profile_every=args.profile_every,
+                                profile_steps=args.profile_steps)
+        obs.annotate_run(experiment=f"serve:{args.preset}", kind="serve",
+                         model=args.preset,
+                         checkpoint=args.checkpoint or "")
+    if args.trace_sample_every is not None:
+        from torchpruner_tpu_torch.obs import reqtrace
+
+        reqtrace.configure(sample_every=args.trace_sample_every)
+    try:
+        return _serve(p, args, device, obs)
+    finally:
+        if session is not None:
+            obs.shutdown(print_to=sys.stderr)
+            if args.obs_dir:
+                print(f"telemetry written to {args.obs_dir}",
+                      file=sys.stderr)
+
+
+def _serve(p, args, device, obs) -> int:
+    from torchpruner_tpu_torch.resilience.guards import PreemptionHandler
+    from torchpruner_tpu_torch.serve.engine import ServeEngine
+
     qos = None
     if args.tenants:
         from torchpruner_tpu_torch.serve.qos import QoS
@@ -384,7 +465,8 @@ def serve_main(argv=None) -> int:
             token_p99_s=sec(args.slo_token_p99_ms),
             queue_p99_s=sec(args.slo_queue_p99_ms),
             window=args.slo_window)
-    with PreemptionHandler() as pre:
+    # obs.span degrades to a nullcontext without a session
+    with PreemptionHandler() as pre, obs.span("serve", preset=args.preset):
         if args.http is not None:
             return _run_http(engine, pre, args)
         if args.stdin:
@@ -510,7 +592,8 @@ def _run_http(engine, pre, args) -> int:
     t = threading.Thread(target=server.serve_forever, daemon=True)
     t.start()
     print(f"serving on http://127.0.0.1:{server.server_address[1]} "
-          f"(POST /v1/generate /swap, GET /healthz /stats)",
+          f"(POST /v1/generate /swap /profile, GET /healthz /stats "
+          f"/metrics)",
           file=sys.stderr, flush=True)
     summary = None
     try:

@@ -1,7 +1,8 @@
 """Continuous-batching request scheduler — counterpart of
-``torchpruner_tpu/serve/scheduler.py``, copied without the telemetry
-calls (obs counters, request traces); the shed, drain and rejection
-counts are kept on the host instead (``rejected``, ``tenant_shed``).
+``torchpruner_tpu/serve/scheduler.py``, with its telemetry calls (obs
+counters, gauges and request-trace stages, no-ops without a session);
+the shed, drain and rejection counts are also kept on the host
+(``rejected``, ``tenant_shed``) for ``summary()`` and ``/stats``.
 
 Open-loop admission control over the fixed slot array: requests queue
 FIFO; at every DECODE-STEP BOUNDARY the engine asks the scheduler to
@@ -25,6 +26,8 @@ import time
 from collections import deque
 from typing import Deque, Dict, List, Optional
 
+from torchpruner_tpu_torch import obs
+from torchpruner_tpu_torch.obs import reqtrace
 from torchpruner_tpu_torch.serve.allocator import KVCacheAllocator
 from torchpruner_tpu_torch.serve.qos import QoS
 from torchpruner_tpu_torch.serve.request import (
@@ -35,6 +38,10 @@ from torchpruner_tpu_torch.serve.request import (
     SHED,
     Request,
 )
+
+_REJECTED_HELP = ("submissions rejected (per-reason twins: "
+                  "serve_rejected_<reason>_total)")
+
 
 class Scheduler:
     """FIFO queue + slot-table bookkeeping (see module docstring).
@@ -64,7 +71,7 @@ class Scheduler:
         self._lock = threading.Lock()
         #: recent queue-age-at-admission samples (seconds) — the LIVE
         #: p50/p99 the /stats endpoint serves; the full distribution
-        #: is the JAX package's histogram
+        #: rides the serve_queue_wait_seconds histogram
         self._queue_waits: Deque[float] = deque(maxlen=512)
         #: optional per-admission queue-age callback — the engine wires
         #: this to ``SLOMonitor.on_queue`` so queue age joins the
@@ -113,21 +120,35 @@ class Scheduler:
                 request.state = DRAINED
                 request._event.set()
                 self.rejected["drain"] = self.rejected.get("drain", 0) + 1
+                obs.inc("serve_rejected_total", help=_REJECTED_HELP)
+                obs.inc("serve_rejected_drain_total",
+                        help="submissions rejected after a drain began")
                 return request
             if not self.qos.admit_now(request.tenant):
                 request.state = SHED
                 request._event.set()
                 self.shed_total += 1
+                obs.inc("serve_rejected_total", help=_REJECTED_HELP)
+                obs.inc("serve_rejected_throttle_total",
+                        help="submissions shed by a tenant's token "
+                             "bucket (rate throttling)")
                 self._tenant_shed(request.tenant, "throttle")
                 return request
             if self.queue_bound and self._depth_locked() >= self.queue_bound:
                 request.state = SHED
                 request._event.set()
                 self.shed_total += 1
+                obs.inc("serve_rejected_total", help=_REJECTED_HELP)
+                obs.inc("serve_rejected_backpressure_total",
+                        help="submissions shed by the queue bound "
+                             "(503 + Retry-After backpressure)")
                 self._tenant_shed(request.tenant, "backpressure")
                 return request
             request.state = QUEUED
             self._queues.setdefault(pol.priority, deque()).append(request)
+            # under the queue lock: HTTP handler threads submit
+            # concurrently, and a counter's increment is not atomic
+            obs.inc("serve_requests_total", help="requests submitted")
         return request
 
     def _tenant_shed(self, tenant: Optional[str], reason: str) -> None:
@@ -138,6 +159,10 @@ class Scheduler:
         if tenant:
             key = f"{tenant}:{reason}"
             self.tenant_shed[key] = self.tenant_shed.get(key, 0) + 1
+            obs.inc(f"tenant_{tenant}_shed_total",
+                    help="this tenant's shed submissions (all reasons)")
+            obs.inc(f"tenant_{tenant}_shed_{reason}_total",
+                    help=f"this tenant's submissions shed by {reason}")
 
     def close(self) -> None:
         """Begin a drain: flip ``closed`` under the queue lock.  Set
@@ -213,6 +238,15 @@ class Scheduler:
         victim.served_by = None
         victim.preemptions += 1
         self.preempted_total += 1
+        obs.inc("serve_preempted_total",
+                help="active requests preempted back to the queue by a "
+                     "higher-priority admission (step boundary only)")
+        if victim.tenant:
+            obs.inc(f"tenant_{victim.tenant}_preempted_total",
+                    help="this tenant's requests preempted by a "
+                         "higher-priority admission")
+        reqtrace.stage(victim.trace_id, "preempted", request=victim.id,
+                       preemptions=victim.preemptions)
         pol = self.qos.policy(victim.tenant)
         self._queues.setdefault(pol.priority, deque()).appendleft(victim)
 
@@ -241,6 +275,10 @@ class Scheduler:
                     head.state = SHED
                     head._event.set()
                     self.shed_total += 1
+                    obs.inc("serve_rejected_total", help=_REJECTED_HELP)
+                    obs.inc("serve_rejected_quota_total",
+                            help="admissions shed because the tenant "
+                                 "would exceed its KV-page quota")
                     self._tenant_shed(head.tenant, "quota")
                     continue
                 lease = self.allocator.allocate(
@@ -255,8 +293,8 @@ class Scheduler:
             head.slot = lease.slot
             head.state = ACTIVE
             # queue age is recorded AT ADMISSION, not at completion —
-            # the wait is visible in /stats while the request is still
-            # decoding
+            # the wait is visible in /stats and the reqtrace budget
+            # while the request is still decoding
             head.admitted_s = time.perf_counter()
             if head.arrival_s is not None:
                 wait = max(0.0, head.admitted_s - head.arrival_s)
@@ -264,14 +302,23 @@ class Scheduler:
                     # /stats handler threads sort this deque live — an
                     # unlocked append could fault their iteration
                     self._queue_waits.append(wait)
+                obs.observe("serve_queue_wait_seconds", wait,
+                            help="request submit -> slot admission "
+                                 "(queue age at admit time)")
                 if self.on_queue_wait is not None:
                     self.on_queue_wait(wait)
+                reqtrace.stage(head.trace_id, "replica_queue",
+                               dur_s=wait, request=head.id)
             with self._lock:
                 # /stats and preemption scans read running under the
                 # lock — publish the slot assignment the same way
                 self.running[lease.slot] = head
             self.admitted_total += 1
             out.append(head)
+        if out:
+            obs.inc("serve_admits_total", n=len(out),
+                    help="requests admitted into a decode slot")
+        self._gauges()
         return out
 
     def evict(self, request: Request, state: str = DONE) -> None:
@@ -284,7 +331,12 @@ class Scheduler:
             self.allocator.release(slot)
         request.slot = None
         self.completed_total += 1
+        obs.inc("serve_evictions_total",
+                help="slot evictions (request completion or early stop)")
+        if state == DONE:
+            obs.inc("serve_completed_total", help="requests completed")
         request._event.set()
+        self._gauges()
 
     def prefill_budget(self, chunk: int) -> int:
         """The step's prefill-token budget, floored at one chunk —
@@ -319,4 +371,31 @@ class Scheduler:
                    for r in self._queues[prio]]
             for q in self._queues.values():
                 q.clear()
+        self._gauges()
         return out
+
+    def _gauges(self) -> None:
+        alloc = self.allocator
+        obs.gauge_set("serve_queue_depth", self.queue_depth,
+                      help="requests waiting for a slot")
+        obs.gauge_set("serve_active_slots", alloc.active_slots,
+                      help="slots currently decoding")
+        obs.gauge_set("serve_kv_pages_in_use", alloc.pages_in_use,
+                      help="KV-cache pages leased to active requests")
+        obs.gauge_set("serve_kv_page_occupancy",
+                      alloc.pages_in_use / max(1, alloc.page_budget),
+                      help="leased KV pages / page budget (0..1)")
+        obs.gauge_set("serve_slot_utilization",
+                      alloc.active_slots / max(1, alloc.n_slots),
+                      help="active decode slots / slot-array width "
+                           "(0..1)")
+        if alloc.prefix_enabled:
+            # emitted ONLY with sharing on, so sharing-off runs carry no
+            # serve_prefix_*/shared scalars at all
+            obs.gauge_set("serve_kv_pages_shared", alloc.shared_pages,
+                          help="prefix-pool pages pinned by at least "
+                               "one resident request")
+            obs.gauge_set("serve_prefix_pool_used",
+                          alloc.prefix_pool_used,
+                          help="prefix-pool pages holding published "
+                               "K/V (out of prefix_pages)")

@@ -1,22 +1,31 @@
 """Live SLO monitoring for the serving engine — counterpart of
 ``torchpruner_tpu/serve/slo.py``: the same rolling windows, p99s, breach
-episodes and multi-window burn rates, and the same :meth:`snapshot`.
-The JAX package also exports each number as a gauge, counter or ledger
-record; the port keeps the numbers only (its telemetry plane is ROADMAP
-A5).
+episodes and multi-window burn rates, and the same :meth:`snapshot`,
+exported as the JAX package exports them (no-ops without an obs
+session):
+
+- ``serve_ttft_p99_rolling_s`` / ``serve_token_p99_rolling_s`` gauges
+  stay current on every check, so ``GET /metrics`` shows the live tail;
+- a breach bumps ``serve_slo_breach_total`` (and the per-metric
+  ``serve_slo_breach_<metric>_total``) and ledgers a
+  ``serve``/``slo_breach`` record;
+- a burn alert bumps ``slo_burn_alerts_total``, exports the
+  ``slo_burn_<metric>_fast`` / ``_slow`` gauges and ledgers a
+  ``serve``/``slo_burn`` record, which opens an incident
+  (``obs.incident``); an episode's duration is observed into
+  ``slo_burn_episode_seconds`` at re-arm.
 
 :class:`SLOMonitor` keeps bounded rolling windows of the engine's TTFT,
 per-token latency and queue-age observations and re-computes the
 rolling p99s every ``check_every_steps`` step boundaries.  Breaches
 count *episodes*, not checks: a sustained breach increments once on
 entry and re-arms only after the metric recovers below threshold.
-
-**Burn rate** (the SRE multi-window alert, Google SRE workbook ch. 5):
-per gated metric, the fraction of observations over threshold within a
-FAST window (default 15 s) and a SLOW window (default 120 s), each
-divided by the error budget (default 1%).  When BOTH sit at or over
-``burn_threshold`` (default 10x budget) a burn alert fires, once per
-episode, re-arming when the fast burn recovers.
+Timestamped observations give, per gated metric, the fraction of
+observations over threshold within a FAST window (default 15 s) and a
+SLOW window (default 120 s), each divided by the error budget (default
+1%).  When BOTH sit at or over ``burn_threshold`` (default 10x budget) a
+burn alert fires, once per episode, re-arming when the fast burn
+recovers.
 """
 
 from __future__ import annotations
@@ -27,6 +36,8 @@ from collections import deque
 from typing import Dict, Optional
 
 import numpy as np
+
+from torchpruner_tpu_torch import obs
 
 #: burn-rate defaults — windows sized so a CI-scale drill (tens of
 #: seconds) spans both; production callers pass their own
@@ -71,7 +82,7 @@ class SLOMonitor:
         self._in_burn: Dict[str, bool] = {
             m: False for m in self.METRICS}
         #: wall-clock start of the current burn episode per metric —
-        #: its duration joins ``burn_episodes_s`` at re-arm
+        #: observed into ``slo_burn_episode_seconds`` at re-arm
         self._burn_started: Dict[str, Optional[float]] = {
             m: None for m in self.METRICS}
         self._last_check_step = -1
@@ -83,10 +94,6 @@ class SLOMonitor:
         self._lock = threading.Lock()
         self.breaches_total = 0
         self.burn_alerts_total = 0
-        #: durations of the burn episodes that have re-armed (seconds)
-        self.burn_episodes_s: list = []
-        #: the last burn rates per metric and window
-        self.burns: Dict[str, Dict[str, float]] = {}
         self.rolling: Dict[str, Optional[float]] = {
             m: None for m in self.METRICS}
 
@@ -137,15 +144,30 @@ class SLOMonitor:
             values = np.asarray([v for _, v in samples])
             p99 = float(np.percentile(values, 99))
             self.rolling[metric] = p99
+            obs.gauge_set(
+                f"serve_{metric}_p99_rolling_s", p99,
+                help=f"rolling p99 of serve {metric} latency over the "
+                     f"last {self.window} observations")
             limit = self.thresholds.get(metric)
             if limit is None or len(samples) < self.min_samples:
                 continue
             if p99 > limit and not self._in_breach[metric]:
                 self._in_breach[metric] = True
                 self.breaches_total += 1
+                obs.inc("serve_slo_breach_total",
+                        help="SLO breach episodes (rolling p99 crossed "
+                             "its threshold; re-arms on recovery)")
+                obs.inc(f"serve_slo_breach_{metric}_total")
+                obs.record_serve(
+                    kind="slo_breach", metric=metric, p99_s=p99,
+                    threshold_s=limit, window=len(samples), step=step)
             elif p99 <= limit:
                 self._in_breach[metric] = False
             self._burn_locked(metric, samples, limit, now, step)
+        obs.gauge_set(
+            "slo_burn_active", float(sum(self._in_burn.values())),
+            help="gated metrics currently inside a burn episode "
+                 "(0 = healthy; rides obs diff and the watch board)")
         return dict(self.rolling)
 
     def _burn_locked(self, metric: str, samples, limit: float,
@@ -163,7 +185,11 @@ class SLOMonitor:
                 continue
             bad = sum(1 for v in sub if v > limit)
             burns[which] = (bad / len(sub)) / self.burn_budget
-        self.burns[metric] = dict(burns)
+            obs.gauge_set(
+                f"slo_burn_{metric}_{which}", burns[which],
+                help=f"{metric} error-budget burn rate over the "
+                     f"{which} window ({win_s:.0f}s; alert at "
+                     f"{self.burn_threshold:g}×)")
         firing = (counts["fast"] >= self.min_samples
                   and burns["fast"] >= self.burn_threshold
                   and burns["slow"] >= self.burn_threshold)
@@ -171,13 +197,31 @@ class SLOMonitor:
             self._in_burn[metric] = True
             self._burn_started[metric] = now
             self.burn_alerts_total += 1
+            obs.inc("slo_burn_alerts_total",
+                    help="multi-window burn-rate alert episodes (fast "
+                         "AND slow burn over threshold; re-arms when "
+                         "the fast burn recovers)")
+            obs.record_serve(
+                kind="slo_burn", metric=metric,
+                burn_fast=round(burns["fast"], 3),
+                burn_slow=round(burns["slow"], 3),
+                budget=self.burn_budget,
+                burn_threshold=self.burn_threshold,
+                fast_window_s=self.burn_fast_window_s,
+                slow_window_s=self.burn_slow_window_s,
+                threshold_s=limit, step=step,
+                # the trigger instant: the incident correlator anchors
+                # its lookback here (obs.incident)
+                burn_ts=round(now, 6))
         elif (burns["fast"] or 0.0) < self.burn_threshold:
             if self._in_burn[metric]:
                 started = self._burn_started.get(metric)
                 if started is not None:
-                    # alert fire -> fast-window recovery (the JAX
-                    # package's slo_burn_episode_seconds)
-                    self.burn_episodes_s.append(max(0.0, now - started))
+                    obs.observe(
+                        "slo_burn_episode_seconds",
+                        max(0.0, now - started),
+                        help="burn-episode duration: alert fire → fast-"
+                             "window recovery (observed at re-arm)")
                 self._burn_started[metric] = None
             self._in_burn[metric] = False
 

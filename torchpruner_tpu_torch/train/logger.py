@@ -1,8 +1,10 @@
 """Structured experiment logging — a host copy of
 ``torchpruner_tpu/train/logger.py``: one CSV row per prune step with
 pre/post-prune metrics, parameter count, FLOPs, layer widths and prune
-time, mirrored to JSONL.  The ``span_id`` column stays in the schema and
-is written empty (the port has no telemetry spans yet, ROADMAP A5).
+time, mirrored to JSONL.  The ``span_id`` column holds the obs span
+active when the row was written (``obs.current_span_id``; empty when
+telemetry is off), joining the rows to the ``events.jsonl`` phase
+stream.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ CSV_FIELDS = [
     "prune_time",
     "prune_ratio",
     "train_loss",     # from-scratch training rows only (run_train)
-    "span_id",        # telemetry span of the row ("" in the port)
+    "span_id",        # obs span active when the row was written ("" when
+                      # telemetry is off) — joins rows with the events.jsonl
+                      # phase stream (obs.current_span_id)
 ]
 
 
@@ -174,7 +178,9 @@ class CSVLogger:
         self._step += 1
 
     def _write(self, row: dict):
-        row.setdefault("span_id", "")
+        from torchpruner_tpu_torch import obs
+
+        row.setdefault("span_id", obs.current_span_id() or "")
         self._writer.writerow(row)
         self._csv_f.flush()
         # mirror in the CSV's own column order — consumers diffing the two

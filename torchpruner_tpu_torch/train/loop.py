@@ -10,17 +10,25 @@ block's forward in the backward (``torch.utils.checkpoint``);
 are summed before one update; ``multi_step`` runs K steps as a loop of
 ``step`` calls.  After a prune step changes shapes, ``Trainer.rebuild``
 carries the bundle over to the new spec.
+
+Telemetry, at the JAX package's call sites: every :meth:`Trainer.step`
+and :meth:`Trainer.multi_step` records its return-to-return interval
+with its examples and tokens (``obs.record_step``); ``grad_norm=True``
+(the config's ``obs_grad_norm``) records the global gradient norm of
+each step (``obs.record_grad_norm``, one host read a step); an empty
+evaluation or training iterator bumps ``eval_empty_total``.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from torchpruner_tpu_torch import obs
 from torchpruner_tpu_torch.core import segment
 from torchpruner_tpu_torch.core.segment import SegmentedModel
 from torchpruner_tpu_torch.train.optim import apply_updates
@@ -89,6 +97,34 @@ def make_loss_closure(model: SegmentedModel, loss_fn, compute_dtype=None,
     return loss
 
 
+def _batch_tokens(x, y):
+    """Token count of one batch for LM workloads (targets carry a
+    sequence dim); ``None`` for classification."""
+    shape = getattr(y, "shape", ())
+    if len(shape) >= 2:
+        return int(shape[0]) * int(shape[1])
+    return None
+
+
+def _warn_empty_eval(where: str) -> None:
+    """An empty or exhausted evaluation iterator is almost always a
+    caller bug: a logger warning plus the ``eval_empty_total`` counter."""
+    from torchpruner_tpu_torch.train.logger import log
+
+    obs.inc("eval_empty_total",
+            help="evaluate()/train_epoch() calls that saw zero batches")
+    log.warning(
+        "%s received an empty or exhausted data iterator — no examples "
+        "were evaluated (did you pass a one-shot generator instead of a "
+        "re-iterable batch list?)", where)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """``sqrt(sum of every entry squared)`` over ``tensors``, in f32 (the
+    JAX package's ``optax.global_norm``)."""
+    return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+
+
 @torch.no_grad()
 def evaluate(model, params, state, data, loss_fn):
     """Average loss and accuracy over ``data``: loss per example,
@@ -105,6 +141,7 @@ def evaluate(model, params, state, data, loss_fn):
         tot_n += int(losses.shape[0])
         tot_p += int(n_pred)
     if tot_n == 0:
+        _warn_empty_eval("evaluate()")
         raise ValueError("evaluate() got an empty dataset")
     return tot_l / tot_n, tot_c / tot_p
 
@@ -120,7 +157,10 @@ def train_epoch(trainer, data, epoch: int = 0, log_every: int = 20,
         if verbose and i % log_every == 0:
             print(f"epoch {epoch} batch {i}: loss {losses[-1]:.4f} "
                   f"({time.perf_counter() - t0:.1f}s)", flush=True)
-    return float(np.mean(losses)) if losses else float("nan")
+    if not losses:
+        _warn_empty_eval("train_epoch()")
+        return float("nan")
+    return float(np.mean(losses))
 
 
 @dataclass
@@ -147,12 +187,22 @@ class Trainer:
     remat: bool = False
     #: > 1 = gradient accumulation over that many equal microbatches
     accum_steps: int = 1
+    #: opt-in telemetry: record each step's global gradient norm through
+    #: ``obs.record_grad_norm`` (one extra reduction and a host read)
+    grad_norm: bool = False
+    #: end of the previous step in the current stepping streak: step
+    #: telemetry records return-to-return intervals (CUDA launches return
+    #: before the device finishes; the device time surfaces in the
+    #: caller's next host read, between two step calls); evaluate() and
+    #: rebuild() break the streak
+    _t_stream: Any = field(default=None, repr=False)
 
     @classmethod
     def create(cls, model, tx, loss_fn, seed: int = 0, params=None,
                state=None, compute_dtype=None, device=None,
                param_transform=None, moe_aux_weight: float = 0.0,
-               remat: bool = False, accum_steps: int = 1):
+               remat: bool = False, accum_steps: int = 1,
+               grad_norm: bool = False):
         """A trainer on ``device`` (``None`` = ``cuda``; raises without a
         GPU unless ``device="cpu"``), initialized from ``seed`` unless
         ``params`` are given."""
@@ -166,14 +216,27 @@ class Trainer:
                    compute_dtype=compute_dtype,
                    param_transform=param_transform,
                    moe_aux_weight=moe_aux_weight, remat=remat,
-                   accum_steps=accum_steps)
+                   accum_steps=accum_steps, grad_norm=grad_norm)
 
     def step(self, x, y) -> torch.Tensor:
         """One optimizer step on the batch ``(x, y)`` (host arrays or
         tensors): :meth:`loss_and_grads`, then one update.  Returns the
         mean loss as a 0-d tensor."""
+        loss = self._update(x, y)
+        now = time.perf_counter()
+        if self._t_stream is not None:
+            # a streak's first step is not recorded: its interval would
+            # hold whatever the caller did before it
+            obs.record_step(now - self._t_stream, int(x.shape[0]),
+                            _batch_tokens(x, y))
+        self._t_stream = now
+        return loss
+
+    def _update(self, x, y) -> torch.Tensor:
         loss, grads, state = self.loss_and_grads(x, y)
         with torch.no_grad():
+            if self.grad_norm:
+                obs.record_grad_norm(global_norm(tree_leaves(grads)))
             updates, self.opt_state = self.tx.update(grads, self.opt_state,
                                                      self.params)
             self.params = apply_updates(self.params, updates)
@@ -222,9 +285,20 @@ class Trainer:
         B, ...)``: exactly K :meth:`step` calls in order.  Returns the
         ``(K,)`` losses.  The JAX package scans the K steps inside one
         compiled program to pay one dispatch; here they are a plain loop
-        (one CUDA graph of the K steps is ROADMAP A6a)."""
-        return torch.stack([self.step(xs[i], ys[i])
-                            for i in range(len(xs))])
+        (one CUDA graph of the K steps is ROADMAP A6a), recorded as one
+        K-step interval as the JAX package records its program."""
+        losses = torch.stack([self._update(xs[i], ys[i])
+                              for i in range(len(xs))])
+        k = int(len(xs))
+        now = time.perf_counter()
+        if self._t_stream is not None:  # see step(): first of a streak
+            yshape = tuple(getattr(ys, "shape", ()))
+            tok = int(yshape[0] * yshape[1] * yshape[2]) \
+                if len(yshape) >= 3 else None
+            obs.record_step(now - self._t_stream, int(xs.shape[1]) * k,
+                            tok, steps=k)
+        self._t_stream = now
+        return losses
 
     def rebuild(self, model, params, state, opt_state) -> "Trainer":
         return Trainer(model=model, params=params,
@@ -235,8 +309,10 @@ class Trainer:
                        step_count=self.step_count,
                        param_transform=self.param_transform,
                        moe_aux_weight=self.moe_aux_weight,
-                       remat=self.remat, accum_steps=self.accum_steps)
+                       remat=self.remat, accum_steps=self.accum_steps,
+                       grad_norm=self.grad_norm)
 
     def evaluate(self, data):
+        self._t_stream = None  # eval wall time is not step time
         return evaluate(self.model, self.params, self.state, data,
                         self.loss_fn)

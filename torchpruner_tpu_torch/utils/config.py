@@ -270,6 +270,5 @@ _UNPORTED = (
     ("run_dir", "", "ROADMAP A8 (resilience)"),
     ("chaos", {}, "ROADMAP A8 (resilience)"),
     ("guard_nonfinite", False, "ROADMAP A8 (resilience)"),
-    ("obs_grad_norm", False, "ROADMAP A5 (observability)"),
     ("plot_dir", "", "ROADMAP A8 (the sweep's figures)"),
 )

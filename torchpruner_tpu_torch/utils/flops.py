@@ -68,3 +68,97 @@ def prefix_flops_estimate(model: SegmentedModel, params, eval_layer: str,
             else 1.0
         total += 2.0 * batch_size * positions * weight_sizes(p)
     return total
+
+
+#: bf16 dense tensor-core peak FLOP/s by CUDA device name prefix
+#: (``torch.cuda.get_device_name``), longest prefix wins.  NVIDIA's H100
+#: data-sheet values (dense, without sparsity, at the card's full power
+#: limit: 700 W for the SXM part); no other card is listed, so any other
+#: device — and the CPU — reads ``None``.
+PEAK_BF16_FLOPS = {
+    "NVIDIA H100": 989e12,          # SXM: "NVIDIA H100 80GB HBM3"
+    "NVIDIA H100 PCIe": 756e12,
+}
+
+#: HBM bytes/s by CUDA device name prefix: NVIDIA's H100 data-sheet
+#: values, paired with :data:`PEAK_BF16_FLOPS`.
+PEAK_HBM_BYTES_PER_S = {
+    "NVIDIA H100": 3.35e12,
+    "NVIDIA H100 PCIe": 2.0e12,
+}
+
+
+def _device_name(device) -> str:
+    """The CUDA device name of ``device``: a name string as it is, a
+    ``torch.device`` or index of a CUDA device read from the driver; ""
+    for the CPU or an unknown device."""
+    if isinstance(device, str) and not device.startswith(("cuda", "cpu")):
+        return device
+    try:
+        dev = torch.device(device) if not isinstance(device, int) \
+            else torch.device("cuda", device)
+        if dev.type != "cuda" or not torch.cuda.is_available():
+            return ""
+        return torch.cuda.get_device_name(dev)
+    except (RuntimeError, ValueError, TypeError, AssertionError):
+        return ""
+
+
+def _by_name_prefix(table: dict, device) -> Optional[float]:
+    name = _device_name(device)
+    for prefix in sorted(table, key=len, reverse=True):
+        if name.startswith(prefix):
+            return table[prefix]
+    return None
+
+
+def peak_bf16_flops(device) -> Optional[float]:
+    """Data-sheet bf16 peak for ``device`` (a CUDA device name, a
+    ``torch.device`` or a CUDA index; None when unknown or the CPU)."""
+    return _by_name_prefix(PEAK_BF16_FLOPS, device)
+
+
+def peak_hbm_bw(device) -> Optional[float]:
+    """Data-sheet HBM bandwidth (bytes/s) for ``device`` (None when
+    unknown or the CPU, whose DRAM rate is not a chip constant)."""
+    return _by_name_prefix(PEAK_HBM_BYTES_PER_S, device)
+
+
+def roofline_position(flops: Optional[float], bytes_moved: Optional[float],
+                      time_s: Optional[float],
+                      peak_flops: Optional[float] = None,
+                      peak_bw: Optional[float] = None) -> dict:
+    """One kernel's roofline coordinates from *estimates* (the profile
+    subsystem's per-kernel FLOPs/bytes attributions — see
+    ``obs.profile.kernels``): achieved FLOP/s and bytes/s, arithmetic
+    intensity, fraction of each peak, and a compute/memory-bound
+    classification against the ridge intensity ``peak_flops/peak_bw``.
+    Every field degrades to ``None`` when its inputs are unknown rather
+    than guessing (a copy of the JAX package's function)."""
+    t = float(time_s) if time_s else None
+    f = float(flops) if flops else None
+    b = float(bytes_moved) if bytes_moved else None
+    achieved_f = (f / t) if f and t else None
+    achieved_b = (b / t) if b and t else None
+    intensity = (f / b) if f and b else None
+    ridge = (peak_flops / peak_bw) if peak_flops and peak_bw else None
+    bound = "unknown"
+    if intensity is not None and ridge is not None:
+        bound = "compute" if intensity >= ridge else "memory"
+    elif f and not b:
+        bound = "compute"
+    elif b and not f:
+        bound = "memory"
+    return {
+        "flops_est": f,
+        "bytes_est": b,
+        "achieved_flops_per_s": achieved_f,
+        "achieved_bytes_per_s": achieved_b,
+        "intensity_flops_per_byte": intensity,
+        "ridge_intensity": ridge,
+        "pct_peak_flops": (100.0 * achieved_f / peak_flops
+                           if achieved_f and peak_flops else None),
+        "pct_peak_bw": (100.0 * achieved_b / peak_bw
+                        if achieved_b and peak_bw else None),
+        "bound": bound,
+    }
