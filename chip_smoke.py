@@ -223,12 +223,14 @@ for phase 21's trace, and the card's memory to themselves.
     demand once the first has closed; the same serve with no session
     and with a session that opens no window (tokens equal phase 3's
     every way, walls printed).  3 windows (2 cadence, 1 on demand),
-    each with device kernel events, ``profile_empty_windows_total`` 0;
-    each window's table names ``decode_split`` (32 launches a step) and
-    ``dq_mma`` (the wrappers' launches a step of ``trace_step``'s step,
-    plus one a projection for each prefill inside the window), never
-    more and at most 1 % fewer, each miss printed (the profiler has
-    come back 3 launches short; ROADMAP C3); in the windows without a
+    each with device kernel events, ``profile_empty_windows_total`` and
+    ``profile_missing_kernel_events_total`` 0; each window's table names
+    ``decode_split`` (32 launches a step) and ``dq_mma`` (the wrappers'
+    launches a step of ``trace_step``'s step, plus one a projection for
+    each prefill inside the window), exactly, and every group's kernel
+    events equal the wrappers' launches inside the window (in memory and
+    in the exported trace); ``trace_step``'s own session sees every
+    launch of its steps; in the windows without a
     prefill both kernels' ms a step within 0.75-1.33x of
     ``experiments/step_trace.py trace_step``'s in this process; coverage
     and ``1 - coverage`` printed beside ``trace_step``'s idle share;
@@ -243,10 +245,11 @@ for phase 21's trace, and the card's memory to themselves.
     ``eval`` / ``prune`` / ``retrain`` per target, 2 ledgered rounds
     with finite score distributions, ``obs report`` renders them; one
     Sensitivity scoring pass of the first target inside an on-demand
-    window names ``fwd_tf32x3``; phase 8's bf16 fine-tune with
-    ``obs_grad_norm`` and ``--profile-every 150 --profile-steps 2``: its
-    windows name
-    ``fwd_wgmma``, ``dq_wgmma`` and ``dkv_wgmma``, none empty, and the
+    window names ``fwd_tf32x3`` with every launch the wrapper made in
+    the pass; phase 8's bf16 fine-tune with ``obs_grad_norm`` and
+    ``--profile-every 150 --profile-steps 2``: its windows name
+    ``fwd_wgmma``, ``dq_wgmma`` and ``dkv_wgmma``, none empty, each
+    holding exactly the wrappers' launches inside it, and the
     ``grad_norm`` gauge is finite and > 0.
 
 ``python3 chip_smoke.py --obs-slice`` runs phases 3, 7, 8, 27 and 28
@@ -687,8 +690,8 @@ def flash_bodies(calls) -> dict:
     from torchpruner_tpu_torch.experiments.prune_trace import _group
 
     # a session that lost the kernel events (the profiler on the H100
-    # can, PERF.md section 7) is asked again, at most three times; the
-    # first session that sees the kernels decides
+    # can, ROADMAP C3) is asked again, at most three times; the first
+    # session that sees the kernels decides
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for fn in calls.values():
@@ -3297,16 +3300,26 @@ class _ArmAfterFirstWindow:
         return n
 
 
-def _missing_allowed(launches: float) -> int:
-    """Kernel events a capture window's table may miss against the
-    wrappers' count: the profiler has come back with a few launches
-    fewer (3 of 772 in a window, after phases 1-26; ROADMAP C3), never
-    more, so the table is held to at most 1 % fewer, and every miss is
-    printed."""
-    return int(launches // 100)
+def _window_launches(phase: int, w: dict, t: dict) -> None:
+    """A window's launches, exactly: the port's wrappers counted
+    ``w["launches"]`` inside it (by group of ``ops.launches``); its
+    in-memory kernel events, its exported trace's table ``t`` and its
+    missing count must all agree."""
+    from torchpruner_tpu_torch.ops.launches import GROUPS
+
+    table = {g: sum(t["launches"].get(b, 0) for b in bodies)
+             for g, (_, bodies) in GROUPS.items()}
+    table = {g: n for g, n in table.items() if n}
+    if w.get("missing_kernel_events") != 0 \
+            or w["kernel_events"] != w.get("launches") \
+            or table != w.get("launches"):
+        fail(f"phase {phase}: window {w['index']}: the wrappers launched "
+             f"{w.get('launches')}, the window holds "
+             f"{w['kernel_events']} kernel events ({table} in its "
+             f"trace), missing {w.get('missing_kernel_events')}")
 
 
-def _window_rows(w: dict) -> dict:
+def _window_rows(w: dict, phase: int = 27) -> dict:
     """One capture window's kernel table, by base kernel name."""
     from torchpruner_tpu_torch.obs.profile.kernels import (
         kernel_table,
@@ -3316,7 +3329,8 @@ def _window_rows(w: dict) -> dict:
 
     s = summarize_window(w["dir"])
     if s is None:
-        fail(f"phase 27: window {w['index']} holds no parseable trace")
+        fail(f"phase {phase}: window {w['index']} holds no parseable "
+             f"trace")
     merged = merge_ops([s])
     rows = kernel_table(merged, steps=max(1, w["steps"]), top=400)
     return {"rows": {r["kernel"]: r for r in rows},
@@ -3374,7 +3388,7 @@ def obs_serve_phase(dev, s3: dict, smi: str) -> dict:
     _, wall_off, tok_off, _ = serve()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_obs27_") as tmp:
         obs.configure(os.path.join(tmp, "plain"))
-        _, wall_plain, tok_plain, _ = serve()
+        summary_plain, wall_plain, tok_plain, _ = serve()
         obs.shutdown()
         d = os.path.join(tmp, "windows")
         reqtrace.reset(sample_every=1)  # every request's stages
@@ -3421,10 +3435,12 @@ def obs_serve_phase(dev, s3: dict, smi: str) -> dict:
         fail(f"phase 27: windows {[(w['index'], w['on_demand']) for w in windows]}"
              f" (failed {prof.failed})")
     if any(w["device_events"] <= 0 for w in windows) \
-            or prom.get("profile_empty_windows_total") != 0:
+            or prom.get("profile_empty_windows_total") != 0 \
+            or prom.get("profile_missing_kernel_events_total") != 0:
         fail(f"phase 27: device events per window "
              f"{[w['device_events'] for w in windows]}, empty windows "
-             f"{prom.get('profile_empty_windows_total')}")
+             f"{prom.get('profile_empty_windows_total')}, missing kernel "
+             f"events {prom.get('profile_missing_kernel_events_total')}")
     # prefills that ran inside each window (their dequant launches count)
     bounds, prefills = {}, {}
     for e in events:
@@ -3441,6 +3457,12 @@ def obs_serve_phase(dev, s3: dict, smi: str) -> dict:
             or wrapper["dq_mma"] != int(wrapper["dq_mma"]):
         fail(f"phase 27: trace_step's step launched {wrapper} (wrapper "
              f"counts a step)")
+    # trace_step's own profiler session saw every launch of its steps
+    for k in ("decode_split", "dq_mma"):
+        if ref[k]["kernels_per_step"] != wrapper[k]:
+            fail(f"phase 27: trace_step's profiler saw "
+                 f"{ref[k]['kernels_per_step']} {k} kernels a step, the "
+                 f"wrappers launched {wrapper[k]}")
     per_window = []
     for w, t in zip(windows, tables):
         rows, steps = t["rows"], w["steps"]
@@ -3448,6 +3470,10 @@ def obs_serve_phase(dev, s3: dict, smi: str) -> dict:
         rec = {"index": w["index"], "on_demand": w["on_demand"],
                "steps": steps, "prefills": n_pre,
                "device_events": w["device_events"],
+               # where a window's cost goes: its start, stop and export
+               # on the engine thread, and its steps' own walls
+               "capture_s": w.get("capture_s"),
+               "step_ms": [round(x * 1e3, 3) for x in w["step_times"]],
                "op_ms_per_step": t["op_ms"] / max(1, steps),
                "coverage": t["op_ms"] / (w["step_seconds"] * 1e3)
                if w["step_seconds"] else None}
@@ -3467,13 +3493,15 @@ def obs_serve_phase(dev, s3: dict, smi: str) -> dict:
         # count of trace_step's step is the reference)
         for k, want in (("decode_split", DEPTH * steps),
                         ("dq_mma", wrapper["dq_mma"] * (steps + n_pre))):
-            short = want - rec[k]["launches"]
-            rec[k]["expected"], rec[k]["missing"] = want, short
-            if not 0 <= short <= _missing_allowed(want):
+            rec[k]["expected"] = want
+            if rec[k]["launches"] != want:
                 fail(f"phase 27: window {w['index']}: {k} "
                      f"{rec[k]['launches']} launches in the table, the "
                      f"wrappers {want:g} for {steps} steps and {n_pre} "
                      f"prefills")
+        # the program's own account: the wrappers' launches inside the
+        # window against the window's kernel events, and the trace's
+        _window_launches(27, w, t)
         per_window.append(rec)
     clean = [r for r in per_window if r["prefills"] == 0]
     if not clean:
@@ -3530,6 +3558,10 @@ def obs_serve_phase(dev, s3: dict, smi: str) -> dict:
         "wall_s": {"no_session": wall_off, "session_no_windows": wall_plain,
                    "session_with_windows": wall_on},
         "decode_steps": summary["decode_steps"],
+        "token_p50_ms": {"session_no_windows":
+                         summary_plain.get("token_p50_ms"),
+                         "session_with_windows":
+                         summary.get("token_p50_ms")},
         "counters": got,
     }
     log(f"obs serve: {json.dumps(out)}")
@@ -3581,6 +3613,7 @@ def obs_prune_phase(dev, pr: dict, pr_drops: list, rt: dict,
     from torchpruner_tpu_torch.core.segment import init_model
     from torchpruner_tpu_torch.experiments import prune_retrain as PPR
     from torchpruner_tpu_torch.experiments.presets import get_preset
+    from torchpruner_tpu_torch.ops import flash_attention as FA
 
     os.makedirs("logs", exist_ok=True)
     base = get_preset("bert_glue_sensitivity")
@@ -3617,12 +3650,16 @@ def obs_prune_phase(dev, pr: dict, pr_drops: list, rt: dict,
         session = obs.configure(d2)
         if not obs.request_profile_window():
             fail("phase 28: the scoring window was not armed")
+        fwd0 = FA.flash_fwd.launches
         obs.profile_tick()  # a loop boundary: the armed window opens
         t0 = time.perf_counter()
         metric.run(first[0])
         score_s = time.perf_counter() - t0
         obs.shutdown()  # closes the window on this thread
+        score_fwd = FA.flash_fwd.launches - fwd0
         score_windows = [dict(w) for w in session.profiler.windows]
+        score_tables = [_window_rows(w, 28) for w in score_windows]
+        score_prom = _prom_values(os.path.join(d2, "metrics.prom"))
         with open(os.path.join(d2, "profile.json")) as f:
             score_profile = json.load(f)
         del model, params, state, metric
@@ -3644,7 +3681,9 @@ def obs_prune_phase(dev, pr: dict, pr_drops: list, rt: dict,
         pdir = os.path.join(d3, "profile")
         for w in sorted(os.listdir(pdir) if os.path.isdir(pdir) else []):
             with open(os.path.join(pdir, w, "window.json")) as f:
-                retrain_windows.append(json.load(f))
+                retrain_windows.append(dict(json.load(f),
+                                            dir=os.path.join(pdir, w)))
+        retrain_tables = [_window_rows(w, 28) for w in retrain_windows]
 
     # results unchanged: phase 7's first 2 drops and widths
     if drops != pr_drops[:2]:
@@ -3679,14 +3718,31 @@ def obs_prune_phase(dev, pr: dict, pr_drops: list, rt: dict,
             or "fwd_tf32x3" not in score_names:
         fail(f"phase 28: scoring window {score_windows}, kernels "
              f"{sorted(score_names)[:20]}")
+    # every flash forward of the scoring pass is in its window, exactly
+    score_fwd_seen = score_tables[0]["launches"].get("fwd_tf32x3", 0)
+    if score_fwd_seen != score_fwd \
+            or score_windows[0].get("launches", {}).get("flash_fwd") \
+            != score_fwd \
+            or score_prom.get("profile_missing_kernel_events_total") != 0:
+        fail(f"phase 28: the scoring window holds {score_fwd_seen} "
+             f"fwd_tf32x3 launches, the wrapper launched {score_fwd} "
+             f"(the window's own count "
+             f"{score_windows[0].get('launches', {}).get('flash_fwd')}, "
+             f"missing "
+             f"{score_prom.get('profile_missing_kernel_events_total')})")
+    _window_launches(28, score_windows[0], score_tables[0])
+    for w, t in zip(retrain_windows, retrain_tables):
+        _window_launches(28, w, t)
     retrain_names = {k["kernel"] for k in retrain_profile["kernels"]}
     want = {"fwd_wgmma", "dq_wgmma", "dkv_wgmma"}
     if not want <= retrain_names or not retrain_windows \
             or any(w["device_events"] <= 0 for w in retrain_windows) \
-            or prom.get("profile_empty_windows_total") != 0:
+            or prom.get("profile_empty_windows_total") != 0 \
+            or prom.get("profile_missing_kernel_events_total") != 0:
         fail(f"phase 28: retrain windows {len(retrain_windows)}, kernels "
              f"{sorted(retrain_names)[:20]}, empty "
-             f"{prom.get('profile_empty_windows_total')}")
+             f"{prom.get('profile_empty_windows_total')}, missing "
+             f"{prom.get('profile_missing_kernel_events_total')}")
     gnorm = prom.get("grad_norm")
     if gnorm is None or not (math.isfinite(gnorm) and gnorm > 0):
         fail(f"phase 28: grad_norm gauge {gnorm}")
@@ -3757,9 +3813,10 @@ def prefill_sums(dq) -> dict:
 
 def main() -> int:
     sys.path.insert(0, HERE)
-    # keep CUPTI set up between profiler sessions: torn down, later
-    # sessions in the process can come back without kernel events
-    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    # tear CUPTI down at every profiler session's stop: kept set up, the
+    # later sessions of a long process lose their first kernels
+    # (ROADMAP C3)
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
     try:
         import torch
 

@@ -521,7 +521,11 @@ def test_device_memory_and_peaks_are_none_on_the_cpu():
     # data-sheet H100 values by device name (the SXM part at 700 W)
     assert F.peak_bf16_flops("NVIDIA H100 80GB HBM3") == 989e12
     assert F.peak_hbm_bw("NVIDIA H100 80GB HBM3") == 3.35e12
+    assert F.peak_bf16_flops("NVIDIA H100 PCIe") == 756e12
     assert F.peak_bf16_flops("TPU v5e") is None
+    # an unlisted H100 variant reads None, not the SXM part's peaks
+    assert F.peak_bf16_flops("NVIDIA H100 NVL") is None
+    assert F.peak_hbm_bw("NVIDIA H100 NVL") is None
     pos = F.roofline_position(2e12, 1e9, 1e-2, peak_flops=989e12,
                               peak_bw=3.35e12)
     assert pos["bound"] == "compute"

@@ -6,14 +6,18 @@
   gives the expected base names, categories, per-step ms, launches and
   ``coverage`` — exact arithmetic on the written numbers;
 - ``ContinuousProfiler`` takes three windows in one process (two on the
-  cadence, one on demand) through its one long-lived profiler, each
+  cadence, one on demand), one profiler session each, every window
   holding op events, on a tiny CPU model; a close from a thread that did
   not open the window tears it instead of touching another thread's
   profiler session;
+- a window holds its kernel events against the port's wrappers' launch
+  counts (``ops.launches``), and a shortfall is written into the window
+  and counted; the wrapper groups name every ``__global__`` kernel of
+  ``csrc/``;
 - ``utils/profiling.py``: ``trace``, ``time_fn``, ``time_train_step``
   and the span-stream summaries;
 - on the card (``cuda`` marker, skips here) the same three windows each
-  hold kernel events, with no empty window.
+  hold kernel events, with no empty window and no missing launch.
 
 This file imports no JAX, so it runs as it is on the GPU machine:
 ``python -m pytest --noconftest tests/test_torch_port_profile.py``.
@@ -194,8 +198,8 @@ def _tiny_step(lin, x):
 
 def test_three_windows_in_one_process_on_the_cpu(tmp_path):
     """Cadence every 4 steps, 2-step windows: the first cadence window,
-    then one armed on demand, then the next cadence window — one
-    long-lived profiler, every window holding op events."""
+    then one armed on demand, then the next cadence window — a profiler
+    session each, every window holding op events."""
     session = obs.configure(str(tmp_path), profile_every=4,
                             profile_steps=2)
     prof = session.profiler
@@ -213,6 +217,16 @@ def test_three_windows_in_one_process_on_the_cpu(tmp_path):
     assert all(w["steps"] == 2 for w in prof.windows)
     assert all(w["events"] > 0 for w in prof.windows)
     assert not prof.failed and prof.empty_windows == 0
+    # no port kernel runs on the CPU: nothing launched, nothing missing
+    assert all(w["launches"] == {} and w["missing_kernel_events"] == 0
+               for w in prof.windows)
+    # each trace was compressed off the loop: the gzip alone remains
+    assert all(set(w["capture_s"]) == {"start", "stop", "export",
+                                       "compress"}
+               for w in prof.windows)
+    assert all(sorted(os.listdir(w["dir"])) == ["trace.pt.trace.json.gz",
+                                                "window.json"]
+               for w in prof.windows)
     profile = json.loads((tmp_path / "profile.json").read_text())
     assert len(profile["windows"]) == 3
     names = {r["kernel"] for r in profile["kernels"]}
@@ -265,6 +279,79 @@ def test_window_closed_from_another_thread_is_torn(tmp_path):
                          cwd=root, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_window_counts_launches_its_trace_lacks(tmp_path):
+    """Launches that the port's wrappers count inside a window but whose
+    kernels the window's trace lacks are written into the window and
+    counted in ``profile_missing_kernel_events_total`` — here three
+    dequant launches counted with no kernel run (on the CPU the trace
+    holds no kernel)."""
+    from torchpruner_tpu_torch.ops import fused_matmul as FM
+
+    reg = MetricsRegistry()
+    prof = ContinuousProfiler(str(tmp_path), every_steps=0,
+                              window_steps=1, registry=reg)
+    before = FM.dequant_matmul.launches
+    try:
+        assert prof.request_window()
+        prof.on_step(0.001)  # opens the window
+        FM.dequant_matmul.launches += 3
+        prof.on_step(0.001)  # closes it
+    finally:
+        FM.dequant_matmul.launches = before
+    (w,) = prof.close()
+    assert w["launches"] == {"dequant_matmul": 3}
+    assert w["kernel_events"] == {} and w["missing_kernel_events"] == 3
+    assert prof.missing_kernel_events == 3
+    assert reg.get("profile_missing_kernel_events_total").value == 3
+    meta = json.loads((tmp_path / "window_000" / "window.json").read_text())
+    assert meta["missing_kernel_events"] == 3
+    # profile.json carries the shortfall, and obs profile prints it
+    from torchpruner_tpu_torch.obs.profile.kernels import format_profile
+
+    profile = build_profile(prof.windows)
+    assert profile["missing_kernel_events"] == 3
+    assert profile["windows"][0]["launches"] == {"dequant_matmul": 3}
+    assert "3 kernel launch(es)" in format_profile(profile)
+
+
+def test_wrapper_groups_name_every_kernel_of_the_sources():
+    """``ops.launches``: every wrapper exists and counts its launches, and
+    the groups' bodies are exactly the ``__global__`` kernels of
+    ``csrc/*.cu`` — a kernel added there must be given to a group."""
+    import glob
+    import re
+
+    from torchpruner_tpu_torch.ops import launches as LA
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = ""
+    for path in glob.glob(os.path.join(root, "torchpruner_tpu_torch",
+                                       "csrc", "*.cu")):
+        with open(path) as f:
+            src += f.read()
+    kernels = set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)",
+        src))
+    assert kernels == set(LA.BODY_GROUP)
+    counts = LA.counts()
+    assert set(counts) == set(LA.GROUPS)
+    assert all(isinstance(n, int) and n >= 0 for n in counts.values())
+
+
+def test_cupti_probe_needs_the_card(monkeypatch, capsys):
+    """``experiments/cupti_probe.py`` measures sessions on the card only:
+    without CUDA it exits 2 before touching a device."""
+    from torchpruner_tpu_torch.experiments import cupti_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("TEARDOWN_CUPTI", "unchanged")
+    monkeypatch.setenv("DISABLE_CUPTI_LAZY_REINIT", "unchanged")
+    assert cupti_probe.main(["--loop", "burst", "--teardown", "1",
+                             "--no-lazy-reinit", "--seconds", "0"]) == 2
+    assert os.environ["TEARDOWN_CUPTI"] == "1"
+    assert "needs a CUDA device" in capsys.readouterr().err
 
 
 def test_request_window_refused_while_armed_or_at_cap(tmp_path):
@@ -349,3 +436,6 @@ def test_three_windows_hold_kernel_events_on_the_card(tmp_path):
     assert all(w["device_events"] > 0 for w in prof.windows)
     assert prof.empty_windows == 0 and not prof.failed
     assert session.metrics.get("profile_empty_windows_total").value == 0
+    assert prof.missing_kernel_events == 0
+    assert session.metrics.get(
+        "profile_missing_kernel_events_total").value == 0

@@ -1,9 +1,15 @@
 """The prune → fine-tune driver — counterpart of
-``torchpruner_tpu/experiments/prune_retrain.py`` (without the obs spans,
-the resumable journal and the mesh): for each prunable layer, outermost
-first: score → turn scores into indices (policy) → prune (or, with
-``cfg.simulate``, mask the same slices at fixed shapes) → evaluate (→
-optionally fine-tune).
+``torchpruner_tpu/experiments/prune_retrain.py`` (without the resumable
+journal and the mesh): for each prunable layer, outermost first: score →
+turn scores into indices (policy) → prune (or, with ``cfg.simulate``,
+mask the same slices at fixed shapes) → evaluate (→ optionally
+fine-tune).
+
+Inside an obs session the run is annotated (``obs.annotate_run``) and
+emits the span ``prune_retrain`` around ``setup`` and, per target,
+``attribution``, ``eval`` (pre and post), ``prune``, ``retrain`` and
+``flops``, each tagged with the target's name, plus the ledger's
+``score_distribution``, ``record_prune`` and ``record_round`` records.
 """
 
 from __future__ import annotations

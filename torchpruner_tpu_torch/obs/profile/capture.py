@@ -13,27 +13,39 @@ session, the JAX package's: two ways a window opens —
   of cadence.  With no step loop running (an idle serving engine),
   :meth:`tick` from any loop boundary works the same.
 
-**Many windows in one process.**  The JAX package calls
-``jax.profiler.start_trace`` / ``stop_trace`` once a window.  The port
-keeps ONE long-lived ``torch.profiler.profile`` for the session, created
-at the first window, whose ``schedule`` is a callable that answers
-``RECORD`` while a window is open, ``RECORD_AND_SAVE`` on its last step
-and ``NONE`` otherwise; :meth:`on_step` advances it with
-``profiler.step()`` only at a window's edges, and its ``on_trace_ready``
-exports each window into ``window_NNN/``.  CUPTI stays set up between
-windows (``TEARDOWN_CUPTI=0`` unless the caller set it): torn down,
-later kineto sessions in a process have come back without kernel events
-on the H100.  A window on CUDA whose trace holds no device event
-(kernel, memcpy, memset) is counted in ``profile_empty_windows_total``,
-never silently dropped.  A window starts and ends with a
-``torch.cuda.synchronize()`` (when CUDA is initialized), so its kernels
-belong to its steps; outside windows the hot path gains no synchronize.
+**Many windows in one process.**  Each window is one
+``torch.profiler.profile`` session, started at its first step boundary
+and stopped at its last (:func:`start_session` / :func:`stop_session`,
+which :class:`OneShotCapture` shares), as the JAX package starts and
+stops one ``jax.profiler`` trace a window.  CUPTI is torn down at each
+stop (``TEARDOWN_CUPTI=1`` unless the caller set it): kept set up across
+sessions (``TEARDOWN_CUPTI=0``), later sessions on the H100 lost their
+first kernels, more the longer CUPTI had lived (ROADMAP C3).  A window starts
+and ends with a ``torch.cuda.synchronize()`` (when CUDA is initialized),
+so its kernels belong to its steps; outside windows the hot path gains
+no synchronize.
+
+**A window's kernels are counted against the port's wrappers.**  At a
+window's start and stop the profiler reads the launch counts of the
+port's kernel wrappers (``ops.launches``); the window's kernel events
+of each group's bodies must equal the growth of its wrappers' counts.
+The shortfall is written into the window record
+(``missing_kernel_events``) and added to
+``profile_missing_kernel_events_total``; a window on CUDA whose trace
+holds no device event at all (kernel, memcpy, memset) is counted in
+``profile_empty_windows_total``.  Neither loss is ever silent.
 
 Each window lands in ``<dir>/window_<k>/`` with a ``window.json``
 sidecar (steps covered, their summed step-seconds from the telemetry
-stopwatch, wall timestamps, device events) — what joins the trace's op
-table back to the span stream and lets ``kernel_table`` normalize per
-step.  A failed start disables further windows (the JAX package's rule).
+stopwatch, wall timestamps, device events, the wrappers' launches and
+the window's own start / stop / export / compress seconds) — what joins
+the trace's op table back to the span stream and lets ``kernel_table``
+normalize per step.  The loop thread writes the window's plain trace;
+a thread of its own gzips it and then writes the sidecar, and
+:meth:`ContinuousProfiler.close` waits for it (on an 8B serve on the
+H100 the export was most of a window's cost to the loop: PERF.md
+section 7).  A failed start disables further windows (the JAX
+package's rule).
 
 A ``torch.profiler`` session belongs to the thread that started it: a
 window is stopped on the thread that opened it (the engine loop, the
@@ -45,16 +57,19 @@ as ``torn`` with no trace and disables further windows.
 from __future__ import annotations
 
 import glob
+import gzip
 import json
 import os
+import shutil
 import threading
 import time
-import warnings
 from typing import Any, Dict, List, Optional
 
 WINDOW_META = "window.json"
 #: the trace file each window exports (gzip, torch's Chrome format)
 TRACE_FILENAME = "trace.pt.trace.json.gz"
+#: the plain trace the loop thread writes, compressed off the loop
+PLAIN_TRACE_FILENAME = "trace.pt.trace.json"
 
 #: hard cap on windows per session — continuous profiling must bound
 #: its disk/parse cost even on week-long runs (oldest evidence wins;
@@ -62,6 +77,7 @@ TRACE_FILENAME = "trace.pt.trace.json.gz"
 DEFAULT_MAX_WINDOWS = 16
 
 EMPTY_WINDOWS_COUNTER = "profile_empty_windows_total"
+MISSING_EVENTS_COUNTER = "profile_missing_kernel_events_total"
 
 
 def _cuda_live() -> bool:
@@ -90,17 +106,76 @@ def _activities():
     return acts
 
 
-def window_event_counts(prof) -> Dict[str, int]:
-    """``{"events", "device_events"}`` of a just-stopped profiler: every
-    event it recorded, and those on a device (kernels, memcpys, memsets;
-    device-side annotation ranges aside), read from its in-memory kineto
-    result — no parse of the exported trace on the caller's loop."""
+def start_session():
+    """A synchronize, then one started ``torch.profiler`` session (the
+    CPU, and CUDA when a context is live), CUPTI to be torn down at its
+    stop (``TEARDOWN_CUPTI=1`` unless the caller set it)."""
+    from torch.profiler import profile
+
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
+    _sync()
+    prof = profile(activities=_activities())
+    prof.start()
+    return prof
+
+
+def stop_session(prof) -> None:
+    """A synchronize, so every kernel of the session has run, then stop
+    ``prof``."""
+    _sync()
+    prof.stop()
+
+
+def window_event_counts(prof) -> Dict[str, Any]:
+    """``{"events", "device_events", "kernel_events"}`` of a
+    just-stopped profiler: every event it recorded, those on a device
+    (kernels, memcpys, memsets; device-side annotation ranges aside),
+    and the kernel events of each group of the port's wrappers
+    (``ops.launches.GROUPS``), read from its in-memory kineto result —
+    no parse of the exported trace on the caller's loop."""
     from torch.autograd import DeviceType
 
+    from torchpruner_tpu_torch.obs.profile.kernels import base_kernel_name
+    from torchpruner_tpu_torch.ops.launches import BODY_GROUP
+
     evs = prof.profiler.kineto_results.events()
-    device = sum(1 for e in evs if e.device_type() != DeviceType.CPU
-                 and not e.is_user_annotation())
-    return {"events": len(evs), "device_events": device}
+    by_name: Dict[str, int] = {}
+    for e in evs:
+        if e.device_type() != DeviceType.CPU and not e.is_user_annotation():
+            by_name[e.name()] = by_name.get(e.name(), 0) + 1
+    groups: Dict[str, int] = {}
+    for name, n in by_name.items():
+        g = BODY_GROUP.get(base_kernel_name(name))
+        if g is not None:
+            groups[g] = groups.get(g, 0) + n
+    return {"events": len(evs), "device_events": sum(by_name.values()),
+            "kernel_events": groups}
+
+
+def _compress(src: str, dst: str) -> None:
+    """gzip ``src`` into ``dst`` and remove ``src``; ``dst`` appears
+    whole (written as ``dst.part``, then renamed), and never beside
+    ``src``, so a reader counts the window's events once."""
+    part = dst + ".part"
+    with open(src, "rb") as fin, \
+            gzip.open(part, "wb", compresslevel=6) as fout:
+        shutil.copyfileobj(fin, fout, 1 << 20)
+    os.remove(src)
+    os.replace(part, dst)
+
+
+def _write_meta(w: Dict[str, Any]) -> None:
+    try:
+        with open(os.path.join(w["dir"], WINDOW_META), "w") as f:
+            json.dump({k: v for k, v in w.items() if k != "dir"}, f)
+    except OSError:
+        pass
+
+
+def _launch_counts() -> Dict[str, int]:
+    from torchpruner_tpu_torch.ops.launches import counts
+
+    return counts()
 
 
 class ContinuousProfiler:
@@ -108,7 +183,8 @@ class ContinuousProfiler:
     (the session's JSONL event writer) that receives
     ``profile_window_begin`` / ``profile_window_end`` markers;
     ``registry`` (the session's metrics) receives
-    ``profile_empty_windows_total``."""
+    ``profile_empty_windows_total`` and
+    ``profile_missing_kernel_events_total``."""
 
     def __init__(self, profile_dir: str, *, every_steps: int = 0,
                  window_steps: int = 3,
@@ -125,18 +201,24 @@ class ContinuousProfiler:
             registry.counter(
                 EMPTY_WINDOWS_COUNTER,
                 "capture windows on CUDA whose trace held no device event")
+            registry.counter(
+                MISSING_EVENTS_COUNTER,
+                "kernel launches of the port's wrappers inside capture "
+                "windows that their traces lack")
         #: closed windows: {"index","dir","steps","step_seconds",
         #: "t_start_unix","wall_s","on_demand","events",
-        #: "device_events"}
+        #: "device_events","launches","kernel_events",
+        #: "missing_kernel_events","capture_s"}
         self.windows: List[Dict[str, Any]] = []
         self.empty_windows = 0
+        self.missing_kernel_events = 0
         self._steps_seen = 0
         self._want_window = False
         self._open: Optional[Dict[str, Any]] = None
         self._failed = False  # a failed start disables profiling
-        self._prof = None     # the session's one torch.profiler.profile
-        self._action = None   # what the schedule answers next
-        self._closing: Optional[Dict[str, Any]] = None  # being exported
+        self._prof = None     # the open window's torch.profiler session
+        #: threads compressing closed windows' traces (joined by close)
+        self._compressing: List[threading.Thread] = []
         #: guards arming against the window state: the request stays
         #: armed until its window is open, so a second request made
         #: while the (slow) first start runs is refused
@@ -206,44 +288,22 @@ class ContinuousProfiler:
             return contextlib.nullcontext()
         return self.tracer.span(name, **meta)
 
-    def _schedule(self, step: int):
-        return self._action
-
-    def _on_trace_ready(self, prof) -> None:
-        w = self._closing
-        if w is not None:
-            w.update(window_event_counts(prof))
-            prof.export_chrome_trace(os.path.join(w["dir"], TRACE_FILENAME))
-
     def _start_window(self, on_demand: bool) -> None:
         if self._failed or len(self.windows) >= self.max_windows:
             self._want_window = False
             return
         index = len(self.windows)
         wdir = os.path.join(self.profile_dir, f"window_{index:03d}")
+        t0 = time.perf_counter()
         try:
-            from torch.profiler import ProfilerAction, profile
-
             os.makedirs(wdir, exist_ok=True)
             with self._span("profile_capture", window=index, edge="start"):
-                _sync()
-                self._action = ProfilerAction.RECORD
-                with warnings.catch_warnings():
-                    # "clears events at the end of each cycle": each
-                    # window is exported at its end, by design
-                    warnings.simplefilter("ignore", UserWarning)
-                    if self._prof is None:
-                        os.environ.setdefault("TEARDOWN_CUPTI", "0")
-                        self._prof = profile(
-                            activities=_activities(),
-                            schedule=self._schedule,
-                            on_trace_ready=self._on_trace_ready)
-                        self._prof.start()
-                    else:
-                        self._prof.step()
+                base = _launch_counts()
+                self._prof = start_session()
         except Exception:
             # another profiler already active, or an unwritable dir:
             # disable rather than retry-fail every N steps
+            self._prof = None
             with self._arm_lock:
                 self._failed = True
                 self._want_window = False
@@ -253,6 +313,8 @@ class ContinuousProfiler:
             "step_times": [], "target_steps": self.window_steps,
             "t_start_unix": time.time(), "t_mono": time.perf_counter(),
             "on_demand": on_demand, "thread": threading.get_ident(),
+            "launch_base": base,
+            "capture_s": {"start": round(time.perf_counter() - t0, 6)},
         }
         with self._arm_lock:
             self._open = opened
@@ -263,47 +325,76 @@ class ContinuousProfiler:
         w, self._open = self._open, None
         if w is None:
             return
+        prof, self._prof = self._prof, None
+        base = w.pop("launch_base")
+        w.pop("target_steps", None)
+        w.update({"events": 0, "device_events": 0, "kernel_events": {}})
         if w.pop("thread") != threading.get_ident():
             # the session is another thread's: it cannot be stopped here
             self._failed = True
             w["torn"] = True
             w["wall_s"] = round(time.perf_counter() - w.pop("t_mono"), 6)
-            w.pop("target_steps", None)
-            w.update({"events": 0, "device_events": 0})
             self.windows.append(w)
             self._emit_marker("profile_window_end", w)
             return
+        now = plain = None
         try:
-            from torch.profiler import ProfilerAction
-
+            t0 = time.perf_counter()
             with self._span("profile_capture", window=w["index"],
                             edge="stop"):
-                _sync()
-                self._closing = w
-                try:
-                    self._action = ProfilerAction.RECORD_AND_SAVE
-                    self._prof.step()
-                    self._action = ProfilerAction.NONE
-                    self._prof.step()  # stops the trace, exports it
-                finally:
-                    self._closing = None
+                stop_session(prof)
+                now = _launch_counts()
+                w.update(window_event_counts(prof))
+            t1 = time.perf_counter()
+            # the loop thread writes the plain trace; its gzip (most of
+            # an export's time) runs on a thread of its own
+            path = os.path.join(w["dir"], PLAIN_TRACE_FILENAME)
+            with self._span("profile_capture", window=w["index"],
+                            edge="export"):
+                prof.export_chrome_trace(path)
+            plain = path
+            w["capture_s"].update(stop=round(t1 - t0, 6),
+                                  export=round(time.perf_counter() - t1,
+                                               6))
         except Exception:
-            pass  # keep whatever the collector already flushed
+            pass  # keep what the collector already flushed
         w["wall_s"] = round(time.perf_counter() - w.pop("t_mono"), 6)
-        w.pop("target_steps", None)
-        w.setdefault("events", 0)
-        w.setdefault("device_events", 0)
+        if now is not None:
+            w["launches"] = {g: now[g] - base[g] for g in now
+                             if now[g] != base[g]}
+            missing = sum(max(0, n - w["kernel_events"].get(g, 0))
+                          for g, n in w["launches"].items())
+            w["missing_kernel_events"] = missing
+            if missing:
+                self.missing_kernel_events += missing
+                if self.registry is not None:
+                    self.registry.counter(MISSING_EVENTS_COUNTER).inc(
+                        missing)
         if _cuda_live() and not w["device_events"]:
             self.empty_windows += 1
             if self.registry is not None:
                 self.registry.counter(EMPTY_WINDOWS_COUNTER).inc()
         self.windows.append(w)
-        try:
-            with open(os.path.join(w["dir"], WINDOW_META), "w") as f:
-                json.dump({k: v for k, v in w.items() if k != "dir"}, f)
-        except OSError:
-            pass
+        if plain is not None:
+            t = threading.Thread(target=self._finish, args=(w, plain),
+                                 name=f"profile_window_{w['index']}")
+            self._compressing.append(t)
+            t.start()
+        else:
+            _write_meta(w)
         self._emit_marker("profile_window_end", w)
+
+    @staticmethod
+    def _finish(w: Dict[str, Any], plain: str) -> None:
+        """Off the loop: compress a window's trace, then write its
+        sidecar with the compression's seconds."""
+        t0 = time.perf_counter()
+        try:
+            _compress(plain, os.path.join(w["dir"], TRACE_FILENAME))
+        except Exception:
+            pass  # the plain trace stays readable
+        w["capture_s"]["compress"] = round(time.perf_counter() - t0, 6)
+        _write_meta(w)
 
     def _emit_marker(self, event: str, w: Dict[str, Any]) -> None:
         if self.emit is None:
@@ -317,9 +408,13 @@ class ContinuousProfiler:
             pass
 
     def close(self) -> List[Dict[str, Any]]:
-        """Stop any open window; returns the closed-window records."""
+        """Stop any open window and wait for every window's trace to be
+        compressed; returns the closed-window records."""
         if self._open is not None:
             self._stop_window()
+        for t in self._compressing:
+            t.join()
+        self._compressing = []
         return self.windows
 
 
@@ -350,12 +445,8 @@ class OneShotCapture:
         import tempfile
 
         try:
-            from torch.profiler import profile
-
             self._dir = tempfile.mkdtemp(prefix="kernel_capture_")
-            _sync()
-            self._prof = profile(activities=_activities())
-            self._prof.start()
+            self._prof = start_session()
         except Exception:
             # the tmpdir must not leak — one per capture
             if self._dir is not None:
@@ -370,8 +461,7 @@ class OneShotCapture:
         if self._dir is None:
             return False
         try:
-            _sync()
-            self._prof.stop()
+            stop_session(self._prof)
             self._prof.export_chrome_trace(
                 os.path.join(self._dir, TRACE_FILENAME))
         except Exception:

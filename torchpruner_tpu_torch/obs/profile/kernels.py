@@ -219,7 +219,8 @@ def build_profile(windows: List[Dict[str, Any]], *,
         summaries.append(s)
         used.append({k: w.get(k) for k in
                      ("index", "dir", "steps", "step_seconds",
-                      "t_start_unix", "wall_s", "on_demand")})
+                      "t_start_unix", "wall_s", "on_demand", "launches",
+                      "missing_kernel_events")})
         used[-1]["op_ms"] = s.get("total_ms")
         steps += int(w.get("steps") or 0)
         step_seconds += float(w.get("step_seconds") or 0.0)
@@ -250,6 +251,10 @@ def build_profile(windows: List[Dict[str, Any]], *,
             by_category[cat] = by_category.get(cat, 0.0) + ms
     return {
         "windows": used,
+        # the port's wrappers' launches inside the windows that their
+        # traces lack (capture.ContinuousProfiler); 0 when none is lost
+        "missing_kernel_events": sum(int(w.get("missing_kernel_events")
+                                         or 0) for w in used),
         "steps_profiled": steps,
         "step_time_mean_s": (round(step_time_s, 6) if step_time_s
                              else None),
@@ -349,6 +354,10 @@ def format_profile(profile: Dict[str, Any], top: Optional[int] = None
         bits.append(f"device idle {100 * (1 - profile['coverage']):.0f}%")
     if bits:
         lines += ["", ", ".join(bits)]
+    if profile.get("missing_kernel_events"):
+        lines += ["", f"**{profile['missing_kernel_events']} kernel "
+                      "launch(es) of the port's wrappers missing from the "
+                      "windows' traces**: their tables undercount"]
     rows = profile.get("kernels", [])[: top or None]
     if rows:
         lines += ["", "| kernel | category | ms/step | % step | "

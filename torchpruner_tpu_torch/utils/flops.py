@@ -70,20 +70,21 @@ def prefix_flops_estimate(model: SegmentedModel, params, eval_layer: str,
     return total
 
 
-#: bf16 dense tensor-core peak FLOP/s by CUDA device name prefix
-#: (``torch.cuda.get_device_name``), longest prefix wins.  NVIDIA's H100
+#: bf16 dense tensor-core peak FLOP/s by CUDA device name
+#: (``torch.cuda.get_device_name``, matched exactly).  NVIDIA's H100
 #: data-sheet values (dense, without sparsity, at the card's full power
 #: limit: 700 W for the SXM part); no other card is listed, so any other
-#: device — and the CPU — reads ``None``.
+#: device — another H100 variant such as the NVL included — and the CPU
+#: read ``None``.
 PEAK_BF16_FLOPS = {
-    "NVIDIA H100": 989e12,          # SXM: "NVIDIA H100 80GB HBM3"
+    "NVIDIA H100 80GB HBM3": 989e12,    # SXM
     "NVIDIA H100 PCIe": 756e12,
 }
 
-#: HBM bytes/s by CUDA device name prefix: NVIDIA's H100 data-sheet
-#: values, paired with :data:`PEAK_BF16_FLOPS`.
+#: HBM bytes/s by CUDA device name: NVIDIA's H100 data-sheet values,
+#: paired with :data:`PEAK_BF16_FLOPS`.
 PEAK_HBM_BYTES_PER_S = {
-    "NVIDIA H100": 3.35e12,
+    "NVIDIA H100 80GB HBM3": 3.35e12,
     "NVIDIA H100 PCIe": 2.0e12,
 }
 
@@ -104,24 +105,16 @@ def _device_name(device) -> str:
         return ""
 
 
-def _by_name_prefix(table: dict, device) -> Optional[float]:
-    name = _device_name(device)
-    for prefix in sorted(table, key=len, reverse=True):
-        if name.startswith(prefix):
-            return table[prefix]
-    return None
-
-
 def peak_bf16_flops(device) -> Optional[float]:
     """Data-sheet bf16 peak for ``device`` (a CUDA device name, a
     ``torch.device`` or a CUDA index; None when unknown or the CPU)."""
-    return _by_name_prefix(PEAK_BF16_FLOPS, device)
+    return PEAK_BF16_FLOPS.get(_device_name(device))
 
 
 def peak_hbm_bw(device) -> Optional[float]:
     """Data-sheet HBM bandwidth (bytes/s) for ``device`` (None when
     unknown or the CPU, whose DRAM rate is not a chip constant)."""
-    return _by_name_prefix(PEAK_HBM_BYTES_PER_S, device)
+    return PEAK_HBM_BYTES_PER_S.get(_device_name(device))
 
 
 def roofline_position(flops: Optional[float], bytes_moved: Optional[float],
