@@ -251,9 +251,51 @@ for phase 21's trace, and the card's memory to themselves.
     ``fwd_wgmma``, ``dq_wgmma`` and ``dkv_wgmma``, none empty, each
     holding exactly the wrappers' launches inside it, and the
     ``grad_norm`` gauge is finite and > 0.
+29. Resilience, in a child process started before phase 16 (its own
+    process group, killed at exit unless it finished): (a), (b) and (d)
+    run beside phases 16-20, which hold little of the card's memory and
+    are host-bound for the most part; the child then waits until phase
+    20 is done and runs (c) while the main process waits, the card's
+    memory free for the real OOM.  So phases 16-20's walls and (a)'s
+    commit and resume times in the whole script are taken beside each
+    other; ``--resilience-slice`` times phase 29 alone.
+    (a) Phase 8's configuration cut to
+    two FFN targets (``block12_mlp/``, ``block11_mlp/``), three CLI runs
+    with ``--resume DIR``, each in a worker child that counts the flash
+    launches by kernel and dtype and records every prune's dropped
+    indices: U uninterrupted and K with ``--chaos '{"kill_at_step":
+    k}'``, k 20 steps into the second target's retrain epoch, side by
+    side; K must die by SIGKILL (return code -9); R, K's command without
+    ``--chaos``, starts when K is dead, beside the rest of U.  R's
+    manifest says ``done`` with ``resumes`` 1, its records' layers,
+    widths and drop counts are U's, K dropped U's indices and R pruned
+    nothing; R's final checkpoint has U's digest (params bit for bit) —
+    if not, a second uninterrupted run U' says whether the retrain path
+    or the resume is at fault, and R may then differ from U by at most
+    twice U' does.  U and K launched all three flash kernels in f32
+    (scoring) and bf16 (retraining); R the three bf16 bodies and no f32
+    dQ or dK/dV (no scoring).  Printed: the walls, every
+    ``checkpoint_write`` span of U and R, a checkpoint's bytes, and the
+    resume overhead (R's wall minus its own time from the second
+    target's retrain to its end).  Beside U and K, in the child itself:
+    (b) ``mnist_fc`` (784-2024-2024-10, float inputs) in a resilient
+    ``train`` run with ``guard_nonfinite`` and ``{"nan_at_step": 37}``:
+    one skip, the params bit-equal across it,
+    ``resilience_nan_skips_total`` 1; then two poisoned steps in a row
+    at ``max_bad_steps`` 2: one rollback, ``lr_scale`` equal to
+    ``lr_backoff``, a finished run; (d) a resilient run whose one commit
+    the chaos module corrupts: its resume exits non-zero with
+    ``CheckpointCorruptError``.  Then alone (c): a resilient ``train``
+    run of mfu_llama (bf16, Adam) at a batch sized from the working set
+    at B 4 and 8 to fail at ``accum_steps`` 1 and fit at 2: the first
+    step raises ``torch.cuda.OutOfMemoryError`` (``is_oom_error`` says
+    so), the runner rolls back to the seeded start at ``accum_steps``
+    2, the manifest records 2, the losses are finite and the bf16 flash
+    kernels launched.
 
 ``python3 chip_smoke.py --obs-slice`` runs phases 3, 7, 8, 27 and 28
-alone (the kernels built first).
+alone (the kernels built first); ``python3 chip_smoke.py
+--resilience-slice`` runs phase 29 alone.
 
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -3785,6 +3827,611 @@ def obs_prune_phase(dev, pr: dict, pr_drops: list, rt: dict,
     return out
 
 
+# -- phase 29 ---------------------------------------------------------------
+
+#: phase 29 (a): phase 8's BERT-base bf16 retrain cut to two FFN targets,
+#: so the kill lands in the second round after a completed first
+RES_TARGETS = ("block12_mlp/", "block11_mlp/")
+FLASH_NAMES = ("fwd", "dq", "dkv")
+
+
+def _dtype_launches():
+    """Count the flash kernels' launches by kernel and dtype
+    (``"fwd:float32"``, ...) while the context is open: the wrappers'
+    one launch point, ``ops/flash_attention.py _launch``, wrapped."""
+    import contextlib
+
+    from torchpruner_tpu_torch.ops import flash_attention as FA
+
+    counts = {}
+    orig = FA._launch
+
+    def launch(name, ptrs, strides, q, causal):
+        orig(name, ptrs, strides, q, causal)
+        key = f"{name.replace('tp_flash_', '')}:{str(q.dtype).split('.')[-1]}"
+        counts[key] = counts.get(key, 0) + 1
+
+    @contextlib.contextmanager
+    def ctx():
+        FA._launch = launch
+        try:
+            yield counts
+        finally:
+            FA._launch = orig
+
+    return ctx()
+
+
+def resilience_worker(out_path: str, argv) -> int:
+    """A CLI run of phase 29 (a) in this process (``--resilience-worker
+    OUT ARGS...``, ARGS the CLI's): the flash launches counted by kernel and dtype, the
+    wrappers' own counts, and every prune's dropped indices, written to
+    OUT at exit and just before the chaos module's SIGKILL of this
+    process."""
+    import signal
+
+    from torchpruner_tpu_torch import __main__ as cli
+
+    rec = {"drops": []}
+
+    def dump():
+        rec["wrapper_launches"] = flash_launches()
+        with open(out_path, "w") as f:
+            json.dump(rec, f)
+
+    real_kill = os.kill
+
+    def kill(pid, sig):
+        if pid == os.getpid() and sig == signal.SIGKILL:
+            dump()
+        real_kill(pid, sig)
+
+    os.kill = kill
+    with _dtype_launches() as counts, _recorded_prunes() as drops:
+        rec["launches"], rec["drops"] = counts, drops
+        rc = cli.main(argv)
+    dump()
+    return rc
+
+
+def _start_worker(tag: str, argv, tmp: str):
+    """Start one CLI run in a worker child (:func:`resilience_worker`); a
+    thread collects its output and the moment it exits."""
+    import threading
+
+    out = os.path.join(tmp, f"{tag}.json")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--resilience-worker", out, *argv], cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    rec = {"t0": time.perf_counter()}
+
+    def wait():
+        rec["stdout"], rec["stderr"] = proc.communicate(timeout=900)
+        rec["t1"] = time.perf_counter()
+
+    thread = threading.Thread(target=wait, daemon=True)
+    thread.start()
+    return proc, thread, rec, out
+
+
+def _join_worker(started) -> dict:
+    """The worker's return code, wall, output tails and record."""
+    proc, thread, rec, out = started
+    thread.join()
+    res = {"rc": proc.returncode, "wall_s": rec["t1"] - rec["t0"],
+           "stdout": rec["stdout"][-3000:], "stderr": rec["stderr"][-3000:]}
+    if os.path.exists(out):
+        with open(out) as f:
+            res.update(json.load(f))
+    return res
+
+
+def _spans(obs_dir: str) -> list:
+    return _read_jsonl(os.path.join(obs_dir, "events.jsonl"))
+
+
+def _final_params(run_dir: str):
+    from torchpruner_tpu_torch.checkpoint import restore_checkpoint
+    from torchpruner_tpu_torch.resilience.manifest import RunManifest
+
+    m = RunManifest.load(run_dir)
+    return restore_checkpoint(os.path.join(run_dir, m.checkpoint),
+                              device="cpu")
+
+
+def _max_param_diff(a: str, b: str) -> float:
+    from torchpruner_tpu_torch.utils.tree import tree_leaves
+
+    pa, pb = _final_params(a)[1], _final_params(b)[1]
+    return max(float((x - y).abs().max())
+               for x, y in zip(tree_leaves(pa), tree_leaves(pb)))
+
+
+def kill_resume_phase(tmp: str, meanwhile=lambda: None) -> dict:
+    """Phase 29 (a): U uninterrupted and K killed by ``kill_at_step``
+    early in the second target's retrain, side by side on the card (and
+    ``meanwhile()`` in this process), then R, K's command without
+    ``--chaos``, started as soon as K is dead, beside the rest of U; each
+    a CLI run with ``--resume`` in a worker child."""
+    from torchpruner_tpu_torch.data import load_dataset
+    from torchpruner_tpu_torch.experiments.presets import get_preset
+    from torchpruner_tpu_torch.resilience.manifest import (
+        RunManifest,
+        read_json,
+    )
+
+    cfg = dataclasses.replace(
+        get_preset("bert_glue_sensitivity"), finetune_epochs=1,
+        target_filter=RES_TARGETS, log_path=os.path.join(tmp, "log.csv"))
+    path = os.path.join(tmp, "cfg.json")
+    cfg.to_json(path)
+    spe = math.ceil(len(load_dataset(cfg.dataset, "train", seed=cfg.seed))
+                    / cfg.batch_size)
+    kill_at = spe + 20
+
+    def start(tag, run_dir, *extra):
+        return _start_worker(tag, [
+            "--config", path, "--resume", os.path.join(tmp, run_dir),
+            "--obs-dir", os.path.join(tmp, f"obs_{tag}"), *extra], tmp)
+
+    def join(tag, started):
+        r = _join_worker(started)
+        log(f"  {tag}: exit {r['rc']}, {r['wall_s']:.1f} s, launches "
+            f"{r.get('launches')}")
+        return r
+
+    su_, sk_ = start("U", "u"), start("K", "k", "--chaos",
+                                      json.dumps({"kill_at_step": kill_at}))
+    meanwhile()
+    k = join("K", sk_)
+    sr_ = start("R", "k")
+    u, r = join("U", su_), join("R", sr_)
+    for tag, rec, want in (("U", u, 0), ("K", k, -9), ("R", r, 0)):
+        if rec["rc"] != want:
+            fail(f"phase 29 (a) {tag} exited {rec['rc']} (want {want}):\n"
+                 f"{rec['stdout']}\n{rec['stderr']}")
+    mu = RunManifest.load(os.path.join(tmp, "u"))
+    mr = RunManifest.load(os.path.join(tmp, "k"))
+    if (mr.status, mr.resumes, mr.completed) != \
+            ("done", 1, mu.completed) or len(mu.completed) != 2:
+        fail(f"phase 29 (a) manifests: U {mu.completed} {mu.status}, R "
+             f"{mr.completed} {mr.status} resumes {mr.resumes}")
+    shape = lambda recs: [(x["layer"], x["widths"], x["n_dropped"])  # noqa
+                          for x in recs]
+    if shape(mr.records) != shape(mu.records):
+        fail(f"phase 29 (a) records: R {shape(mr.records)} U "
+             f"{shape(mu.records)}")
+    if len(u["drops"]) != 2 or k["drops"] != u["drops"] or r["drops"]:
+        fail(f"phase 29 (a) drops: U {len(u['drops'])}, K equal "
+             f"{k['drops'] == u['drops']}, R {len(r['drops'])}")
+    for tag, rec in (("U", u), ("K", k)):
+        for name in FLASH_NAMES:
+            for dt in ("float32", "bfloat16"):
+                if not rec["launches"].get(f"{name}:{dt}"):
+                    fail(f"phase 29 (a) {tag} never launched flash {name} "
+                         f"in {dt}: {rec['launches']}")
+    # R resumed at the second target's retrain anchor: the bf16 retrain
+    # bodies and no scoring (the f32 backward runs only in Sensitivity's
+    # gradients; R's f32 forwards are its evaluations)
+    if not all(r["launches"].get(f"{n}:bfloat16") for n in FLASH_NAMES) \
+            or r["launches"].get("dq:float32") \
+            or r["launches"].get("dkv:float32"):
+        fail(f"phase 29 (a) R launches {r['launches']}")
+    su = read_json(os.path.join(tmp, "u", mu.checkpoint, "spec.json"))
+    sr = read_json(os.path.join(tmp, "k", mr.checkpoint, "spec.json"))
+    strip = lambda recs: [{a: b for a, b in x.items()  # noqa: E731
+                           if a != "prune_time"} for x in recs]
+    out = {"kill_at_step": kill_at, "steps_per_round": spe,
+           "params_bit_equal": su["digest"] == sr["digest"],
+           "records_equal": strip(mr.records) == strip(mu.records),
+           "post_losses_u": [x["post_loss"] for x in mu.records],
+           "post_losses_r": [x["post_loss"] for x in mr.records]}
+    if not out["params_bit_equal"]:
+        # the resume or the retrain path: a second uninterrupted run says
+        out["max_diff_r_u"] = _max_param_diff(os.path.join(tmp, "u"),
+                                              os.path.join(tmp, "k"))
+        u2 = join("U2", start("U2", "u2"))
+        if u2["rc"] != 0:
+            fail(f"phase 29 (a) U' exited {u2['rc']}:\n{u2['stderr']}")
+        out["max_diff_u2_u"] = _max_param_diff(os.path.join(tmp, "u"),
+                                               os.path.join(tmp, "u2"))
+        log(f"  R differs from U by {out['max_diff_r_u']:.3g}, U' from U "
+            f"by {out['max_diff_u2_u']:.3g}")
+        if out["max_diff_u2_u"] == 0.0:
+            fail("phase 29 (a): U and U' agree bit for bit and R differs "
+                 "— the resume is at fault")
+        if out["max_diff_r_u"] > 2 * out["max_diff_u2_u"]:
+            fail(f"phase 29 (a): R differs from U by "
+                 f"{out['max_diff_r_u']}, more than twice U' "
+                 f"({out['max_diff_u2_u']})")
+    elif not out["records_equal"]:
+        fail(f"phase 29 (a): params bit-equal but records differ: "
+             f"{strip(mr.records)} vs {strip(mu.records)}")
+    # commit cost (U's and R's checkpoint_write spans) and the resume
+    # overhead: R's own time from the second target's retrain to its end
+    # is the work it redid, and the rest of its wall (process start,
+    # imports, init, restore) is what resuming cost (both beside the end
+    # of U, so both a little slower than alone)
+    ev_u = _spans(os.path.join(tmp, "obs_U"))
+    ev_r = _spans(os.path.join(tmp, "obs_R"))
+    writes = [e["dur_s"] for ev in (ev_u, ev_r) for e in ev
+              if e.get("event") == "span_end"
+              and e.get("name") == "checkpoint_write"]
+    second = next(e["ts"] for e in ev_r if e.get("event") == "span_begin"
+                  and e.get("name") == "retrain"
+                  and str(e.get("target", "")).startswith(RES_TARGETS[1]))
+    redo_s = ev_r[-1]["ts"] - second
+    resume = [e["dur_s"] for e in ev_r if e.get("event") == "span_end"
+              and e.get("name") == "resume"]
+    out.update({
+        "walls_s": {t: x["wall_s"] for t, x in (("U", u), ("K", k),
+                                                 ("R", r))},
+        "checkpoint_write_seconds": writes,
+        "checkpoint_bytes": _dir_bytes(os.path.join(tmp, "u",
+                                                    mu.checkpoint)),
+        "redone_by_r_s": redo_s, "resume_span_s": resume,
+        "resume_overhead_s": r["wall_s"] - redo_s,
+        "launches": {t: x["launches"] for t, x in (("U", u), ("K", k),
+                                                    ("R", r))},
+        "wrapper_launches": {t: x["wrapper_launches"]
+                             for t, x in (("U", u), ("K", k), ("R", r))},
+        "manifest": {"status": mr.status, "resumes": mr.resumes,
+                     "commits": mr.commits}})
+    log(f"phase 29 (a): {json.dumps(out)}")
+    return out
+
+
+def nan_guard_phase(dev, tmp: str) -> dict:
+    """Phase 29 (b): the non-finite guard on ``mnist_fc`` (784-2024-2024-10,
+    float inputs) in a resilient ``train`` run: ``nan_at_step`` skipped
+    once with the params bit-equal across it; then two poisoned steps in
+    a row at ``max_bad_steps`` 2: one rollback, ``lr_scale`` equal to
+    ``lr_backoff``, a finished run."""
+    import numpy as np
+    import torch
+
+    from torchpruner_tpu_torch import obs
+    from torchpruner_tpu_torch.data import load_dataset
+    from torchpruner_tpu_torch.experiments.train_model import run_train
+    from torchpruner_tpu_torch.resilience import chaos
+    from torchpruner_tpu_torch.resilience.manifest import RunManifest
+    from torchpruner_tpu_torch.train.loop import Trainer
+    from torchpruner_tpu_torch.utils.config import ExperimentConfig
+    from torchpruner_tpu_torch.utils.tree import tree_leaves
+
+    data = (load_dataset("mnist_flat", "train", n=6400, seed=0),
+            load_dataset("mnist_flat", "val", n=250, seed=0),
+            load_dataset("mnist_flat", "test", n=1000, seed=0))
+    nan_at = 37
+    seen = {}
+    orig = Trainer.step
+
+    def step(self, x, y):
+        s = self.step_count
+        before = [t.clone() for t in tree_leaves(self.params)] \
+            if s == nan_at else None
+        loss = orig(self, x, y)
+        if before is not None and "equal" not in seen:
+            seen["equal"] = all(torch.equal(a, b) for a, b in
+                                zip(before, tree_leaves(self.params)))
+            seen["loss_finite"] = math.isfinite(float(loss))
+        return loss
+
+    def run(name, **kw):
+        cfg = ExperimentConfig(
+            name=name, model="mnist_fc", dataset="mnist_flat",
+            experiment="train", epochs=1, batch_size=64,
+            eval_batch_size=250, lr=0.01, guard_nonfinite=True,
+            checkpoint_every_steps=25, run_dir=os.path.join(tmp, name),
+            log_path=os.path.join(tmp, f"{name}.csv"), **kw)
+        obs.configure(None)
+        try:
+            t0 = time.perf_counter()
+            _, hist = run_train(cfg, datasets=data, verbose=False,
+                                device=dev)
+            wall = time.perf_counter() - t0
+            counters = {c: obs.counter_value(c) for c in (
+                "resilience_nan_skips_total", "resilience_rollbacks_total",
+                "chaos_injections_total")}
+        finally:
+            obs.shutdown()
+            chaos.disable()
+        m = RunManifest.load(cfg.run_dir)
+        return {"wall_s": wall, "counters": counters, "status": m.status,
+                "rollbacks": m.rollbacks, "lr_scale": m.lr_scale,
+                "lr_backoff": cfg.lr_backoff,
+                "final_train_loss": hist[-1]["train_loss"],
+                "final_test_loss": hist[-1]["test_loss"]}
+
+    Trainer.step = step
+    try:
+        one = run("chip_smoke_nan", chaos={"nan_at_step": nan_at})
+    finally:
+        Trainer.step = orig
+    one.update(seen)
+    if not (one["counters"]["resilience_nan_skips_total"] == 1
+            and seen.get("equal") and seen.get("loss_finite") is False
+            and one["status"] == "done" and one["rollbacks"] == 0
+            and math.isfinite(one["final_test_loss"])):
+        fail(f"phase 29 (b) one skip: {one}")
+    streak = (60, 61)
+    fired = set()
+    real = chaos.poison_batch
+
+    def poison(s, x):
+        if s in streak and s not in fired:
+            fired.add(s)
+            return torch.full_like(x, float("nan")) \
+                if isinstance(x, torch.Tensor) else np.full_like(x, np.nan)
+        return real(s, x)
+
+    chaos.poison_batch = poison
+    try:
+        two = run("chip_smoke_streak", max_bad_steps=2, max_rollbacks=1,
+                  # installs the hooks; fires nothing the runs check
+                  chaos={"delay_callback_s": 1e-6})
+    finally:
+        chaos.poison_batch = real
+    if not (two["counters"]["resilience_nan_skips_total"] == 2
+            and two["counters"]["resilience_rollbacks_total"] == 1
+            and two["rollbacks"] == 1 and two["status"] == "done"
+            and two["lr_scale"] == two["lr_backoff"]
+            and math.isfinite(two["final_test_loss"])):
+        fail(f"phase 29 (b) rollback: {two}")
+    out = {"skip": one, "rollback": two}
+    log(f"phase 29 (b): {json.dumps(out)}")
+    return out
+
+
+def oom_phase(dev, tmp: str) -> dict:
+    """Phase 29 (c): a resilient ``train`` run of mfu_llama (bf16, Adam)
+    at a batch whose step cannot fit at ``accum_steps`` 1 but fits at 2,
+    sized from the working set at B 4 and B 8 (phase 24: 8.53 GB at B
+    8): the first step raises ``torch.cuda.OutOfMemoryError``, the
+    runner rolls back to the seeded start at ``accum_steps`` 2 and
+    finishes."""
+    import gc
+
+    import torch
+
+    from torchpruner_tpu_torch import obs
+    from torchpruner_tpu_torch.data import load_dataset
+    from torchpruner_tpu_torch.experiments.train_model import run_train
+    from torchpruner_tpu_torch.models import mfu_llama
+    from torchpruner_tpu_torch.resilience.guards import is_oom_error
+    from torchpruner_tpu_torch.resilience.manifest import RunManifest
+    from torchpruner_tpu_torch.train import optim
+    from torchpruner_tpu_torch.train.loop import Trainer
+    from torchpruner_tpu_torch.utils.config import ExperimentConfig
+    from torchpruner_tpu_torch.utils.losses import lm_cross_entropy_loss
+
+    model = mfu_llama()
+    probe = load_dataset("lm_mfu", "train", n=8, seed=0)
+    peaks = {}
+    for b in (4, 8):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer.create(model, optim.adam(1e-4), lm_cross_entropy_loss,
+                            seed=0, compute_dtype=torch.bfloat16, device=dev)
+        tr.step(probe.x[:b], probe.y[:b])
+        torch.cuda.synchronize()
+        peaks[b] = torch.cuda.max_memory_allocated()
+        del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    per = (peaks[8] - peaks[4]) / 4
+    base = peaks[8] - 8 * per
+    total = torch.cuda.get_device_properties(0).total_memory
+    B = 8
+    while base + B * per <= 1.1 * total:
+        B += 8
+    sizing = {"peak_b4_gb": peaks[4] / 1e9, "peak_b8_gb": peaks[8] / 1e9,
+              "per_example_gb": per / 1e9, "base_gb": base / 1e9,
+              "card_gb": total / 1e9, "batch": B,
+              "predicted_gb_accum1": (base + B * per) / 1e9,
+              "predicted_gb_accum2": (base + B // 2 * per) / 1e9}
+    log(f"phase 29 (c) sizing: {json.dumps(sizing)}")
+    if base + B // 2 * per > 0.85 * total:
+        fail(f"phase 29 (c): no batch OOMs at accum 1 and fits at 2: "
+             f"{sizing}")
+    data = (load_dataset("lm_mfu", "train", n=2 * B, seed=0),
+            load_dataset("lm_mfu", "val", n=8, seed=0),
+            load_dataset("lm_mfu", "test", n=8, seed=0))
+    cfg = ExperimentConfig(
+        name="chip_smoke_oom", model="mfu_llama", dataset="lm_mfu",
+        experiment="train", epochs=1, batch_size=B, eval_batch_size=8,
+        optimizer="adam", lr=1e-4, compute_dtype="bfloat16",
+        loss="lm_cross_entropy", run_dir=os.path.join(tmp, "oom"),
+        log_path=os.path.join(tmp, "oom.csv"))
+    errors = []
+    orig = Trainer.step
+
+    def step(self, x, y):
+        if errors:  # the failed step's memory is released by now
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            return orig(self, x, y)
+        except Exception as e:  # noqa: BLE001 - recorded, re-raised
+            errors.append({"type": type(e).__name__,
+                           "torch_oom": isinstance(
+                               e, torch.cuda.OutOfMemoryError),
+                           "is_oom_error": is_oom_error(e),
+                           "accum_steps": self.accum_steps,
+                           "step": self.step_count})
+            raise
+
+    obs.configure(None)
+    reset_launches()
+    Trainer.step = step
+    try:
+        with _dtype_launches() as counts:
+            t0 = time.perf_counter()
+            trainer, hist = run_train(cfg, model=model, datasets=data,
+                                      verbose=True, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        retries = obs.counter_value("resilience_oom_retries_total")
+    finally:
+        Trainer.step = orig
+        obs.shutdown()
+    m = RunManifest.load(cfg.run_dir)
+    out = {**sizing, "errors": errors, "wall_s": wall,
+           "manifest_accum_steps": m.accum_steps, "status": m.status,
+           "trainer_accum_steps": trainer.accum_steps,
+           "oom_retries": retries, "train_loss": hist[-1]["train_loss"],
+           "test_loss": hist[-1]["test_loss"], "launches": dict(counts),
+           "peak_gb_after_rollback":
+               torch.cuda.max_memory_allocated() / 1e9}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (len(errors) == 1 and errors[0]["torch_oom"]
+            and errors[0]["is_oom_error"] and errors[0]["step"] == 0
+            and errors[0]["accum_steps"] == 1
+            and m.accum_steps == 2 and m.status == "done"
+            and out["trainer_accum_steps"] == 2 and retries == 1
+            and math.isfinite(out["train_loss"])
+            and math.isfinite(out["test_loss"])
+            and all(counts.get(f"{n}:bfloat16") for n in FLASH_NAMES)):
+        fail(f"phase 29 (c): {out}")
+    log(f"phase 29 (c): {json.dumps(out)}")
+    return out
+
+
+def corrupt_phase(tmp: str) -> dict:
+    """Phase 29 (d): a resilient ``train`` run whose one commit the chaos
+    module corrupts after its write; the resume must fail with
+    ``CheckpointCorruptError`` and a non-zero exit."""
+    from torchpruner_tpu_torch.utils.config import ExperimentConfig
+
+    kw = dict(name="chip_smoke_corrupt", model="mnist_fc",
+              dataset="mnist_flat", experiment="train", batch_size=250,
+              eval_batch_size=250, lr=0.01,
+              log_path=os.path.join(tmp, "corrupt.csv"))
+    path = os.path.join(tmp, "corrupt.json")
+    run_dir = os.path.join(tmp, "corrupt")
+
+    def cli(epochs, *extra):
+        ExperimentConfig(epochs=epochs, **kw).to_json(path)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "torchpruner_tpu_torch", "--config",
+             path, "--resume", run_dir, "--no-obs", *extra], cwd=HERE,
+            capture_output=True, text=True, timeout=600)
+        return res, time.perf_counter() - t0
+
+    first, w1 = cli(1, "--chaos", json.dumps({"corrupt_checkpoint": True}))
+    if first.returncode != 0:
+        fail(f"phase 29 (d) first run exited {first.returncode}:\n"
+             f"{first.stderr[-3000:]}")
+    second, w2 = cli(2)
+    out = {"first_wall_s": w1, "resume_wall_s": w2,
+           "resume_exit": second.returncode,
+           "error": (second.stderr.strip().splitlines() or [""])[-1][:300]}
+    if second.returncode == 0 or "CheckpointCorruptError" not in \
+            second.stderr:
+        fail(f"phase 29 (d): the resume exited {second.returncode}:\n"
+             f"{second.stdout[-2000:]}\n{second.stderr[-3000:]}")
+    log(f"phase 29 (d): {json.dumps(out)}")
+    return out
+
+
+def resilience_slice(dev, smi: str, before_oom=lambda: None) -> dict:
+    """Phase 29: kill and resume the BERT-base prune loop, the NaN guard,
+    one real OOM, a corrupted checkpoint; ``before_oom()`` returns when
+    the card's memory is free for (c)."""
+    import tempfile
+
+    out = {}
+    side = {}
+
+    def beside_u_and_k(tmp):
+        for key, label, fn in (
+                ("nan_guard", "(b) the NaN guard, mnist_fc",
+                 lambda: nan_guard_phase(dev, tmp)),
+                ("corrupt", "(d) a corrupted checkpoint",
+                 lambda: corrupt_phase(tmp))):
+            log(f"phase 29 {label}, beside U and K")
+            t0 = time.perf_counter()
+            side[key] = fn()
+            side[key]["phase_wall_s"] = time.perf_counter() - t0
+            log(f"phase 29 {label.split()[0]}: "
+                f"{side[key]['phase_wall_s']:.1f} s ({smi})")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_res_") as tmp:
+        for key, label, fn in (
+                ("kill_resume", "(a) kill and resume, BERT-base, 2 targets",
+                 lambda: kill_resume_phase(
+                     tmp, meanwhile=lambda: beside_u_and_k(tmp))),
+                ("oom", "(c) one real OOM, mfu_llama",
+                 lambda: oom_phase(dev, tmp))):
+            if key == "oom":
+                before_oom()
+            log(f"phase 29 {label}")
+            t0 = time.perf_counter()
+            out[key] = fn()
+            out[key]["phase_wall_s"] = time.perf_counter() - t0
+            log(f"phase 29 {label.split()[0]}: "
+                f"{out[key]['phase_wall_s']:.1f} s ({smi})")
+    out.update(side)
+    out["card"] = smi
+    return out
+
+
+def start_resilience_child():
+    """Phase 29 in a child process, started before phase 16: (a), (b)
+    and (d) run beside phases 16-20 (host-bound serving, the sweeps and
+    the CLI runs, none of them near the card's memory); then the child
+    waits on its stdin, and :func:`finish_resilience_child` lets it run
+    (c) while this process waits, so the real OOM meets the card's
+    memory free.  The child leads its own process group, which is
+    killed at exit unless it finished: its CLI workers go with it."""
+    import atexit
+    import signal
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--resilience-child"], cwd=HERE,
+                            stdin=subprocess.PIPE, stdout=out, stderr=err,
+                            text=True, start_new_session=True)
+
+    def kill_group():
+        if proc.returncode is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+    atexit.register(kill_group)
+    return proc, out, err
+
+
+def finish_resilience_child(started) -> dict:
+    """Let the child run (c) and wait for it; its result is its last
+    stdout line, its other lines logged."""
+    proc, out, err = started
+    try:
+        proc.stdin.write("go\n")
+        proc.stdin.close()
+    except BrokenPipeError:
+        pass  # the child is gone: its return code says why
+    rc = proc.wait(timeout=900)
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    for line in stdout.strip().splitlines()[:-1]:
+        log(f"  {line}")
+    if rc != 0:
+        fail(f"phase 29 exited {rc}:\n{stdout[-4000:]}\n{stderr[-4000:]}")
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
 def per_step(cases, key, weight):
     return sum(c[key] * weight(c) for c in cases)
 
@@ -3833,6 +4480,8 @@ def main() -> int:
 
     t_start = time.perf_counter()
     os.chdir(HERE)  # the runs' logs land inside the checkout
+    if sys.argv[1:2] == ["--resilience-worker"]:  # a CLI run of phase 29
+        return resilience_worker(sys.argv[2], sys.argv[3:])
     dev = torch.device("cuda")
     strict_fp32_matmul()  # float32 products in full precision (no TF32)
     smi = smi_line()
@@ -3846,6 +4495,17 @@ def main() -> int:
     if sys.argv[1:] == ["--remat-phase"]:  # phase 24, as a child
         _build.build()
         out = remat_phase(dev)
+        print(json.dumps(out), flush=True)
+        return 0
+    if sys.argv[1:] in (["--resilience-slice"], ["--resilience-child"]):
+        # phase 29 alone, or as the whole script's child: (c) then waits
+        # for the main process's word on its stdin
+        _build.build()
+        out = resilience_slice(
+            dev, smi, before_oom=(sys.stdin.readline
+                                  if sys.argv[1] == "--resilience-child"
+                                  else lambda: None))
+        log(f"total {time.perf_counter() - t_start:.1f} s ({smi})")
         print(json.dumps(out), flush=True)
         return 0
     if sys.argv[1:] == ["--obs-slice"]:  # phases 3, 7, 8, 27 and 28 alone
@@ -3901,6 +4561,11 @@ def main() -> int:
     log("phase 15: vit_head_mlp_shapley recipe, ViT-B/16 full width and "
         "depth")
     vit = vit_shapley_phase(dev)
+    log("phase 29: resilience, in a child process: (a) kill and resume the "
+        "BERT-base prune loop, (b) the NaN guard and (d) a corrupted "
+        "checkpoint beside phases 16-20, then (c) one real OOM alone")
+    t29 = time.perf_counter()
+    res_child = start_resilience_child()
     log("phase 16: vgg16_digits32_layerwise, VGG16-bn full width: train, "
         "then the 8-method panel on conv1, conv13, fc1")
     t0 = time.perf_counter()
@@ -3928,6 +4593,10 @@ def main() -> int:
         t0 = time.perf_counter()
         hp = http_phase(tmp)
         log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res = finish_resilience_child(res_child)
+    log(f"phase 29: {time.perf_counter() - t29:.1f} s from its start, "
+        f"{time.perf_counter() - t0:.1f} s after phase 20 ({smi})")
     t0 = time.perf_counter()
     log("phases 21-23: the MoE slice (Mixtral-8x7B), in a child process")
     moe = run_moe_child()
@@ -4128,6 +4797,8 @@ def main() -> int:
                                  "cached_sweep": cs}
     # phases 27-28: what the program's own capture windows name
     kernels[0]["obs"] = {"serve": o27, "prune": o28}
+    # phase 29: the resilience slice (kill / resume, guard, OOM, corrupt)
+    kernels[0]["resilience"] = res
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

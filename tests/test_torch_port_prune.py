@@ -271,10 +271,13 @@ def test_preset_table_matches_jax():
         PPR.run_prune_retrain(
             PPS.get_preset("vgg16_digits32_layerwise", True), device="cpu")
     smoke = PPS.get_preset("bert_glue_sensitivity", True)
-    for field, value in (("run_dir", "x"), ("chaos", {"kill_at_step": 1})):
+    for field, value in (("plot_dir", "x"), ("mesh", {"data": 2})):
         with pytest.raises(NotImplementedError, match=field):
             PPR.run_prune_retrain(dataclasses.replace(smoke, **{field: value}),
                                   device="cpu")
+    # the resilience settings are ported
+    assert dataclasses.replace(smoke, run_dir="x", guard_nonfinite=True,
+                               chaos={"kill_at_step": 1}).unported() == []
 
 
 #: (preset, fine-tune epochs; None = the preset's own), all --smoke; the

@@ -310,9 +310,10 @@ def test_cli_runs_the_train_and_train_robustness_experiments(tmp_path,
 
 def test_unported_settings_raise():
     cfg = PPS.get_preset("vgg16_digits32_layerwise", smoke=True)
-    for field, value in (("plot_dir", "figs"), ("run_dir", "x"),
-                         ("mesh", {"data": 2})):
-        bad = dataclasses.replace(cfg, **{field: value})
+    for field, over in (("plot_dir", {"plot_dir": "figs"}),
+                        ("zero", {"mesh": {"data": 2}, "zero": True}),
+                        ("mesh", {"mesh": {"data": 2}})):
+        bad = dataclasses.replace(cfg, **over)
         with pytest.raises(NotImplementedError, match=field):
             PTM.run_train(bad, device="cpu")
         with pytest.raises(NotImplementedError, match=field):

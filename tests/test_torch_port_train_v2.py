@@ -407,5 +407,6 @@ def test_config_runs_remat_accumulation_and_augment():
     unported settings."""
     cfg = ExperimentConfig(remat=True, accum_steps=4, augment=True)
     assert cfg.unported() == []
-    bad = dataclasses.replace(cfg, run_dir="x")
-    assert [s for s, _ in bad.unported()] == ["run_dir='x'"]
+    assert dataclasses.replace(cfg, run_dir="x").unported() == []
+    bad = dataclasses.replace(cfg, plot_dir="x")
+    assert [s for s, _ in bad.unported()] == ["plot_dir='x'"]

@@ -8,6 +8,11 @@
     --config PATH [--cpu]               run an ExperimentConfig JSON
     --list                              list the presets
     --dump-config PATH                  write the resolved config, exit
+    --resume DIR [--checkpoint-every N] [--chaos JSON_OR_PATH]
+                                        resilient run directory: a fresh
+                                        DIR starts a preemption-safe run,
+                                        an existing one resumes it
+                                        (below)
     --obs-dir DIR [--profile-every N [--profile-steps K]] | --no-obs
                                         telemetry (below)
     serve <preset> [--smoke] [--cpu] --synthetic N [--verify] ...
@@ -25,6 +30,18 @@ device unless ``--cpu`` is given.  The run is wrapped in an obs session
 run crashes; ``--obs-dir`` writes the event stream, metrics, ledger,
 report and trace, and ``--profile-every N`` opens a ``torch.profiler``
 capture window every N training steps (``obs profile DIR``).
+
+``--resume DIR`` sets ``cfg.run_dir``: the run commits digest-verified
+checkpoints and a manifest into DIR (``resilience/runner.py``), and run
+again with the same DIR it resumes where the last commit left it —
+training at the exact epoch, step and data cursor, the prune loop
+mid-retrain of the interrupted target, the sweep at the first unfinished
+layer.  A run directory the JAX package wrote is refused.
+``--checkpoint-every N`` also commits every N optimizer steps (the prune
+loop: after every retrain epoch); the default 0 commits at round and
+epoch boundaries.  ``--chaos`` (or the ``TORCHPRUNER_CHAOS`` env var)
+installs deterministic fault injection (``resilience/chaos.py``).  A
+preempted run (SIGTERM) commits, prints how to resume and exits 0.
 """
 
 from __future__ import annotations
@@ -82,6 +99,23 @@ def main(argv=None) -> int:
                         "<obs-dir>` renders the ranked kernel table")
     p.add_argument("--profile-steps", metavar="K", type=int, default=None,
                    help="steps per capture window (default 3)")
+    p.add_argument("--resume", metavar="DIR",
+                   help="resilient run directory (resilience.RunManifest + "
+                        "digest-verified checkpoints): a fresh DIR starts a "
+                        "preemption-safe run recording into it; an existing "
+                        "one resumes mid-round (train: exact epoch/step/"
+                        "data-cursor; prune_retrain: mid-retrain of the "
+                        "interrupted target; robustness: first unfinished "
+                        "layer)")
+    p.add_argument("--checkpoint-every", metavar="N", type=int, default=None,
+                   help="with --resume: checkpoint every N optimizer steps "
+                        "(prune_retrain: additionally after every retrain "
+                        "epoch); default 0 = round/epoch boundaries only")
+    p.add_argument("--chaos", metavar="JSON_OR_PATH",
+                   help="deterministic fault injection (resilience.chaos), "
+                        "e.g. '{\"nan_at_step\": 5, \"kill_at_step\": 12}' "
+                        "— for recovery-path testing; also via "
+                        "TORCHPRUNER_CHAOS env")
     args = p.parse_args(argv)
     if args.obs_dir and args.no_obs:
         p.error("--obs-dir and --no-obs are mutually exclusive")
@@ -110,6 +144,25 @@ def main(argv=None) -> int:
         cfg = get_preset(args.preset, smoke=args.smoke)
     else:
         p.error("one of --preset / --config / --list is required")
+    if args.resume:
+        cfg.run_dir = args.resume
+    if args.checkpoint_every is not None:
+        cfg.checkpoint_every_steps = args.checkpoint_every
+    if args.chaos:
+        import dataclasses
+
+        from torchpruner_tpu_torch.resilience.chaos import ChaosConfig
+
+        # validate up front; stash as plain knobs so --dump-config
+        # round-trips and the experiments install it themselves
+        cfg.chaos = dataclasses.asdict(ChaosConfig.from_any(args.chaos))
+    else:
+        import os
+
+        if os.environ.get("TORCHPRUNER_CHAOS"):
+            from torchpruner_tpu_torch.resilience import chaos
+
+            chaos.configure(None)  # reads the env var
     if args.dump_config:
         cfg.to_json(args.dump_config)
         print(f"wrote {args.dump_config}")
@@ -122,7 +175,8 @@ def main(argv=None) -> int:
         obs.configure(args.obs_dir, profile_every=args.profile_every,
                       profile_steps=args.profile_steps)
         obs.annotate_run(experiment=cfg.name, kind=cfg.experiment,
-                         model=cfg.model, method=cfg.method)
+                         model=cfg.model, method=cfg.method,
+                         resumed=bool(args.resume))
     try:
         if obs is not None:
             with obs.span("run", experiment=cfg.name,

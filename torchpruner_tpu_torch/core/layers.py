@@ -839,7 +839,12 @@ def apply_layer(spec: LayerSpec, params, state, x: torch.Tensor, *,
                           ).to(x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x)), state
     if isinstance(spec, Embedding):
-        return params["emb"][x.long()], state
+        # F.embedding, not params["emb"][x]: indexing's backward is an
+        # accumulating index_put, whose CPU threads add repeated tokens'
+        # gradients in a run-dependent order; the embedding backward
+        # sums them in a fixed one, so a resumed run can equal an
+        # uninterrupted one bit for bit
+        return F.embedding(x.long(), params["emb"]), state
     if isinstance(spec, PosEmbed):
         return x + params["emb"][:x.shape[-2]], state
     if isinstance(spec, MultiHeadAttention):

@@ -1,6 +1,6 @@
 """The prune → fine-tune driver — counterpart of
-``torchpruner_tpu/experiments/prune_retrain.py`` (without the resumable
-journal and the mesh): for each prunable layer, outermost first: score →
+``torchpruner_tpu/experiments/prune_retrain.py`` (without the mesh): for
+each prunable layer, outermost first: score →
 turn scores into indices (policy) → prune (or, with ``cfg.simulate``,
 mask the same slices at fixed shapes) → evaluate (→ optionally
 fine-tune).
@@ -14,6 +14,7 @@ emits the span ``prune_retrain`` around ``setup`` and, per target,
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -202,8 +203,27 @@ def run_prune_retrain(cfg: ExperimentConfig, *, model=None, datasets=None,
     per target ``attribution`` / ``eval`` / ``prune`` (``plan``,
     ``apply_plan``) / ``retrain`` / ``eval`` / ``flops`` — ledgers each
     round (``record_round`` with the score distribution), and the CSV
-    rows carry the active span id.  The resumable journal is ROADMAP
-    A8."""
+    rows carry the active span id.
+
+    Resilience, as in the JAX package: with ``cfg.run_dir`` set the loop
+    journals into it (``resilience/runner.py PruneJournal``): a
+    checkpoint and a manifest commit after every prune (the mid-round
+    anchor), after every retrain epoch when ``cfg.checkpoint_every_steps``
+    is set, and after every round.  Run again with the same ``run_dir``
+    (CLI ``--resume DIR``) it restores the committed checkpoint (params,
+    optimizer state, BatchNorm state, the dropout generator, the step
+    count), skips the completed targets and, killed mid-retrain, resumes
+    that target's retrain without scoring it again; the history it
+    returns spans every attempt.  ``cfg.guard_nonfinite`` skips
+    non-finite steps, and a streak of ``cfg.max_bad_steps`` rolls the
+    round back to the last commit with the LR times ``cfg.lr_backoff``
+    (at most ``cfg.max_rollbacks`` times); an out-of-memory retrain step
+    rolls back with ``accum_steps`` doubled (the manifest keeps it), an
+    epoch's ragged tail batch then dropped and counted in
+    ``resilience_ragged_drops_total``.  SIGTERM snapshots at the next
+    target or epoch boundary, marks the manifest ``preempted`` and
+    returns the rounds done.  ``cfg.chaos`` installs the fault
+    injections (``resilience/chaos.py``)."""
     if cfg.experiment != "prune_retrain":
         raise NotImplementedError(
             f"run_prune_retrain runs experiment='prune_retrain' only, not "
@@ -223,6 +243,36 @@ def run_prune_retrain(cfg: ExperimentConfig, *, model=None, datasets=None,
 def _run_prune_retrain(cfg: ExperimentConfig, dev, *, model=None,
                        datasets=None, verbose: bool = True
                        ) -> List[PruneStepRecord]:
+    from torchpruner_tpu_torch.resilience import chaos as _chaos
+
+    if cfg.chaos:
+        _chaos.configure(cfg.chaos)
+    journal = None
+    if cfg.run_dir:
+        from torchpruner_tpu_torch.resilience.runner import PruneJournal
+
+        journal = PruneJournal(cfg)
+    try:
+        return _prune_loop(cfg, dev, journal, model=model,
+                           datasets=datasets, verbose=verbose)
+    finally:
+        # every exit path (done, preempted, a resume that fails on a
+        # corrupt checkpoint, a crash) gives the SIGTERM handler back —
+        # a leaked handler would make the rest of the process ignore
+        # preemption notices
+        if journal is not None:
+            journal.close()
+
+
+def _prune_loop(cfg: ExperimentConfig, dev, journal, *, model=None,
+                datasets=None, verbose: bool = True
+                ) -> List[PruneStepRecord]:
+    from torchpruner_tpu_torch.resilience.guards import Preempted, StepGuard
+    from torchpruner_tpu_torch.resilience.runner import (
+        recover,
+        recovery_plan,
+    )
+
     with obs.span("setup"):
         model, (train, val, test) = resolve_model_and_data(cfg, model,
                                                            datasets)
@@ -231,25 +281,80 @@ def _run_prune_retrain(cfg: ExperimentConfig, dev, *, model=None,
             groups = groups[::-1]  # outermost layer first (reference recipe)
         targets = filter_targets([g.target for g in groups], cfg)
 
+        guard = StepGuard(cfg.max_bad_steps) if cfg.guard_nonfinite \
+            else None
+        # a resumed run re-enters at the journal's (possibly OOM-degraded)
+        # accumulation factor, not the config's
+        accum_steps = (journal.manifest.accum_steps
+                       if journal is not None and journal.manifest.accum_steps
+                       else cfg.accum_steps)
         spe = max(1, len(train) // cfg.batch_size)
-        # one opt_state spans every target's fine-tune pass, so decaying
-        # schedules are sized for the whole run
-        tx = make_optimizer(
-            cfg, steps_per_epoch=spe,
-            total_epochs=cfg.finetune_epochs * max(1, len(targets)))
+        total_ft_epochs = cfg.finetune_epochs * max(1, len(targets))
+
+        def build_tx():
+            # one opt_state spans every target's fine-tune pass, so
+            # decaying schedules are sized for the whole run; in a
+            # resilient run the LR-backoff stage rides along (empty
+            # state, so the state structure survives rollbacks)
+            if journal is not None:
+                from torchpruner_tpu_torch.resilience.runner import (
+                    scaled_optimizer,
+                )
+
+                return scaled_optimizer(cfg, spe, journal.lr_scale,
+                                        total_epochs=total_ft_epochs)
+            return make_optimizer(cfg, steps_per_epoch=spe,
+                                  total_epochs=total_ft_epochs)
+
+        tx = build_tx()
         loss_fn = LOSS_REGISTRY[cfg.loss]
         sdtype = compute_dtype(cfg.score_dtype)
         trainer = Trainer.create(
             model, tx, loss_fn, seed=cfg.seed,
             compute_dtype=compute_dtype(cfg.compute_dtype), device=dev,
             moe_aux_weight=cfg.moe_aux_weight, remat=cfg.remat,
-            accum_steps=cfg.accum_steps, grad_norm=cfg.obs_grad_norm)
+            accum_steps=accum_steps, grad_norm=cfg.obs_grad_norm,
+            guard=guard)
         _configure_mfu(cfg, trainer)
+    history: List[PruneStepRecord] = []
+
+    def _restore(trainer, tx, accum=None):
+        """The trainer at the journal's committed checkpoint under ``tx``
+        (its guard kept, its accumulation ``accum`` if given), its
+        generator and step count included."""
+        from torchpruner_tpu_torch.resilience.runner import rng_from_list
+
+        m2, p2, s2, o2, meta = journal.restore(tx, dev)
+        trainer.tx = tx
+        if accum is not None:
+            trainer.accum_steps = accum
+        t = trainer.rebuild(m2, p2, s2, o2)
+        rng = meta.get("extra", {}).get("rng")
+        if rng is not None:
+            t.rng = rng_from_list(rng, dev)
+        t.step_count = int(meta.get("step", 0))
+        return t
+
+    if journal is not None and journal.resuming:
+        with obs.span("resume"):
+            trainer = _restore(trainer, tx)
+            history = [PruneStepRecord(**r) for r in journal.records()]
+            # ledger continuity across the kill: the rounds the manifest
+            # committed rehydrate into the ledger (deduped)
+            obs.ledger_backfill(journal.records())
+        _configure_mfu(cfg, trainer)
+        if verbose:
+            print(f"[{cfg.name}] resumed prune-retrain from "
+                  f"{journal.manifest.checkpoint}: "
+                  f"{len(journal.completed)}/{len(targets)} targets done",
+                  flush=True)
     val_batches = val.batches(cfg.eval_batch_size)
     test_batches = test.batches(cfg.eval_batch_size)
-    history: List[PruneStepRecord] = []
-    with CSVLogger(cfg.log_path, experiment=cfg.name) as logger:
-        for target in targets:
+
+    def _run_target(target, logger):
+        nonlocal trainer
+        stage = journal.stage_for(target) if journal is not None else None
+        if stage is None:
             with obs.span("attribution", target=target, method=cfg.method):
                 metric = build_metric(
                     cfg.method, trainer.model, trainer.params, val_batches,
@@ -294,46 +399,129 @@ def _run_prune_retrain(cfg: ExperimentConfig, dev, *, model=None,
                     trainer = trainer.rebuild(res.model, res.params,
                                               res.state, res.opt_state)
                 _configure_mfu(cfg, trainer)
-            with obs.span("retrain", target=target,
-                          epochs=cfg.finetune_epochs):
-                for epoch_i in range(cfg.finetune_epochs):
-                    # accumulation cannot split a ragged tail batch: drop
-                    # it
-                    train_epoch(
-                        trainer,
-                        train.batches(cfg.batch_size, shuffle=True,
-                                      seed=cfg.seed + epoch_i,
-                                      drop_remainder=cfg.accum_steps > 1),
-                        epoch=epoch_i, verbose=False)
-            with obs.span("eval", target=target, which="post"):
-                post_loss, post_acc = trainer.evaluate(test_batches)
-            with obs.span("flops", target=target):
-                n_params, flops = model_cost(trainer.model, trainer.params,
-                                             trainer.state)
-            rec = PruneStepRecord(
-                layer=target, pre_loss=pre_loss, pre_acc=pre_acc,
-                post_loss=post_loss, post_acc=post_acc, n_params=n_params,
-                n_dropped=n_dropped, prune_time=prune_time,
-                widths=trainer.model.widths())
-            history.append(rec)
-            obs.record_round(
-                target=target, round=len(history) - 1, method=cfg.method,
-                policy=cfg.policy, n_dropped=int(n_dropped),
-                simulate=bool(cfg.simulate), score_dist=score_dist,
-                pre={"loss": float(pre_loss), "acc": float(pre_acc)},
-                post={"loss": float(post_loss), "acc": float(post_acc)},
-                params=int(n_params), flops=flops, widths=rec.widths,
-                prune_time=float(prune_time),
-                runtime=obs.runtime_snapshot())
-            logger.log_prune_step(
-                layer=target, method=cfg.method, test_loss=pre_loss,
-                test_acc=pre_acc, test_loss_pp=post_loss,
-                test_acc_pp=post_acc, n_params=n_params, flops=flops,
-                widths=rec.widths, prune_time=prune_time)
+                if journal is not None:
+                    # the mid-round anchor: prune applied, retrain not
+                    # started — a kill during fine-tuning resumes here
+                    journal.pruned(trainer, target, {
+                        "pre_loss": float(pre_loss),
+                        "pre_acc": float(pre_acc),
+                        "n_dropped": int(n_dropped),
+                        "prune_time": float(prune_time),
+                        # the scores die with this process: stage the
+                        # distribution, so a resumed round's record
+                        # still carries its decision margins
+                        "score_dist": score_dist})
+            epoch_i = 0
+            metric = res = None  # the pre-prune trees, not needed now
+        else:
+            # resumed mid-round: the restored checkpoint already holds the
+            # pruned shapes; skip scoring and the prune, finish the
+            # retrain
+            pre_loss = float(stage["pre_loss"])
+            pre_acc = float(stage["pre_acc"])
+            n_dropped = int(stage["n_dropped"])
+            prune_time = float(stage["prune_time"])
+            epoch_i = int(stage.get("retrain_epoch", 0))
+            score_dist = stage.get("score_dist")
+
+        while True:
+            try:
+                with obs.span("retrain", target=target,
+                              epochs=cfg.finetune_epochs):
+                    while epoch_i < cfg.finetune_epochs:
+                        # accumulation cannot split a ragged tail batch:
+                        # drop it, counted
+                        drop_now = trainer.accum_steps > 1
+                        if drop_now and len(train) % cfg.batch_size:
+                            obs.inc("resilience_ragged_drops_total",
+                                    help="tail batches dropped because "
+                                         "they don't divide the degraded "
+                                         "accum_steps")
+                        train_epoch(
+                            trainer,
+                            train.batches(cfg.batch_size, shuffle=True,
+                                          seed=cfg.seed + epoch_i,
+                                          drop_remainder=drop_now),
+                            epoch=epoch_i, verbose=False)
+                        epoch_i += 1
+                        if journal is not None:
+                            journal.retrain_epoch_done(trainer, target,
+                                                       epoch_i)
+                            # a snapshot on preemption carries the true
+                            # position of the trainer it checkpoints
+                            journal.check_preempt(
+                                trainer, stage=dict(journal.manifest.stage,
+                                                    retrain_epoch=epoch_i))
+                break
+            except Exception as e:  # noqa: BLE001 - classified below
+                # a non-finite streak: back to the last commit with the LR
+                # backed off; an OOM: back with accum_steps doubled
+                if journal is None or cfg.simulate:
+                    raise
+                plan = recovery_plan(e, cfg, journal.manifest,
+                                     trainer.accum_steps)
+                if plan is None:
+                    raise
+            trainer = recover(
+                plan, trainer,
+                lambda failed, accum: _restore(failed, build_tx(), accum),
+                guard=guard, dev=dev, oom_is_rollback=False)
+            st = journal.manifest.stage
+            epoch_i = (int(st.get("retrain_epoch", 0))
+                       if st.get("target") == target else 0)
             if verbose:
-                print(f"[{cfg.name}] pruned {n_dropped} units from {target}: "
-                      f"acc {pre_acc:.4f}→{post_acc:.4f}, params {n_params}",
+                print(f"[{cfg.name}] {target} retrain rolled back to "
+                      f"{journal.manifest.checkpoint} ({plan.note})",
                       flush=True)
+
+        with obs.span("eval", target=target, which="post"):
+            post_loss, post_acc = trainer.evaluate(test_batches)
+        with obs.span("flops", target=target):
+            n_params, flops = model_cost(trainer.model, trainer.params,
+                                         trainer.state)
+        rec = PruneStepRecord(
+            layer=target, pre_loss=pre_loss, pre_acc=pre_acc,
+            post_loss=post_loss, post_acc=post_acc, n_params=n_params,
+            n_dropped=n_dropped, prune_time=prune_time,
+            widths=trainer.model.widths())
+        history.append(rec)
+        obs.record_round(
+            target=target, round=len(history) - 1, method=cfg.method,
+            policy=cfg.policy, n_dropped=int(n_dropped),
+            simulate=bool(cfg.simulate), score_dist=score_dist,
+            pre={"loss": float(pre_loss), "acc": float(pre_acc)},
+            post={"loss": float(post_loss), "acc": float(post_acc)},
+            params=int(n_params), flops=flops, widths=rec.widths,
+            prune_time=float(prune_time),
+            runtime=obs.runtime_snapshot())
+        if journal is not None:
+            journal.round_done(trainer, target, dataclasses.asdict(rec))
+        logger.log_prune_step(
+            layer=target, method=cfg.method, test_loss=pre_loss,
+            test_acc=pre_acc, test_loss_pp=post_loss,
+            test_acc_pp=post_acc, n_params=n_params, flops=flops,
+            widths=rec.widths, prune_time=prune_time)
+        if verbose:
+            print(f"[{cfg.name}] pruned {n_dropped} units from {target}: "
+                  f"acc {pre_acc:.4f}→{post_acc:.4f}, params {n_params}",
+                  flush=True)
+
+    try:
+        with CSVLogger(cfg.log_path, experiment=cfg.name) as logger:
+            for target in targets:
+                if journal is not None:
+                    if target in journal.completed:
+                        continue
+                    journal.check_preempt(trainer)
+                _run_target(target, logger)
+        if journal is not None:
+            journal.done()
+    except Preempted:
+        if verbose:
+            print(f"[{cfg.name}] preempted: manifest committed "
+                  f"({len(journal.completed)}/{len(targets)} targets); "
+                  f"re-run with --resume {cfg.run_dir} to continue",
+                  flush=True)
     return history
 
 

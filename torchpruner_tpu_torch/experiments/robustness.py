@@ -19,14 +19,19 @@ released once no later layer shares it.  Metrics built from other
 params or data fall back to their own prefix, counted as misses; the
 numbers are the same either way.  Each layer's panel runs in an obs
 ``robustness_layer`` span and is ledgered (``record_sweep_layer``: the
-methods' AUCs).  A mesh (A7), ``run_dir`` (A8) and
-``plot_dir`` (A8) raise.  Without trained params,
+methods' AUCs).  With ``cfg.run_dir`` the sweep is resumable layer by
+layer (``resilience/runner.py SweepJournal``: each finished layer's
+results committed to ``sweep_results.json``, a preemption honoured at
+the next layer boundary), and the train-then-sweep protocol journals its
+two phases into ``train/`` and ``sweep/`` under it.  A mesh (A7) and
+``plot_dir`` (A8b) raise.  Without trained params,
 ``cfg.checkpoint_path`` names the training checkpoint to sweep
 (``checkpoint.py``, written by either package).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from torchpruner_tpu_torch import obs
+from torchpruner_tpu_torch.resilience.guards import Preempted
 from torchpruner_tpu_torch.attributions.base import (
     ActivationCache,
     prefix_fn,
@@ -218,7 +224,9 @@ def layerwise_robustness(model: SegmentedModel, params, state, test_data,
                                                       "sv"),
                          find_best_evaluation_layer_: bool = True,
                          compute_dtype=None, capture: bool = True,
-                         verbose: bool = True
+                         verbose: bool = True,
+                         on_layer: Optional[Callable[
+                             [str, Dict[str, List[Dict]]], None]] = None
                          ) -> Dict[str, Dict[str, List[Dict]]]:
     """The sweep: every layer (default: every prunable layer) x every
     method, ``runs_stochastic`` runs of a method whose name contains a
@@ -229,7 +237,9 @@ def layerwise_robustness(model: SegmentedModel, params, state, test_data,
     layer's site on each metric and the walks (module docstring).
     Returns ``results[layer][method] = [{scores, loss, acc, base_loss,
     base_acc, auc, seconds}, ...]``; ``seconds`` is the run's scoring
-    time plus its share of the walk."""
+    time plus its share of the walk.  ``on_layer(layer,
+    results[layer])`` fires after each layer's panel (the sweep
+    journal's commit point)."""
     if layers is None:
         layers = [g.target for g in pruning_graph(model)]
     sites = [find_best_evaluation_layer(model, layer)
@@ -291,6 +301,8 @@ def layerwise_robustness(model: SegmentedModel, params, state, test_data,
                     print(f"[robustness] {layer} / {name}: auc "
                           f"{np.mean(aucs):.4f} ± {np.std(aucs):.4f} "
                           f"({runs[0]['seconds']:.1f}s/run)", flush=True)
+            if on_layer is not None:
+                on_layer(layer, results[layer])
             if cache is not None and eval_layer not in sites[li + 1:]:
                 cache.drop(eval_layer)  # no later layer reads this site
     return results
@@ -382,12 +394,53 @@ def run_robustness_config(cfg, *, model=None, datasets=None, params=None,
             cfg.method, model, params, test_batches, loss_fn, state=state,
             compute_dtype=sdtype, seed=cfg.seed, reduction=cfg.reduction,
             **cfg.method_kwargs)}
-    results = layerwise_robustness(
-        model, params, state, test_batches, methods, loss_fn,
-        layers=filter_targets([g.target for g in pruning_graph(model)], cfg),
-        find_best_evaluation_layer_=cfg.find_best_evaluation_layer,
-        compute_dtype=sdtype, capture=cfg.capture, verbose=verbose)
+    layers = filter_targets([g.target for g in pruning_graph(model)], cfg)
+    # resumable sweep (cfg.run_dir / CLI --resume): completed layers'
+    # results persist atomically a layer at a time; a killed or
+    # preempted sweep restarts at the first unfinished layer
+    journal = on_layer = None
+    if cfg.run_dir:
+        from torchpruner_tpu_torch.resilience.runner import SweepJournal
+
+        journal = SweepJournal(cfg)
+        on_layer = journal.on_layer
+        if verbose and journal.resuming:
+            print(f"[{cfg.name}] resuming sweep: "
+                  f"{len(layers) - len(journal.remaining(layers))}/"
+                  f"{len(layers)} layers already complete", flush=True)
+        layers = journal.remaining(layers)
+    preempted = False
+    try:
+        results = layerwise_robustness(
+            model, params, state, test_batches, methods, loss_fn,
+            layers=layers,
+            find_best_evaluation_layer_=cfg.find_best_evaluation_layer,
+            compute_dtype=sdtype, capture=cfg.capture, verbose=verbose,
+            on_layer=on_layer)
+        if journal is not None:
+            journal.done()
+    except Preempted:
+        if journal is None:
+            raise
+        # every completed layer is already on disk
+        results = {}
+        preempted = True
+        if verbose:
+            print(f"[{cfg.name}] sweep preempted: "
+                  f"{len(journal.manifest.completed)} layers committed; "
+                  f"re-run with --resume {cfg.run_dir} to continue",
+                  flush=True)
+    finally:
+        if journal is not None:
+            journal.close()  # give the SIGTERM handler back, always
+    if journal is not None:
+        results = journal.merged(results)
     aucs = auc_summary(results)
+    if preempted:
+        # a half-finished sweep must not pass for a complete one: no
+        # results_path (the run dir holds the partials and a 'preempted'
+        # manifest); the partial summary is returned for the message
+        return aucs
     if cfg.results_path:
         _write_results(cfg.results_path, cfg.name, aucs, results)
         if verbose:
@@ -401,7 +454,9 @@ def run_train_robustness(cfg, *, verbose: bool = True,
     """The two-phase protocol as one command: train ``cfg.model`` on
     ``cfg.dataset`` (:func:`~.train_model.run_train`), then sweep the
     trained weights (:func:`run_robustness_config`); the model and the
-    splits are resolved once for both."""
+    splits are resolved once for both.  With ``cfg.run_dir`` each phase
+    journals into its own subdirectory (``train/``, ``sweep/``), and the
+    sweep starts only once the train manifest says ``done``."""
     from torchpruner_tpu_torch.experiments.prune_retrain import (
         check_ported,
         resolve_model_and_data,
@@ -410,11 +465,35 @@ def run_train_robustness(cfg, *, verbose: bool = True,
 
     check_ported(cfg)
     model, datasets = resolve_model_and_data(cfg, None, None)
-    trainer, history = run_train(cfg, model=model, datasets=datasets,
+    # resilient two-phase run: each phase journals into its own
+    # subdirectory of run_dir (their manifests have different kinds)
+    tcfg = scfg = cfg
+    if cfg.run_dir:
+        tcfg = dataclasses.replace(
+            cfg, run_dir=os.path.join(cfg.run_dir, "train"))
+        scfg = dataclasses.replace(
+            cfg, run_dir=os.path.join(cfg.run_dir, "sweep"))
+    trainer, history = run_train(tcfg, model=model, datasets=datasets,
                                  verbose=verbose, device=device)
+    if cfg.run_dir:
+        # a preempted train phase returns like a finished one, but
+        # sweeping half-trained params would commit wrong layer results
+        # into the sweep journal for good: only a 'done' train manifest
+        # proceeds
+        from torchpruner_tpu_torch.resilience.manifest import RunManifest
+
+        if RunManifest.exists_in(tcfg.run_dir):
+            tman = RunManifest.load(tcfg.run_dir)
+            if tman.status != "done":
+                if verbose:
+                    print(f"[{cfg.name}] training phase status "
+                          f"{tman.status!r} — sweep NOT started (re-run "
+                          f"with --resume {cfg.run_dir} to finish "
+                          "training first)", flush=True)
+                return {}
     if verbose and history:
         print(f"[{cfg.name}] trained: test acc "
               f"{history[-1]['test_acc']:.4f} — starting sweep", flush=True)
     return run_robustness_config(
-        cfg, model=trainer.model, datasets=datasets, params=trainer.params,
+        scfg, model=trainer.model, datasets=datasets, params=trainer.params,
         state=trainer.state, verbose=verbose, device=device)

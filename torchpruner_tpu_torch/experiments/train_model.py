@@ -16,7 +16,12 @@ package's batches bit for bit.  ``cfg.remat`` and ``cfg.accum_steps`` go to the 
 the JAX package, an epoch's ragged tail batch that ``accum_steps`` does
 not divide raises.  Each epoch's training and evaluation run in obs
 ``train`` / ``eval`` spans, and the epoch is ledgered
-(``obs.record_epoch``).
+(``obs.record_epoch``).  With ``cfg.run_dir`` set the run is
+preemption-safe and hands off to ``resilience/runner.py
+run_resilient_train`` (manifest and digest-verified checkpoints,
+mid-epoch resume at the exact data cursor, the non-finite guard with
+rollback, OOM retry at doubled ``accum_steps``; CLI ``--resume`` /
+``--checkpoint-every`` / ``--chaos``).
 """
 
 from __future__ import annotations
@@ -69,7 +74,11 @@ def run_train(cfg: ExperimentConfig, *, model=None, datasets=None,
     checkpoint exists there and saves to it every
     ``cfg.checkpoint_every_epochs`` and at the end.  Returns the trainer
     and the per-epoch history ``[{epoch, train_loss, test_loss,
-    test_acc, seconds}, ...]`` of the epochs this call ran."""
+    test_acc, seconds}, ...]`` of the epochs this call ran.
+
+    With ``cfg.run_dir`` set it delegates to
+    :func:`~torchpruner_tpu_torch.resilience.runner.run_resilient_train`,
+    whose history spans every attempt of the run."""
     from torchpruner_tpu_torch.experiments.prune_retrain import (
         LOSS_REGISTRY,
         check_ported,
@@ -82,6 +91,17 @@ def run_train(cfg: ExperimentConfig, *, model=None, datasets=None,
     dev = resolve_device(device)
     if dev.type == "cuda":
         strict_fp32_matmul()
+    if cfg.run_dir:
+        from torchpruner_tpu_torch.resilience.runner import (
+            run_resilient_train,
+        )
+
+        return run_resilient_train(cfg, model=model, datasets=datasets,
+                                   verbose=verbose, device=dev)
+    if cfg.chaos:
+        from torchpruner_tpu_torch.resilience import chaos
+
+        chaos.configure(cfg.chaos)
     model, (train, _val, test) = resolve_model_and_data(cfg, model, datasets)
     tx = make_optimizer(cfg,
                         steps_per_epoch=max(1, len(train) // cfg.batch_size))

@@ -79,8 +79,10 @@ prefill → first_token → decode → complete); ``obs.profile_step`` after
 every decode step and ``obs.profile_tick`` / ``obs.timeseries_tick`` in
 the loop, which drive the capture windows; ``record_serve`` ledger
 records of swaps and summaries.  Every call is a no-op without an obs
-session.  Left for later slices (the JAX engine has them): the
-cost-model twin and the chaos hooks (A8).
+session.  The chaos module's ``slow_steps_ms`` (``resilience/chaos.py``,
+the "slow replica" fault) stalls every decode step, as in the JAX
+engine; without chaos configured the hook is one module-global check.
+Left for a later slice (the JAX engine has it): the cost-model twin.
 """
 
 from __future__ import annotations
@@ -104,6 +106,7 @@ from torchpruner_tpu_torch.generate import (
     sample_row,
 )
 from torchpruner_tpu_torch.obs import reqtrace
+from torchpruner_tpu_torch.resilience import chaos as _chaos
 from torchpruner_tpu_torch.serve.allocator import (
     KVCacheAllocator,
     bucket_for,
@@ -732,6 +735,8 @@ class ServeEngine:
                 tokens=len(req.tokens))
 
     def _decode_once(self) -> None:
+        if _chaos.active():
+            _chaos.maybe_slow_step()  # the "slow replica" fault
         P = self.programs
         t0 = time.perf_counter()
         # inactive slots decode junk under a clamped position; their

@@ -389,6 +389,12 @@ def serve_main(argv=None) -> int:
         p.error("--profile-every needs --obs-dir (the capture windows "
                 "live under it)")
 
+    # TORCHPRUNER_CHAOS env → serving faults (slow_steps_ms: the "slow
+    # replica"); installs nothing when unset
+    from torchpruner_tpu_torch.resilience import chaos as chaos_mod
+
+    chaos_mod.configure(None)
+
     from torchpruner_tpu_torch import obs
     from torchpruner_tpu_torch.utils.device import (
         resolve_device,

@@ -11,6 +11,20 @@ are summed before one update; ``multi_step`` runs K steps as a loop of
 ``step`` calls.  After a prune step changes shapes, ``Trainer.rebuild``
 carries the bundle over to the new spec.
 
+Resilience, at the JAX package's call sites: :meth:`Trainer.step` runs
+the chaos hooks (``resilience/chaos.py``: kill, synthetic OOM, NaN
+batch) on the global ``step_count`` before it computes, each one module
+global check when no chaos is configured.  ``guard=StepGuard(...)``
+adds the non-finite guard: the JAX package compiles ``ok =
+isfinite(loss) & isfinite(global_norm(grads))`` into the step and gates
+the update with ``jnp.where``; here the host reads ``ok`` once after
+:meth:`Trainer.loss_and_grads` and, when it is false, skips the
+optimizer update and the parameter and state writes, so the bundle stays
+bit-equal and the step returns its non-finite loss (the runners' epoch
+means leave it out).  ``StepGuard.observe`` gets the flag and may raise
+``NonFiniteStreakError``.  Without a guard the step makes no added host
+read or launch.
+
 Telemetry, at the JAX package's call sites: every :meth:`Trainer.step`
 and :meth:`Trainer.multi_step` records its return-to-return interval
 with its examples and tokens (``obs.record_step``); ``grad_norm=True``
@@ -31,6 +45,7 @@ import torch
 from torchpruner_tpu_torch import obs
 from torchpruner_tpu_torch.core import segment
 from torchpruner_tpu_torch.core.segment import SegmentedModel
+from torchpruner_tpu_torch.resilience import chaos as _chaos
 from torchpruner_tpu_torch.train.optim import apply_updates
 from torchpruner_tpu_torch.utils.device import resolve_device
 from torchpruner_tpu_torch.utils.losses import prediction_counts
@@ -190,6 +205,11 @@ class Trainer:
     #: opt-in telemetry: record each step's global gradient norm through
     #: ``obs.record_grad_norm`` (one extra reduction and a host read)
     grad_norm: bool = False
+    #: optional ``resilience.StepGuard``: the non-finite guard (module
+    #: docstring) — one host read of the step's ``ok`` flag, fed to the
+    #: guard, which raises ``NonFiniteStreakError`` after M consecutive
+    #: skips; ``None`` on latency-critical paths
+    guard: Any = None
     #: end of the previous step in the current stepping streak: step
     #: telemetry records return-to-return intervals (CUDA launches return
     #: before the device finishes; the device time surfaces in the
@@ -202,7 +222,7 @@ class Trainer:
                state=None, compute_dtype=None, device=None,
                param_transform=None, moe_aux_weight: float = 0.0,
                remat: bool = False, accum_steps: int = 1,
-               grad_norm: bool = False):
+               grad_norm: bool = False, guard: Any = None):
         """A trainer on ``device`` (``None`` = ``cuda``; raises without a
         GPU unless ``device="cpu"``), initialized from ``seed`` unless
         ``params`` are given."""
@@ -216,12 +236,19 @@ class Trainer:
                    compute_dtype=compute_dtype,
                    param_transform=param_transform,
                    moe_aux_weight=moe_aux_weight, remat=remat,
-                   accum_steps=accum_steps, grad_norm=grad_norm)
+                   accum_steps=accum_steps, grad_norm=grad_norm,
+                   guard=guard)
 
     def step(self, x, y) -> torch.Tensor:
         """One optimizer step on the batch ``(x, y)`` (host arrays or
         tensors): :meth:`loss_and_grads`, then one update.  Returns the
         mean loss as a 0-d tensor."""
+        if _chaos.active():
+            # deterministic fault injection at the step boundary (kill /
+            # synthetic OOM / NaN-poisoned batch)
+            _chaos.maybe_kill(self.step_count)
+            _chaos.maybe_oom(self.step_count)
+            x = _chaos.poison_batch(self.step_count, x)
         loss = self._update(x, y)
         now = time.perf_counter()
         if self._t_stream is not None:
@@ -234,14 +261,23 @@ class Trainer:
 
     def _update(self, x, y) -> torch.Tensor:
         loss, grads, state = self.loss_and_grads(x, y)
+        ok = True
         with torch.no_grad():
-            if self.grad_norm:
-                obs.record_grad_norm(global_norm(tree_leaves(grads)))
-            updates, self.opt_state = self.tx.update(grads, self.opt_state,
-                                                     self.params)
-            self.params = apply_updates(self.params, updates)
-        self.state = state
+            if self.grad_norm or self.guard is not None:
+                gnorm = global_norm(tree_leaves(grads))
+                if self.grad_norm:
+                    obs.record_grad_norm(gnorm)
+                if self.guard is not None:
+                    # the guard's one host read a step
+                    ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+            if ok:
+                updates, self.opt_state = self.tx.update(
+                    grads, self.opt_state, self.params)
+                self.params = apply_updates(self.params, updates)
+                self.state = state
         self.step_count += 1
+        if self.guard is not None:
+            self.guard.observe(not ok)
         return loss
 
     def loss_and_grads(self, x, y):
@@ -310,9 +346,31 @@ class Trainer:
                        param_transform=self.param_transform,
                        moe_aux_weight=self.moe_aux_weight,
                        remat=self.remat, accum_steps=self.accum_steps,
-                       grad_norm=self.grad_norm)
+                       grad_norm=self.grad_norm, guard=self.guard)
 
     def evaluate(self, data):
         self._t_stream = None  # eval wall time is not step time
         return evaluate(self.model, self.params, self.state, data,
                         self.loss_fn)
+
+
+def trainer_from_config(cfg, model, tx, loss_fn, *, device=None,
+                        params=None, state=None, opt_state=None,
+                        accum_steps: Optional[int] = None,
+                        grad_norm: bool = False, guard=None) -> Trainer:
+    """The trainer factory the resilient runner shares (the JAX
+    package's ``trainer_from_config`` without its mesh path): compute
+    dtype, remat, MoE aux weight and seed from ``cfg``.  Restored
+    ``params`` / ``state`` / ``opt_state`` are adopted at their actual
+    (possibly pruned) shapes, never re-initialized.  ``accum_steps``
+    overrides ``cfg.accum_steps`` (a manifest's OOM-doubled value)."""
+    t = Trainer.create(
+        model, tx, loss_fn, seed=cfg.seed, params=params, state=state,
+        compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+        else None, device=device, moe_aux_weight=cfg.moe_aux_weight,
+        remat=cfg.remat,
+        accum_steps=cfg.accum_steps if accum_steps is None else accum_steps,
+        grad_norm=grad_norm, guard=guard)
+    if opt_state is not None:
+        t.opt_state = opt_state
+    return t

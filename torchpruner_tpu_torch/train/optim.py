@@ -1,7 +1,8 @@
 """Functional optimizers — the counterpart of the optax pieces the JAX
 package's ``experiments/prune_retrain.make_optimizer`` uses: ``sgd``
 (with optional momentum), ``adam``, ``adamw``, ``add_decayed_weights``,
-``chain`` and the four learning-rate schedules.
+``chain`` and the four learning-rate schedules, plus ``scale``, the
+resilient runner's LR-backoff stage.
 
 Each is a :class:`GradientTransformation` with optax's contract: ``init
 (params) -> state`` and ``update(grads, state, params) -> (updates,
@@ -135,6 +136,22 @@ def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     def update(updates, state, params=None):
         return (tree_map(lambda g, p: g + weight_decay * p, updates, params),
                 state)
+
+    return GradientTransformation(init, update)
+
+
+def scale(factor: float) -> GradientTransformation:
+    """``factor * g`` with an empty state (optax ``scale``).  The
+    resilient runner chains it after the config's optimizer as the LR
+    backoff: every ``factor`` gives the same state structure, so a
+    checkpoint saved before a backoff restores after it."""
+    factor = float(factor)
+
+    def init(params):
+        return {}
+
+    def update(updates, state, params=None):
+        return tree_map(lambda g: factor * g, updates), state
 
     return GradientTransformation(init, update)
 

@@ -121,7 +121,7 @@ class ExperimentConfig:
     checkpoint_path: str = ""        # save/resume training checkpoints here
     checkpoint_every_epochs: int = 0  # 0 = only at the end
 
-    # resilience (torchpruner_tpu.resilience; CLI --resume / --chaos)
+    # resilience (resilience/; CLI --resume / --chaos)
     #: resumable-run directory: manifest.json (pipeline position) +
     #: digest-verified ckpt-* checkpoints.  Non-empty = the run is
     #: preemption-safe: SIGTERM/SIGKILL mid-run, then re-run with the
@@ -131,12 +131,12 @@ class ExperimentConfig:
     #: prune_retrain it additionally checkpoints after every retrain
     #: epoch).  0 = round/epoch boundaries only.  CLI --checkpoint-every
     checkpoint_every_steps: int = 0
-    #: compile the non-finite step guard into the train step: NaN/Inf
-    #: loss-or-grad steps are skipped inside the program (params held),
-    #: counted (``resilience_nan_skips_total``), and after
-    #: ``max_bad_steps`` consecutive skips the run rolls back to the
-    #: last checkpoint with the LR scaled by ``lr_backoff``.  Reading
-    #: the guard flag fences each step — off by default
+    #: the non-finite step guard: NaN/Inf loss-or-grad steps are skipped
+    #: (params, state and optimizer state held), counted
+    #: (``resilience_nan_skips_total``), and after ``max_bad_steps``
+    #: consecutive skips the run rolls back to the last checkpoint with
+    #: the LR scaled by ``lr_backoff``.  Reading the guard flag is one
+    #: host read a step — off by default
     guard_nonfinite: bool = False
     #: consecutive non-finite steps before rollback (guard_nonfinite)
     max_bad_steps: int = 3
@@ -231,6 +231,11 @@ class ExperimentConfig:
             raise ValueError(
                 "checkpoint_every_steps and max_rollbacks must be >= 0"
             )
+        if self.chaos:
+            # fail at config time, not at injection time mid-run
+            from torchpruner_tpu_torch.resilience.chaos import ChaosConfig
+
+            ChaosConfig.from_any(self.chaos)
         if self.simulate and self.finetune_epochs:
             raise ValueError(
                 "simulate=True masks parameters without pinning them in "
@@ -267,8 +272,5 @@ class ExperimentConfig:
 _UNPORTED = (
     ("mesh", {}, "ROADMAP A7 (parallelism)"),
     ("zero", False, "ROADMAP A7 (parallelism)"),
-    ("run_dir", "", "ROADMAP A8 (resilience)"),
-    ("chaos", {}, "ROADMAP A8 (resilience)"),
-    ("guard_nonfinite", False, "ROADMAP A8 (resilience)"),
-    ("plot_dir", "", "ROADMAP A8 (the sweep's figures)"),
+    ("plot_dir", "", "ROADMAP A8b (the sweep's figures)"),
 )
