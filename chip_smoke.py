@@ -293,9 +293,44 @@ for phase 21's trace, and the card's memory to themselves.
     2, the manifest records 2, the losses are finite and the bf16 flash
     kernels launched.
 
+30. The distribution layer (``parallel/``), in a child process started
+    beside phase 29's (its own process group): BERT-base as
+    ``bert_glue_sensitivity`` at full width, cut to 2 targets
+    (``block12_mlp/``, ``block11_mlp/``) and to synthetic GLUE-SST2 splits
+    written to a temporary ``TORCHPRUNER_TPU_DATA_DIR``, SGD with
+    momentum 0.9: for a bf16 retrain 320 / 256 / 128 examples (10 steps a
+    target at B 32, two f32 scoring batches and one test batch of 128),
+    for an f32 retrain 64 / 128 / 32 (2 steps a target, one batch
+    each).  Two torchrun launches of the CLI (``--parallel-worker``: the
+    CLI in process, its losses, scores, drops, flash launches by kernel,
+    dtype and shape, and the sharded trainer's held bytes against its
+    memory plan recorded): (a) one rank over NCCL, the config without a mesh in
+    bf16 ("plain") and in f32 ("f32_plain"), then mesh ``{"data": 1}``
+    with ``fsdp`` and with ``tp`` in bf16; (b) two ranks sharing the card
+    over gloo (NCCL refuses two ranks on one device): in bf16
+    ``{"data": 2}`` with ZeRO off and on, ``{"model": 2}`` with ``fsdp``
+    and with ``tp``; in f32 ``{"data": 2}`` and ``{"model": 2}`` with
+    ``tp``.  Held: every run's held parameter and optimizer bytes equal
+    its plan at every placement, ZeRO's optimizer bytes at most half the
+    replicated run's, the flash kernels of its dtypes launched on every
+    rank, every retrain loss finite (20 bf16, 4 f32), the widths of the
+    reference run, the first target's f32 scores (scored before any
+    retraining) within 1e-5 relative of the reference's with the same
+    drops, and the retrain shapes of the plan (B 16 on a data axis of 2,
+    6 of 12 heads under tensor parallelism, else B 32 and 12 heads).  In
+    bf16, the first retrain loss within 2**-7 relative of the plain
+    run's, and bit for bit (losses, drops, records): ``{"data": 1}`` both
+    ways and ``{"model": 2}`` FSDP against the plain run, ZeRO against
+    ``{"data": 2}`` without it; the later steps' drift (bf16 products
+    over other row or head groupings) is recorded, not held.  In f32,
+    where only the order of f32 sums differs, the data-parallel and
+    tensor-parallel updates are held: every retrain loss within 1e-5
+    relative of f32_plain's, the second target's scores (after two
+    sharded updates) within 1e-4 with the same drops.
+
 ``python3 chip_smoke.py --obs-slice`` runs phases 3, 7, 8, 27 and 28
 alone (the kernels built first); ``python3 chip_smoke.py
---resilience-slice`` runs phase 29 alone.
+--resilience-slice`` runs phase 29 alone, ``--parallel-slice`` phase 30.
 
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -4432,6 +4467,399 @@ def finish_resilience_child(started) -> dict:
     return json.loads(stdout.strip().splitlines()[-1])
 
 
+
+# ---------------------------------------------------------------- phase 30
+
+#: phase 30's targets, and its synthetic GLUE-SST2 splits (examples) by
+#: retrain dtype: bf16, 10 retrain steps a target at B 32, two scoring
+#: batches of 128 and one test batch; f32, 2 steps a target, one scoring
+#: batch of 128, one test batch of 32 (over gloo every activation a
+#: tensor-parallel evaluation reduces goes through the host)
+P30_TARGETS = ("block12_mlp/", "block11_mlp/")
+P30_SPLITS = {"bfloat16": {"train": 320, "val": 256, "test": 128},
+              "float32": {"train": 64, "val": 128, "test": 32}}
+#: (tag, mesh, partition, zero, ranks, retrain dtype); "plain" and
+#: "f32_plain" (no mesh, one rank) are the references
+P30_RUNS = (
+    ("data1_fsdp", {"data": 1}, "fsdp", False, 1, "bfloat16"),
+    ("data1_tp", {"data": 1}, "tp", False, 1, "bfloat16"),
+    ("data2", {"data": 2}, "fsdp", False, 2, "bfloat16"),
+    ("data2_zero", {"data": 2}, "fsdp", True, 2, "bfloat16"),
+    ("model2_fsdp", {"model": 2}, "fsdp", False, 2, "bfloat16"),
+    ("model2_tp", {"model": 2}, "tp", False, 2, "bfloat16"),
+    ("f32_data2", {"data": 2}, "fsdp", False, 2, "float32"),
+    ("f32_model2_tp", {"model": 2}, "tp", False, 2, "float32"),
+)
+#: relative tolerances against the reference run: an f32 run's every
+#: retrain loss; the f32 scores of the first target (before any update,
+#: every run) and of the second (after two updates, f32 runs)
+P30_F32_LOSS_RTOL = 1e-5
+P30_SCORE_RTOL = (1e-5, 1e-4)
+
+
+def parallel_worker(out_dir: str, runs) -> int:
+    """One rank of phase 30's runs (``--parallel-worker OUT_DIR TAG
+    CONFIG DATA_DIR [TAG CONFIG DATA_DIR ...]``, under torchrun): joins
+    the process group, then runs the CLI on each config in this process
+    (``--no-obs``, its splits read from ``DATA_DIR``),
+    recording every retrain step's loss, every target's scores, every
+    prune's drops, the flash launches by kernel, dtype and (batch,
+    heads), and the sharded trainer's held parameter and optimizer bytes
+    against its memory plan at every placement; each run's record goes
+    to ``OUT_DIR/TAG.<rank>.json``."""
+    import contextlib
+
+    import torch
+
+    from torchpruner_tpu_torch import __main__ as cli
+    from torchpruner_tpu_torch.attributions.base import AttributionMetric
+    from torchpruner_tpu_torch.ops import flash_attention as FA
+    from torchpruner_tpu_torch.parallel import scoring as PS
+    from torchpruner_tpu_torch.parallel import train as PT
+    from torchpruner_tpu_torch.parallel.memory import held_bytes
+    from torchpruner_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        rank,
+    )
+    from torchpruner_tpu_torch.train import loop as TL
+
+    initialize_distributed()
+    rec = {}
+    stack = contextlib.ExitStack()
+
+    def patch(obj, name, fn):
+        orig = getattr(obj, name)
+        setattr(obj, name, fn(orig))
+        stack.callback(setattr, obj, name, orig)
+
+    def launch(orig):
+        def f(name, ptrs, strides, q, causal):
+            orig(name, ptrs, strides, q, causal)
+            key = f"{name.replace('tp_flash_', '')}:" \
+                  f"{str(q.dtype).split('.')[-1]}"
+            rec["launches"][key] = rec["launches"].get(key, 0) + 1
+            shape = f"{key}:B{q.shape[0]}:H{q.shape[2]}"
+            rec["shapes"][shape] = rec["shapes"].get(shape, 0) + 1
+        return f
+
+    def stepper(orig):
+        def f(self, x, y):
+            loss = orig(self, x, y)
+            rec["losses"].append(float(loss))
+            return loss
+        return f
+
+    def scorer(orig):
+        def f(self, layer, **kw):
+            s = orig(self, layer, **kw)
+            rec["scores"].append((str(layer), [float(v) for v in s]))
+            return s
+        return f
+
+    def placer(orig):
+        def f(self):
+            orig(self)
+            plan = self.memory_plan()
+            rec["bytes"].append({
+                "params": held_bytes(self.params),
+                "opt": held_bytes(self.opt_state),
+                "plan_params": plan.params_bytes,
+                "plan_opt": plan.opt_bytes})
+        return f
+
+    patch(FA, "_launch", launch)
+    patch(TL.Trainer, "step", stepper)
+    patch(PT.ShardedTrainer, "step", stepper)
+    patch(PT.ShardedTrainer, "_place", placer)
+    patch(PS.DistributedScorer, "run", scorer)
+    patch(AttributionMetric, "run", scorer)
+    with stack:
+        for tag, path, data_dir in zip(runs[::3], runs[1::3], runs[2::3]):
+            os.environ["TORCHPRUNER_TPU_DATA_DIR"] = data_dir
+            rec.clear()
+            rec.update(losses=[], scores=[], launches={}, shapes={},
+                       bytes=[])
+            before = flash_launches()
+            with _recorded_prunes() as drops:
+                t0 = time.perf_counter()
+                rc = cli.main(["--config", path, "--no-obs"])
+                torch.cuda.synchronize()
+                rec["wall_s"] = time.perf_counter() - t0
+            if rc != 0:
+                return rc
+            # the outermost record of each target (a scorer over a data
+            # axis of one rank records its metric's run too)
+            seen, scores = set(), []
+            for layer, s in rec["scores"]:
+                if layer not in seen:
+                    seen.add(layer)
+                    scores.append((layer, s))
+            rec["scores"] = scores
+            rec["drops"] = list(drops)
+            after = flash_launches()
+            rec["wrapper_launches"] = {k: after[k] - before[k]
+                                       for k in after}
+            with open(os.path.join(out_dir, f"{tag}.{rank()}.json"),
+                      "w") as f:
+                json.dump(rec, f)
+    return 0
+
+
+def _p30_data(data_dir: str, splits) -> None:
+    """Phase 30's ``splits`` as ``glue_sst2_{split}_{x,y}.npy`` (the
+    synthetic generator's first examples), read through
+    ``TORCHPRUNER_TPU_DATA_DIR``."""
+    import numpy as np
+
+    from torchpruner_tpu_torch.data import load_dataset
+
+    os.makedirs(data_dir, exist_ok=True)
+    for split, n in splits.items():
+        ds = load_dataset("glue_sst2", split, n=n, seed=0)
+        np.save(os.path.join(data_dir, f"glue_sst2_{split}_x.npy"),
+                np.asarray(ds.x))
+        np.save(os.path.join(data_dir, f"glue_sst2_{split}_y.npy"),
+                np.asarray(ds.y))
+
+
+def _p30_launch(runs, ranks: int, tmp: str, env) -> dict:
+    """One ``torchrun --standalone --nproc_per_node ranks`` of the
+    worker over ``runs`` (``[(tag, cfg, data_dir)]``); per tag, the
+    ranks' records and the run's CSV rows, and the launch's wall."""
+    argv = []
+    for tag, cfg, data_dir in runs:
+        path = os.path.join(tmp, f"{tag}.json")
+        cfg.to_json(path)
+        argv += [tag, path, data_dir]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(ranks), os.path.abspath(__file__),
+           "--parallel-worker", tmp, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 30 {[r[0] for r in runs]}: exit {proc.returncode}\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
+    out = {"wall_s": wall}
+    for tag, cfg, _ in runs:
+        recs = []
+        for r in range(ranks):
+            with open(os.path.join(tmp, f"{tag}.{r}.json")) as f:
+                recs.append(json.load(f))
+        out[tag] = {"ranks": recs, "rows": _csv_rows(cfg.log_path)}
+    return out
+
+
+def _rel(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-30))
+
+
+def parallel_phase(dev, smi: str) -> dict:
+    """Phase 30 (module docstring): the distribution layer on the card."""
+    import tempfile
+
+    import torch
+
+    from torchpruner_tpu_torch.experiments.presets import get_preset
+    from torchpruner_tpu_torch.parallel.memory import HBM_BYTES, hbm_bytes
+
+    t_phase = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    hbm = hbm_bytes()
+    if name in HBM_BYTES and HBM_BYTES[name] != hbm:
+        fail(f"HBM_BYTES[{name!r}] {HBM_BYTES[name]} but the card reports "
+             f"{hbm}")
+    base = get_preset("bert_glue_sensitivity")
+    out = {"card": smi, "hbm_bytes": hbm, "runs": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p30_") as tmp:
+        data_dirs = {}
+        for dtype, splits in P30_SPLITS.items():
+            data_dirs[dtype] = os.path.join(tmp, f"data_{dtype}")
+            _p30_data(data_dirs[dtype], splits)
+        # one CPU thread a rank: in the whole script phase 30 shares the
+        # host with host-bound phases 16-20
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+
+        def run_for(tag, mesh, partition, zero, dtype):
+            # SGD with momentum: an optimizer state for ZeRO to shard
+            cfg = dataclasses.replace(
+                base, finetune_epochs=1, target_filter=P30_TARGETS,
+                score_examples=P30_SPLITS[dtype]["val"], mesh=mesh,
+                partition=partition, zero=zero, momentum=0.9,
+                compute_dtype=dtype, log_path=os.path.join(tmp, f"{tag}.csv"))
+            return tag, cfg, data_dirs[dtype]
+
+        def strip(rows):
+            return [{k: v for k, v in r.items()
+                     if k not in ("timestamp", "prune_time", "span_id")}
+                    for r in rows]
+
+        runs = {1: [run_for("plain", {}, "fsdp", False, "bfloat16"),
+                    run_for("f32_plain", {}, "fsdp", False, "float32")],
+                2: []}
+        for tag, mesh, partition, zero, ranks, dtype in P30_RUNS:
+            runs[ranks].append(run_for(tag, mesh, partition, zero, dtype))
+        done = {}
+        for ranks in (1, 2):
+            got = _p30_launch(runs[ranks], ranks, tmp, env)
+            out[f"launch_wall_s_{ranks}_rank"] = got.pop("wall_s")
+            log(f"phase 30: {len(runs[ranks])} runs on {ranks} rank(s) in "
+                f"{out[f'launch_wall_s_{ranks}_rank']:.1f} s")
+            done.update(got)
+        #: retrain steps and the flash keys every run launches, by dtype
+        n_steps = {"bfloat16": 20, "float32": 4}
+        keys = {"bfloat16": ("fwd:float32", "fwd:bfloat16", "dq:bfloat16",
+                             "dkv:bfloat16"),
+                "float32": ("fwd:float32", "dq:float32", "dkv:float32")}
+        refs = {"bfloat16": "plain", "float32": "f32_plain"}
+        for dtype, tag in refs.items():
+            r0 = done[tag]["ranks"][0]
+            if len(r0["losses"]) != n_steps[dtype] or not all(
+                    math.isfinite(x) for x in r0["losses"]):
+                fail(f"phase 30 {tag}: losses {r0['losses']}")
+            for key in keys[dtype]:
+                if not r0["launches"].get(key):
+                    fail(f"phase 30 {tag}: no {key} launch: "
+                         f"{r0['launches']}")
+            if len(r0["scores"]) != len(P30_TARGETS):
+                fail(f"phase 30 {tag}: scored {len(r0['scores'])} targets")
+            out["runs"][tag] = {"wall_s": r0["wall_s"],
+                                "launches": r0["launches"],
+                                "shapes": r0["shapes"],
+                                "losses": r0["losses"]}
+        #: the run a tag's losses and records must equal bit for bit:
+        #: a world of one, and the model axis under FSDP (every rank the
+        #: whole batch on gathered params), compute what the plain run
+        #: computes; ZeRO changes where the update is held, not a sum
+        same_as = {"data1_fsdp": "plain", "data1_tp": "plain",
+                   "model2_fsdp": "plain", "data2_zero": "data2"}
+        for tag, mesh, partition, zero, ranks, dtype in P30_RUNS:
+            run, ref = done[tag], done[refs[dtype]]
+            r0 = ref["ranks"][0]
+            res = {"mesh": mesh, "partition": partition, "zero": zero,
+                   "ranks": ranks, "dtype": dtype, "per_rank": []}
+            for r, rr in enumerate(run["ranks"]):
+                for key in keys[dtype]:
+                    if not rr["launches"].get(key):
+                        fail(f"phase 30 {tag} rank {r}: no {key} launch")
+                for b in rr["bytes"]:
+                    if (b["params"], b["opt"]) != (b["plan_params"],
+                                                   b["plan_opt"]):
+                        fail(f"phase 30 {tag} rank {r}: held bytes {b}")
+                if len(rr["losses"]) != n_steps[dtype] or not all(
+                        math.isfinite(x) for x in rr["losses"]):
+                    fail(f"phase 30 {tag} rank {r}: retrain losses "
+                         f"{rr['losses']}")
+                # half the batch on a data axis, half the heads under
+                # tensor parallelism, else the plain shapes
+                want = ("B16:H12" if mesh.get("data", 1) > 1 else
+                        "B32:H6" if partition == "tp" and ranks > 1
+                        else "B32:H12")
+                if not rr["shapes"].get(f"dq:{dtype}:{want}"):
+                    fail(f"phase 30 {tag} rank {r}: retrain shapes "
+                         f"{rr['shapes']}, want {want}")
+                # per step, relative to the reference run's loss
+                steps = [abs(x - y) / abs(y)
+                         for x, y in zip(rr["losses"], r0["losses"])]
+                res.setdefault("loss_rel_first_step", []).append(steps[0])
+                res.setdefault("loss_rel_max", []).append(max(steps))
+                # the first target is scored before any retraining, the
+                # second (f32 only) after the first target's updates
+                held = 1 if dtype == "bfloat16" else len(P30_TARGETS)
+                for k in range(held):
+                    layer, want_sc = r0["scores"][k]
+                    rel = _rel(dict(rr["scores"])[layer], want_sc)
+                    res.setdefault(f"score_rel_{k}", []).append(rel)
+                    if rel > P30_SCORE_RTOL[k] or \
+                            rr["drops"][k] != r0["drops"][k]:
+                        fail(f"phase 30 {tag} rank {r}: {layer} scores rel "
+                             f"{rel}, drops equal "
+                             f"{rr['drops'][k] == r0['drops'][k]}")
+                if dtype == "float32":
+                    if max(steps) > P30_F32_LOSS_RTOL:
+                        fail(f"phase 30 {tag} rank {r}: f32 retrain losses "
+                             f"{rr['losses']} vs {r0['losses']}")
+                elif steps[0] > 2 ** -7:
+                    fail(f"phase 30 {tag} rank {r}: first retrain loss "
+                         f"{rr['losses'][0]} vs {r0['losses'][0]}")
+                twin = same_as.get(tag)
+                if twin is not None:
+                    other = done[twin]
+                    if (rr["losses"] != other["ranks"][0]["losses"]
+                            or rr["drops"] != other["ranks"][0]["drops"]):
+                        fail(f"phase 30 {tag} rank {r}: losses or drops "
+                             f"not bit-equal to {twin}'s:\n"
+                             f"{rr['losses']}\n"
+                             f"{other['ranks'][0]['losses']}")
+                    if strip(run["rows"]) != strip(other["rows"]):
+                        fail(f"phase 30 {tag}: records differ from "
+                             f"{twin}'s:\n{strip(run['rows'])}\n"
+                             f"{strip(other['rows'])}")
+                res["per_rank"].append({
+                    "launches": rr["launches"], "shapes": rr["shapes"],
+                    "bytes": rr["bytes"][0], "wall_s": rr["wall_s"],
+                    "losses": rr["losses"]})
+            if [r["widths"] for r in run["rows"]] != \
+                    [r["widths"] for r in ref["rows"]]:
+                fail(f"phase 30 {tag}: widths differ")
+            res["bit_equal_to"] = same_as.get(tag)
+            out["runs"][tag] = res
+            summary = {k: v for k, v in res.items() if k != "per_rank"}
+            log(f"phase 30 {tag}: {json.dumps(summary)}, walls "
+                f"{[p['wall_s'] for p in res['per_rank']]}")
+        # ZeRO holds the optimizer state at the data axis's share
+        full = done["data2"]["ranks"][0]["bytes"][0]["opt"]
+        held = done["data2_zero"]["ranks"][0]["bytes"][0]["opt"]
+        if not 0 < held <= full / 2 + (1 << 16):
+            fail(f"phase 30: ZeRO optimizer bytes {held} against {full} "
+                 "replicated")
+        out["zero_opt_bytes"] = {"replicated": full, "zero": held}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 30: {out['wall_s']:.1f} s ({smi})")
+    return out
+
+
+def start_parallel_child():
+    """Phase 30 in a child process (its own process group, killed at
+    exit unless it finished), started beside phases 16-20."""
+    import atexit
+    import signal
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--parallel-child"], cwd=HERE,
+                            stdout=out, stderr=err, text=True,
+                            start_new_session=True)
+
+    def kill_group():
+        if proc.returncode is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+    atexit.register(kill_group)
+    return proc, out, err
+
+
+def finish_parallel_child(started) -> dict:
+    proc, out, err = started
+    rc = proc.wait(timeout=900)
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    for line in stdout.strip().splitlines()[:-1]:
+        log(f"  {line}")
+    if rc != 0:
+        fail(f"phase 30 exited {rc}:\n{stdout[-4000:]}\n{stderr[-4000:]}")
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
 def per_step(cases, key, weight):
     return sum(c[key] * weight(c) for c in cases)
 
@@ -4482,6 +4910,8 @@ def main() -> int:
     os.chdir(HERE)  # the runs' logs land inside the checkout
     if sys.argv[1:2] == ["--resilience-worker"]:  # a CLI run of phase 29
         return resilience_worker(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--parallel-worker"]:  # a rank of phase 30
+        return parallel_worker(sys.argv[2], sys.argv[3:])
     dev = torch.device("cuda")
     strict_fp32_matmul()  # float32 products in full precision (no TF32)
     smi = smi_line()
@@ -4505,6 +4935,13 @@ def main() -> int:
             dev, smi, before_oom=(sys.stdin.readline
                                   if sys.argv[1] == "--resilience-child"
                                   else lambda: None))
+        log(f"total {time.perf_counter() - t_start:.1f} s ({smi})")
+        print(json.dumps(out), flush=True)
+        return 0
+    if sys.argv[1:] in (["--parallel-slice"], ["--parallel-child"]):
+        # phase 30 alone, or as the whole script's child
+        _build.build()
+        out = parallel_phase(dev, smi)
         log(f"total {time.perf_counter() - t_start:.1f} s ({smi})")
         print(json.dumps(out), flush=True)
         return 0
@@ -4566,6 +5003,10 @@ def main() -> int:
         "checkpoint beside phases 16-20, then (c) one real OOM alone")
     t29 = time.perf_counter()
     res_child = start_resilience_child()
+    log("phase 30: the distribution layer, in a child process beside "
+        "phases 16-20: BERT-base prune runs under torchrun at world 1 "
+        "(NCCL) and 2 (gloo, two ranks on the card)")
+    par_child = start_parallel_child()
     log("phase 16: vgg16_digits32_layerwise, VGG16-bn full width: train, "
         "then the 8-method panel on conv1, conv13, fc1")
     t0 = time.perf_counter()
@@ -4593,6 +5034,10 @@ def main() -> int:
         t0 = time.perf_counter()
         hp = http_phase(tmp)
         log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    par = finish_parallel_child(par_child)
+    log(f"phase 30: {time.perf_counter() - t29:.1f} s from its start, "
+        f"{time.perf_counter() - t0:.1f} s after phase 20 ({smi})")
     t0 = time.perf_counter()
     res = finish_resilience_child(res_child)
     log(f"phase 29: {time.perf_counter() - t29:.1f} s from its start, "
@@ -4799,6 +5244,17 @@ def main() -> int:
     kernels[0]["obs"] = {"serve": o27, "prune": o28}
     # phase 29: the resilience slice (kill / resume, guard, OOM, corrupt)
     kernels[0]["resilience"] = res
+    # phase 30: the distribution layer (per-rank launches of B1-B3)
+    kernels[0]["parallel"] = par
+    for k in kernels:
+        if k["name"] in FLASH_KERNELS:
+            short = {"flash_fwd": "fwd", "flash_dq": "dq",
+                     "flash_dkv": "dkv"}[k["name"]]
+            k["launches_mesh_per_rank"] = {
+                tag: [{key: n for key, n in pr["launches"].items()
+                       if key.startswith(short + ":")}
+                      for pr in run["per_rank"]]
+                for tag, run in par["runs"].items() if "per_rank" in run}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -347,8 +347,21 @@ def test_nested_sites_are_skipped_not_cached():
                                      state=state).run(
         "blk/inner", find_best_evaluation_layer=True)
     np.testing.assert_array_equal(got, ref)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ActivationCache(model, params, batches, sites=("a1",), mesh=object())
+    # with a mesh, each batch splits over its data axis at fill time: the
+    # rank at data coordinate 1 of 2 holds the second half of each batch
+    import types
+
+    mesh = types.SimpleNamespace(mesh_dim_names=("data",),
+                                 mesh=torch.empty(2),
+                                 get_coordinate=lambda: [1])
+    half = ActivationCache(model, params, batches, sites=("a1",),
+                           state=state, mesh=mesh)
+    (z, y), = list(half.batches_for("a1"))
+    x_all, y_all = batches[0]
+    want = capture_fn(model, ("a1",))(
+        params, state, torch.from_numpy(np.asarray(x_all[8:])))["a1"]
+    np.testing.assert_array_equal(z.numpy(), want.numpy())
+    np.testing.assert_array_equal(y.numpy(), np.asarray(y_all[8:]))
 
 
 def _bn_conv():

@@ -15,6 +15,8 @@
                                         (below)
     --obs-dir DIR [--profile-every N [--profile-steps K]] | --no-obs
                                         telemetry (below)
+    --zero                              ZeRO weight-update sharding over
+                                        the config mesh's data axis
     serve <preset> [--smoke] [--cpu] --synthetic N [--verify] ...
         the continuous-batching engine on synthetic traffic
         (torchpruner_tpu_torch/serve/frontend.py)
@@ -42,6 +44,12 @@ loop: after every retrain epoch); the default 0 commits at round and
 epoch boundaries.  ``--chaos`` (or the ``TORCHPRUNER_CHAOS`` env var)
 installs deterministic fault injection (``resilience/chaos.py``).  A
 preempted run (SIGTERM) commits, prints how to resume and exits 0.
+
+A config with a ``mesh`` runs with one process per device under
+``torchrun --standalone --nproc_per_node N -m torchpruner_tpu_torch
+--config PATH`` (``parallel/``): the mesh's size must equal N.  Rank 0
+alone writes the outputs, prints the summary line and keeps the obs
+session; ``--zero`` sets ``cfg.zero``.
 """
 
 from __future__ import annotations
@@ -111,6 +119,12 @@ def main(argv=None) -> int:
                    help="with --resume: checkpoint every N optimizer steps "
                         "(prune_retrain: additionally after every retrain "
                         "epoch); default 0 = round/epoch boundaries only")
+    p.add_argument("--zero", action="store_true",
+                   help="ZeRO weight-update sharding over the config "
+                        "mesh's data axis (cfg.zero): optimizer state "
+                        "sharded, gradients reduce-scattered, params "
+                        "all-gathered after the update — needs a mesh "
+                        "with a 'data' axis")
     p.add_argument("--chaos", metavar="JSON_OR_PATH",
                    help="deterministic fault injection (resilience.chaos), "
                         "e.g. '{\"nan_at_step\": 5, \"kill_at_step\": 12}' "
@@ -144,6 +158,11 @@ def main(argv=None) -> int:
         cfg = get_preset(args.preset, smoke=args.smoke)
     else:
         p.error("one of --preset / --config / --list is required")
+    if args.zero:
+        if "data" not in (cfg.mesh or {}):
+            p.error("--zero needs a config mesh with a 'data' axis "
+                    "(e.g. \"mesh\": {\"data\": 4, \"model\": 2})")
+        cfg.zero = True
     if args.resume:
         cfg.run_dir = args.resume
     if args.checkpoint_every is not None:
@@ -168,8 +187,19 @@ def main(argv=None) -> int:
         print(f"wrote {args.dump_config}")
         return 0
 
+    import torch.distributed as dist
+
+    from torchpruner_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        is_writer,
+    )
+
+    # under torchrun: join the process group (a no-op otherwise); a group
+    # the caller made stays the caller's
+    joined = not dist.is_initialized() and initialize_distributed(
+        "cpu" if args.cpu else None)
     obs = None
-    if not args.no_obs:
+    if not args.no_obs and is_writer():
         from torchpruner_tpu_torch import obs
 
         obs.configure(args.obs_dir, profile_every=args.profile_every,
@@ -192,7 +222,10 @@ def main(argv=None) -> int:
             if args.obs_dir:
                 print(f"telemetry written to {args.obs_dir}",
                       file=sys.stderr)
-    print(json.dumps(summary))
+    if is_writer():
+        print(json.dumps(summary))
+    if joined:
+        dist.destroy_process_group()
     return 0
 
 

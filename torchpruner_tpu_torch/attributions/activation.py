@@ -27,6 +27,7 @@ import torch
 
 from torchpruner_tpu_torch.attributions.base import (
     AttributionMetric,
+    batch_mean,
     float_dtype_of,
     needs_taps,
     prefix_fn,
@@ -111,7 +112,7 @@ def grad_rows_fn(model, eval_layer, loss_fn, mode: str):
                                           train=False,
                                           perturb=(eval_layer, delta),
                                           capture=eval_layer)
-                loss = loss_fn(preds, y).mean()
+                loss = batch_mean(loss_fn(preds, y))
                 (g,) = torch.autograd.grad(loss, delta)
             return _finish(mode, z.detach(), g)
 
@@ -152,7 +153,7 @@ def suffix_grad_fn(model, eval_layer, loss_fn):
     def fn(params, state, z, y):
         z = z.detach().requires_grad_()
         with torch.enable_grad():
-            loss = suffix(params, state, z, y).mean()
+            loss = batch_mean(suffix(params, state, z, y))
             (g,) = torch.autograd.grad(loss, z)
         return g
 

@@ -231,6 +231,22 @@ def suffix_loss_fn(model: SegmentedModel, eval_layer: str, loss_fn):
     return fn
 
 
+def batch_mean(losses: torch.Tensor) -> torch.Tensor:
+    """The batch-mean loss a gradient row differentiates: over the
+    global batch when ``parallel.DistributedScorer`` splits it over the
+    data axis (the JAX package's mean over a sharded batch), so a rank's
+    rows carry the global batch's ``1/N``."""
+    from torchpruner_tpu_torch.parallel.collectives import (
+        batch_group,
+        group_size,
+    )
+
+    group = batch_group()
+    if group is None:
+        return losses.mean()
+    return losses.sum() / (losses.shape[0] * group_size(group))
+
+
 def spatial_sum(rows: torch.Tensor) -> torch.Tensor:
     """(B, ..., n) -> (B, n): sum every non-batch, non-unit axis."""
     if rows.ndim <= 2:
@@ -275,16 +291,19 @@ class ActivationCache:
     Each fill runs inside an obs ``capture_fill`` span and each hit or
     miss bumps the obs capture counters (``attrib_capture_hits_total``,
     ``attrib_capture_misses_total``, the ``prefix_flops_saved`` gauge),
-    as in the JAX package; :meth:`stats` carries the same counts.  Its
-    mesh placement waits for ROADMAP A7.
+    as in the JAX package; :meth:`stats` carries the same counts.
+
+    With ``mesh`` each batch is split over ``data_axis`` at fill time
+    (``parallel.sharding.shard_batch``): a rank captures and keeps its
+    slice only, and serves it to ``parallel.DistributedScorer`` and the
+    sweep's walk, which reduce over the axis.
     """
 
     def __init__(self, model: SegmentedModel, params, data, *,
                  sites: Sequence[str], state=None, compute_dtype=None,
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ActivationCache(mesh=...) is not ported yet (ROADMAP A7)")
+                 mesh=None, data_axis: str = "data"):
+        self.mesh = mesh
+        self.data_axis = data_axis
         self.model = model
         self.params = params          # identity anchor for matches()
         self.state = state if state is not None else {}
@@ -363,6 +382,12 @@ class ActivationCache:
                                        sites=len(self.sites)):
             for x, y in (self.data() if callable(self.data)
                          else iter(self.data)):
+                if self.mesh is not None:
+                    from torchpruner_tpu_torch.parallel.sharding import (
+                        shard_batch,
+                    )
+
+                    x, y = shard_batch((x, y), self.mesh, self.data_axis)
                 x = to_device(x, dev)
                 if self.compute_dtype is not None:
                     x = cast_floats(x, self.compute_dtype)

@@ -26,6 +26,14 @@ their digest into the spec, the spec replaced last), and a kill inside
 an in-place re-save is recovered from the displaced ``.arrays.old.*``
 tree.  Damage raises :class:`CheckpointCorruptError`.
 
+A trainer over a mesh (``parallel.ShardedTrainer``) holds pieces: its
+savers (``resilience/runner.py commit_checkpoint``,
+``experiments/train_model.py``) gather every sharded leaf on every rank
+(``full_params`` / ``full_opt_state``) and rank 0 writes the same
+format, so the digest is a one-process save's of the same values; a
+restore returns full trees, which the trainer re-places under its plan
+(``ShardedTrainer.create`` / ``rebuild``).
+
 Optimizer state: ``opt_treedef`` is the port's own structure string
 (``train/optim.py`` states are nested dicts and lists), so within the
 port a restore under another optimizer is refused; optimizer state does

@@ -755,11 +755,43 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhst,bthk->bshk", w, v)
 
 
+class TPWeight:
+    """One rank's piece of a tensor-parallel weight on the sharded
+    training path (``parallel/train.py``): a column-parallel piece
+    (output units sharded) takes Megatron's ``f`` on its input (identity
+    forward, gradient all-reduced over ``group``); a row-parallel piece
+    (input units sharded) reduces its partial sums over ``group`` after
+    the product (``g``), so a bias added after :func:`_dot` is added
+    once."""
+
+    __slots__ = ("w", "row", "group")
+
+    def __init__(self, w: torch.Tensor, row: bool, group):
+        self.w, self.row, self.group = w, row, group
+
+    @property
+    def shape(self):
+        return self.w.shape
+
+    def reshape(self, *shape) -> "TPWeight":
+        return TPWeight(self.w.reshape(*shape), self.row, self.group)
+
+    def matmul(self, x: torch.Tensor, fixed_order: bool) -> torch.Tensor:
+        from torchpruner_tpu_torch.parallel import collectives as C
+
+        if self.row:
+            return C.reduce_from(_dot(x, self.w, fixed_order), self.group)
+        return _dot(C.copy_to(x, self.group), self.w, fixed_order)
+
+
 def _dot(x: torch.Tensor, w, fixed_order: bool) -> torch.Tensor:
     """``x ·₀ w`` (x's trailing axis against w's leading one): through
     :func:`~torchpruner_tpu_torch.ops.quant.qdot` on the fixed-order path
     or for a quantized or block-sparse weight, else one plain product on
-    the whole tensor (operand dtypes promote as in ``jnp.matmul``)."""
+    the whole tensor (operand dtypes promote as in ``jnp.matmul``).  A
+    :class:`TPWeight` adds its collective around the product."""
+    if isinstance(w, TPWeight):
+        return w.matmul(x, fixed_order)
     if fixed_order or isinstance(w, (QTensor, BlockSparseWeight)):
         return qdot(x, w)
     dt = torch.promote_types(x.dtype, w.dtype)
@@ -835,8 +867,19 @@ def apply_layer(spec: LayerSpec, params, state, x: torch.Tensor, *,
             raise ValueError(f"Dropout {spec.name!r} needs an rng in "
                              f"train mode")
         keep = 1.0 - spec.rate
-        mask = torch.rand(x.shape, generator=rng, device=rng.device
-                          ).to(x.device) < keep
+        group = _batch_group()
+        if group is None:
+            u = torch.rand(x.shape, generator=rng, device=rng.device)
+        else:
+            # a data-parallel rank draws the global batch's mask (every
+            # rank's generator in step) and keeps its own rows
+            import torch.distributed as dist
+
+            b, i = x.shape[0], dist.get_rank(group)
+            u = torch.rand((b * dist.get_world_size(group),)
+                           + tuple(x.shape[1:]), generator=rng,
+                           device=rng.device)[i * b:(i + 1) * b]
+        mask = u.to(x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x)), state
     if isinstance(spec, Embedding):
         # F.embedding, not params["emb"][x]: indexing's backward is an
@@ -874,6 +917,14 @@ def apply_layer(spec: LayerSpec, params, state, x: torch.Tensor, *,
     raise TypeError(f"unknown layer spec {type(spec)}")
 
 
+def _batch_group():
+    """The data-axis group whose global batch train-mode statistics
+    cover (``parallel.collectives.batch_stats_over``), or None."""
+    from torchpruner_tpu_torch.parallel.collectives import batch_group
+
+    return batch_group()
+
+
 def _batch_norm(spec: BatchNorm, params, state, x: torch.Tensor,
                 train: bool):
     """Train mode normalizes by the batch's mean and biased variance and
@@ -882,8 +933,22 @@ def _batch_norm(spec: BatchNorm, params, state, x: torch.Tensor,
     xf = x.float()
     if train:
         axes = tuple(range(x.ndim - 1))
-        mean = xf.mean(dim=axes)
-        var = xf.var(dim=axes, correction=0)
+        group = _batch_group()
+        if group is None:
+            mean = xf.mean(dim=axes)
+            var = xf.var(dim=axes, correction=0)
+        else:
+            # the global batch's moments, over the data axis's equal
+            # shards (two passes, as the one-device variance)
+            from torchpruner_tpu_torch.parallel.collectives import (
+                all_reduce_sum,
+                group_size,
+            )
+
+            n = xf.numel() // xf.shape[-1] * group_size(group)
+            mean = all_reduce_sum(xf.sum(dim=axes), group) / n
+            var = all_reduce_sum((xf - mean).square().sum(dim=axes),
+                                 group) / n
         d = spec.decay
         new_state = {
             "mean": (d * state["mean"].float() + (1 - d) * mean).detach(),
@@ -1059,8 +1124,23 @@ def _moe(spec: MoE, params, x, train, taps, path, fixed_order):
         # so it is not collected
         full_p = torch.softmax(raw, dim=-1)
         chosen = (routing > 0).float()
-        f = chosen.mean(dim=(0, 1)) / spec.top_k
-        taps.aux["/".join(path)] = E * torch.sum(f * full_p.mean(dim=(0, 1)))
+        group = _batch_group()
+        if group is None:
+            f = chosen.mean(dim=(0, 1)) / spec.top_k
+            p_mean = full_p.mean(dim=(0, 1))
+        else:
+            # shares of the global batch's tokens (the data axis's equal
+            # shards)
+            from torchpruner_tpu_torch.parallel.collectives import (
+                all_reduce_sum,
+                group_size,
+            )
+
+            n = chosen.shape[0] * chosen.shape[1] * group_size(group)
+            f = all_reduce_sum(chosen.sum(dim=(0, 1)), group) / n \
+                / spec.top_k
+            p_mean = all_reduce_sum(full_p.sum(dim=(0, 1)), group) / n
+        taps.aux["/".join(path)] = E * torch.sum(f * p_mean)
     if spec.dispatch == "sparse" and spec.top_k < E:
         # the pre-tap routing decides which experts a token visits; the
         # tapped gates only weight them, so ablation acts as in dense

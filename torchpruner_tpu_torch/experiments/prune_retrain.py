@@ -1,9 +1,15 @@
 """The prune → fine-tune driver — counterpart of
-``torchpruner_tpu/experiments/prune_retrain.py`` (without the mesh): for
-each prunable layer, outermost first: score →
-turn scores into indices (policy) → prune (or, with ``cfg.simulate``,
-mask the same slices at fixed shapes) → evaluate (→ optionally
-fine-tune).
+``torchpruner_tpu/experiments/prune_retrain.py``: for each prunable
+layer, outermost first: score → turn scores into indices (policy) →
+prune (or, with ``cfg.simulate``, mask the same slices at fixed shapes)
+→ evaluate (→ optionally fine-tune).
+
+With ``cfg.mesh`` the loop runs on every rank of a ``torchrun`` world:
+a ``parallel.ShardedTrainer`` (``cfg.partition``, ``cfg.zero``) trains,
+a ``parallel.DistributedScorer`` scores over the ``data`` axis, every
+rank prunes the gathered full trees the same way and re-places them,
+and only rank 0 writes the CSV, the ledger, the report and the
+checkpoints.
 
 Inside an obs session the run is annotated (``obs.annotate_run``) and
 emits the span ``prune_retrain`` around ``setup`` and, per target,
@@ -38,7 +44,10 @@ from torchpruner_tpu_torch.data import load_dataset
 from torchpruner_tpu_torch.experiments.presets import MODEL_REGISTRY
 from torchpruner_tpu_torch.train import optim
 from torchpruner_tpu_torch.train.logger import CSVLogger
-from torchpruner_tpu_torch.train.loop import Trainer, train_epoch
+from torchpruner_tpu_torch.train.loop import (
+    train_epoch,
+    trainer_from_config,
+)
 from torchpruner_tpu_torch.utils.config import ExperimentConfig
 from torchpruner_tpu_torch.utils.device import (
     resolve_device,
@@ -233,14 +242,23 @@ def run_prune_retrain(cfg: ExperimentConfig, *, model=None, datasets=None,
     dev = resolve_device(device)
     if dev.type == "cuda":
         strict_fp32_matmul()
+    mesh = None
+    if cfg.mesh:
+        # the loop over a mesh: sharded training, data-parallel scoring
+        # over its data axis (a mesh the world does not fill raises here)
+        from torchpruner_tpu_torch.parallel import make_mesh
+        from torchpruner_tpu_torch.parallel.mesh import rank_device
+
+        dev = rank_device(dev)
+        mesh = make_mesh(cfg.mesh, device=dev)
     obs.annotate_run(experiment=cfg.name, kind="prune_retrain",
                      model=cfg.model, method=cfg.method, policy=cfg.policy)
     with obs.span("prune_retrain", experiment=cfg.name):
-        return _run_prune_retrain(cfg, dev, model=model, datasets=datasets,
-                                  verbose=verbose)
+        return _run_prune_retrain(cfg, dev, mesh, model=model,
+                                  datasets=datasets, verbose=verbose)
 
 
-def _run_prune_retrain(cfg: ExperimentConfig, dev, *, model=None,
+def _run_prune_retrain(cfg: ExperimentConfig, dev, mesh, *, model=None,
                        datasets=None, verbose: bool = True
                        ) -> List[PruneStepRecord]:
     from torchpruner_tpu_torch.resilience import chaos as _chaos
@@ -253,7 +271,7 @@ def _run_prune_retrain(cfg: ExperimentConfig, dev, *, model=None,
 
         journal = PruneJournal(cfg)
     try:
-        return _prune_loop(cfg, dev, journal, model=model,
+        return _prune_loop(cfg, dev, journal, mesh, model=model,
                            datasets=datasets, verbose=verbose)
     finally:
         # every exit path (done, preempted, a resume that fails on a
@@ -264,7 +282,7 @@ def _run_prune_retrain(cfg: ExperimentConfig, dev, *, model=None,
             journal.close()
 
 
-def _prune_loop(cfg: ExperimentConfig, dev, journal, *, model=None,
+def _prune_loop(cfg: ExperimentConfig, dev, journal, mesh, *, model=None,
                 datasets=None, verbose: bool = True
                 ) -> List[PruneStepRecord]:
     from torchpruner_tpu_torch.resilience.guards import Preempted, StepGuard
@@ -273,6 +291,9 @@ def _prune_loop(cfg: ExperimentConfig, dev, journal, *, model=None,
         recovery_plan,
     )
 
+    from torchpruner_tpu_torch.parallel.mesh import is_writer
+
+    verbose = verbose and is_writer()
     with obs.span("setup"):
         model, (train, val, test) = resolve_model_and_data(cfg, model,
                                                            datasets)
@@ -309,10 +330,8 @@ def _prune_loop(cfg: ExperimentConfig, dev, journal, *, model=None,
         tx = build_tx()
         loss_fn = LOSS_REGISTRY[cfg.loss]
         sdtype = compute_dtype(cfg.score_dtype)
-        trainer = Trainer.create(
-            model, tx, loss_fn, seed=cfg.seed,
-            compute_dtype=compute_dtype(cfg.compute_dtype), device=dev,
-            moe_aux_weight=cfg.moe_aux_weight, remat=cfg.remat,
+        trainer = trainer_from_config(
+            cfg, model, tx, loss_fn, device=dev, mesh=mesh,
             accum_steps=accum_steps, grad_norm=cfg.obs_grad_norm,
             guard=guard)
         _configure_mfu(cfg, trainer)
@@ -348,7 +367,11 @@ def _prune_loop(cfg: ExperimentConfig, dev, journal, *, model=None,
                   f"{journal.manifest.checkpoint}: "
                   f"{len(journal.completed)}/{len(targets)} targets done",
                   flush=True)
-    val_batches = val.batches(cfg.eval_batch_size)
+    # a mesh splits each scoring batch over its data axis, which a
+    # ragged tail may not divide: on a mesh the tail is dropped, as in
+    # the JAX loop
+    drop = mesh is not None
+    val_batches = val.batches(cfg.eval_batch_size, drop_remainder=drop)
     test_batches = test.batches(cfg.eval_batch_size)
 
     def _run_target(target, logger):
@@ -356,12 +379,21 @@ def _prune_loop(cfg: ExperimentConfig, dev, journal, *, model=None,
         stage = journal.stage_for(target) if journal is not None else None
         if stage is None:
             with obs.span("attribution", target=target, method=cfg.method):
+                # the full params (a sharded trainer gathers its pieces)
+                params = trainer.full_params()
                 metric = build_metric(
-                    cfg.method, trainer.model, trainer.params, val_batches,
+                    cfg.method, trainer.model, params, val_batches,
                     loss_fn, state=trainer.state, reduction=cfg.reduction,
                     seed=cfg.seed, compute_dtype=sdtype, **cfg.method_kwargs)
                 t0 = time.perf_counter()
-                scores = metric.run(
+                scorer = metric
+                if mesh is not None and "data" in cfg.mesh:
+                    from torchpruner_tpu_torch.parallel import (
+                        DistributedScorer,
+                    )
+
+                    scorer = DistributedScorer(metric, mesh)
+                scores = scorer.run(
                     target,
                     find_best_evaluation_layer=cfg.find_best_evaluation_layer)
             with obs.span("eval", target=target, which="pre"):
@@ -380,19 +412,25 @@ def _prune_loop(cfg: ExperimentConfig, dev, journal, *, model=None,
                     obs.record_prune(target, drop_idx,
                                      L.n_units(trainer.model.layer(target)),
                                      simulate=True)
-                    pm, sm = drop_masks(trainer.model, trainer.params,
+                    pm, sm = drop_masks(trainer.model, params,
                                         {target: drop_idx},
                                         state=trainer.state)
-                    trainer.params = apply_masks(trainer.params, pm)
-                    if trainer.state:
-                        trainer.state = apply_masks(trainer.state, sm)
+                    state = (apply_masks(trainer.state, sm)
+                             if trainer.state else trainer.state)
+                    if mesh is None:
+                        trainer.params = apply_masks(params, pm)
+                        trainer.state = state
+                    else:
+                        trainer = trainer.rebuild(
+                            trainer.model, apply_masks(params, pm), state,
+                            trainer.full_opt_state())
                 prune_time = time.perf_counter() - t0
                 n_dropped = len(drop_idx)
             else:
                 with obs.span("prune", target=target):
-                    res = prune(trainer.model, trainer.params, target,
+                    res = prune(trainer.model, params, target,
                                 drop_idx, state=trainer.state,
-                                opt_state=trainer.opt_state)
+                                opt_state=trainer.full_opt_state())
                     prune_time = time.perf_counter() - t0
                     n_dropped = L.n_units(trainer.model.layer(target)) \
                         - L.n_units(res.model.layer(target))
@@ -412,7 +450,8 @@ def _prune_loop(cfg: ExperimentConfig, dev, journal, *, model=None,
                         # still carries its decision margins
                         "score_dist": score_dist})
             epoch_i = 0
-            metric = res = None  # the pre-prune trees, not needed now
+            # the pre-prune trees, not needed now
+            metric = scorer = res = params = None
         else:
             # resumed mid-round: the restored checkpoint already holds the
             # pruned shapes; skip scoring and the prune, finish the
@@ -429,10 +468,12 @@ def _prune_loop(cfg: ExperimentConfig, dev, journal, *, model=None,
                 with obs.span("retrain", target=target,
                               epochs=cfg.finetune_epochs):
                     while epoch_i < cfg.finetune_epochs:
-                        # accumulation cannot split a ragged tail batch:
-                        # drop it, counted
-                        drop_now = trainer.accum_steps > 1
-                        if drop_now and len(train) % cfg.batch_size:
+                        # accumulation, and a mesh's data axis, cannot
+                        # split a ragged tail batch: drop it (counted
+                        # when degraded accumulation alone drops it)
+                        drop_now = drop or trainer.accum_steps > 1
+                        if (drop_now and not drop
+                                and len(train) % cfg.batch_size):
                             obs.inc("resilience_ragged_drops_total",
                                     help="tail batches dropped because "
                                          "they don't divide the degraded "
@@ -477,7 +518,8 @@ def _prune_loop(cfg: ExperimentConfig, dev, journal, *, model=None,
         with obs.span("eval", target=target, which="post"):
             post_loss, post_acc = trainer.evaluate(test_batches)
         with obs.span("flops", target=target):
-            n_params, flops = model_cost(trainer.model, trainer.params,
+            n_params, flops = model_cost(trainer.model,
+                                         trainer.full_params(),
                                          trainer.state)
         rec = PruneStepRecord(
             layer=target, pre_loss=pre_loss, pre_acc=pre_acc,
@@ -507,7 +549,8 @@ def _prune_loop(cfg: ExperimentConfig, dev, journal, *, model=None,
                   flush=True)
 
     try:
-        with CSVLogger(cfg.log_path, experiment=cfg.name) as logger:
+        with CSVLogger(cfg.log_path, experiment=cfg.name,
+                       enabled=is_writer()) as logger:
             for target in targets:
                 if journal is not None:
                     if target in journal.completed:
@@ -530,7 +573,9 @@ def _configure_mfu(cfg: ExperimentConfig, trainer):
     (3x a forward at the training batch size, re-aimed after every prune
     since the model shrinks).  Costs one counted forward, so it runs only
     while a session is active."""
-    if obs.get() is None:
+    if obs.get() is None or getattr(trainer, "mesh", None) is not None:
+        # a sharded trainer's params are pieces, and a gather here would
+        # run on the telemetry rank alone
         return
     try:
         _, fwd = model_cost(trainer.model, trainer.params, trainer.state,

@@ -23,9 +23,11 @@ methods' AUCs).  With ``cfg.run_dir`` the sweep is resumable layer by
 layer (``resilience/runner.py SweepJournal``: each finished layer's
 results committed to ``sweep_results.json``, a preemption honoured at
 the next layer boundary), and the train-then-sweep protocol journals its
-two phases into ``train/`` and ``sweep/`` under it.  A mesh (A7) and
-``plot_dir`` (A8b) raise.  Without trained params,
-``cfg.checkpoint_path`` names the training checkpoint to sweep
+two phases into ``train/`` and ``sweep/`` under it.  With ``cfg.mesh``
+(a ``data`` axis) the scoring rows and the walks split every batch over
+the ranks, and rank 0 writes the results; ``plot_dir`` (A8b) raises.
+Without trained params, ``cfg.checkpoint_path`` names the training
+checkpoint to sweep
 (``checkpoint.py``, written by either package).
 """
 
@@ -51,6 +53,7 @@ from torchpruner_tpu_torch.core.graph import (
     pruning_graph,
 )
 from torchpruner_tpu_torch.core.segment import SegmentedModel, init_model
+from torchpruner_tpu_torch.parallel.mesh import is_writer
 from torchpruner_tpu_torch.train.loop import to_device
 from torchpruner_tpu_torch.utils.device import (
     resolve_device,
@@ -101,7 +104,8 @@ def ablation_curves_batch(model: SegmentedModel, params, state, layer: str,
                           rankings, data, loss_fn, *,
                           eval_layer: Optional[str] = None,
                           compute_dtype=None,
-                          capture_cache: Optional[ActivationCache] = None
+                          capture_cache: Optional[ActivationCache] = None,
+                          mesh=None, data_axis: str = "data"
                           ) -> List[Dict[str, np.ndarray]]:
     """Simulated pruning of ``layer``'s units in each ranking's order:
     ``rankings`` is ``(R, n)``; returns R dicts ``{"loss": (n,), "acc":
@@ -111,7 +115,9 @@ def ablation_curves_batch(model: SegmentedModel, params, state, layer: str,
     on params and inputs cast to it.  ``capture_cache`` (built from the
     same model, params, state, data and dtype) supplies the site's
     activation per batch, so the walk skips the prefix; one that cannot
-    is counted as a miss."""
+    is counted as a miss.  With ``mesh`` each batch is split over
+    ``data_axis`` (a mesh cache holds the slices already) and the sums
+    are all-reduced over it."""
     eval_layer = eval_layer or layer
     dev = device_of(params)
     rankings = torch.as_tensor(np.asarray(rankings, dtype=np.int64),
@@ -128,8 +134,18 @@ def ablation_curves_batch(model: SegmentedModel, params, state, layer: str,
         capture_cache.record_hit(eval_layer)
         batches = capture_cache.batches_for(eval_layer)
     else:
-        batches = _prefix_batches(model, eval_layer, params, state, data,
-                                  compute_dtype)
+        if mesh is not None:
+            from torchpruner_tpu_torch.parallel.sharding import shard_batch
+
+            def sharded(src=data):
+                for x, y in (src() if callable(src) else src):
+                    yield shard_batch((x, y), mesh, data_axis)
+
+            batches = _prefix_batches(model, eval_layer, params, state,
+                                      sharded, compute_dtype)
+        else:
+            batches = _prefix_batches(model, eval_layer, params, state,
+                                      data, compute_dtype)
     tot_l = tot_c = None
     base_l = base_c = 0.0
     n_examples = n_preds = 0
@@ -142,6 +158,16 @@ def ablation_curves_batch(model: SegmentedModel, params, state, layer: str,
         base_c += float(bc)
         n_examples += z.shape[0]
         n_preds += int(n_pred)
+    if mesh is not None:
+        from torchpruner_tpu_torch.parallel.collectives import all_reduce_
+
+        group = mesh.get_group(data_axis)
+        all_reduce_(tot_l, group)
+        all_reduce_(tot_c, group)
+        tail = torch.tensor([base_l, base_c, n_examples, n_preds],
+                            dtype=torch.float64, device=tot_l.device)
+        all_reduce_(tail, group)
+        base_l, base_c, n_examples, n_preds = tail.tolist()
     tot_l, tot_c = tot_l.cpu().numpy(), tot_c.cpu().numpy()
     return [{"loss": tot_l[r] / n_examples, "acc": tot_c[r] / n_preds,
              "base_loss": base_l / n_examples, "base_acc": base_c / n_preds}
@@ -224,7 +250,8 @@ def layerwise_robustness(model: SegmentedModel, params, state, test_data,
                                                       "sv"),
                          find_best_evaluation_layer_: bool = True,
                          compute_dtype=None, capture: bool = True,
-                         verbose: bool = True,
+                         verbose: bool = True, mesh=None,
+                         data_axis: str = "data",
                          on_layer: Optional[Callable[
                              [str, Dict[str, List[Dict]]], None]] = None
                          ) -> Dict[str, Dict[str, List[Dict]]]:
@@ -239,7 +266,9 @@ def layerwise_robustness(model: SegmentedModel, params, state, test_data,
     base_acc, auc, seconds}, ...]``; ``seconds`` is the run's scoring
     time plus its share of the walk.  ``on_layer(layer,
     results[layer])`` fires after each layer's panel (the sweep
-    journal's commit point)."""
+    journal's commit point).  With ``mesh`` the cache and the walks
+    split every batch over ``data_axis`` (the method factories wrap
+    their metrics in ``parallel.DistributedScorer``)."""
     if layers is None:
         layers = [g.target for g in pruning_graph(model)]
     sites = [find_best_evaluation_layer(model, layer)
@@ -247,7 +276,8 @@ def layerwise_robustness(model: SegmentedModel, params, state, test_data,
     cache = None
     if capture and layers:
         cache = ActivationCache(model, params, test_data, sites=sites,
-                                state=state, compute_dtype=compute_dtype)
+                                state=state, compute_dtype=compute_dtype,
+                                mesh=mesh, data_axis=data_axis)
     results: Dict[str, Dict[str, List[Dict]]] = {}
     for li, (layer, eval_layer) in enumerate(zip(layers, sites)):
         with obs.span("robustness_layer", layer=layer):
@@ -273,7 +303,8 @@ def layerwise_robustness(model: SegmentedModel, params, state, test_data,
                 model, params, state, layer,
                 np.stack([np.argsort(s) for _, s, _ in pending]),
                 test_data, loss_fn, eval_layer=eval_layer,
-                compute_dtype=compute_dtype, capture_cache=cache)
+                compute_dtype=compute_dtype, capture_cache=cache,
+                mesh=mesh, data_axis=data_axis)
             walk_share = (time.perf_counter() - t0) / len(pending)
             for (name, scores, score_s), curve in zip(pending, curves):
                 results[layer].setdefault(name, []).append({
@@ -343,6 +374,16 @@ def _write_results(path: str, name: str, aucs, results) -> None:
                                for layer, methods in results.items()}}, f)
 
 
+def _distributed(factory, mesh):
+    """``factory`` with its metrics wrapped in ``DistributedScorer``."""
+    from torchpruner_tpu_torch.parallel import DistributedScorer
+
+    def make(run: int = 0):
+        return DistributedScorer(factory(run), mesh)
+
+    return make
+
+
 def run_robustness_config(cfg, *, model=None, datasets=None, params=None,
                           state=None, verbose: bool = True,
                           device=None) -> Dict[str, float]:
@@ -366,6 +407,22 @@ def run_robustness_config(cfg, *, model=None, datasets=None, params=None,
     dev = resolve_device(device)
     if dev.type == "cuda":
         strict_fp32_matmul()
+    mesh = None
+    if cfg.mesh:
+        # the sweep is evaluation: params are replicated and only the
+        # data axis splits the work (scoring rows and the walks)
+        if "data" not in cfg.mesh:
+            raise ValueError(
+                f"robustness sweep needs a 'data' axis to shard over, got "
+                f"mesh={cfg.mesh!r} — the sweep is evaluation (params are "
+                f"replicated), so only data parallelism applies; rename "
+                f"the axis or clear cfg.mesh for a single-device run")
+        from torchpruner_tpu_torch.parallel import make_mesh
+        from torchpruner_tpu_torch.parallel.mesh import rank_device
+
+        dev = rank_device(dev)
+        mesh = make_mesh(cfg.mesh, device=dev)
+    verbose = verbose and is_writer()
     model, (_, _, test) = resolve_model_and_data(cfg, model, datasets)
     if len(test) > cfg.score_examples:
         test = test.subset(cfg.score_examples, seed=cfg.seed)
@@ -384,7 +441,8 @@ def run_robustness_config(cfg, *, model=None, datasets=None, params=None,
         params, state = init_model(model, seed=cfg.seed, device=dev)
     loss_fn = LOSS_REGISTRY[cfg.loss]
     sdtype = compute_dtype(cfg.score_dtype)
-    test_batches = test.batches(cfg.eval_batch_size)
+    test_batches = test.batches(cfg.eval_batch_size,
+                                drop_remainder=mesh is not None)
     if cfg.method == "all":
         methods = method_panel(model, params, test_batches, loss_fn,
                                state=state, compute_dtype=sdtype,
@@ -394,6 +452,9 @@ def run_robustness_config(cfg, *, model=None, datasets=None, params=None,
             cfg.method, model, params, test_batches, loss_fn, state=state,
             compute_dtype=sdtype, seed=cfg.seed, reduction=cfg.reduction,
             **cfg.method_kwargs)}
+    if mesh is not None:
+        methods = {name: _distributed(f, mesh) for name, f in
+                   methods.items()}
     layers = filter_targets([g.target for g in pruning_graph(model)], cfg)
     # resumable sweep (cfg.run_dir / CLI --resume): completed layers'
     # results persist atomically a layer at a time; a killed or
@@ -416,7 +477,7 @@ def run_robustness_config(cfg, *, model=None, datasets=None, params=None,
             layers=layers,
             find_best_evaluation_layer_=cfg.find_best_evaluation_layer,
             compute_dtype=sdtype, capture=cfg.capture, verbose=verbose,
-            on_layer=on_layer)
+            on_layer=on_layer, mesh=mesh)
         if journal is not None:
             journal.done()
     except Preempted:
@@ -441,7 +502,7 @@ def run_robustness_config(cfg, *, model=None, datasets=None, params=None,
         # results_path (the run dir holds the partials and a 'preempted'
         # manifest); the partial summary is returned for the message
         return aucs
-    if cfg.results_path:
+    if cfg.results_path and is_writer():
         _write_results(cfg.results_path, cfg.name, aucs, results)
         if verbose:
             print(f"[robustness] wrote results to {cfg.results_path}",
@@ -495,5 +556,6 @@ def run_train_robustness(cfg, *, verbose: bool = True,
         print(f"[{cfg.name}] trained: test acc "
               f"{history[-1]['test_acc']:.4f} — starting sweep", flush=True)
     return run_robustness_config(
-        scfg, model=trainer.model, datasets=datasets, params=trainer.params,
+        scfg, model=trainer.model, datasets=datasets,
+        params=trainer.full_params(),
         state=trainer.state, verbose=verbose, device=device)

@@ -40,8 +40,9 @@ from torchpruner_tpu_torch.checkpoint import (
 from torchpruner_tpu_torch.data.augment import augment_batch
 from torchpruner_tpu_torch.data.datasets import norm_zero
 from torchpruner_tpu_torch.data.shuffle import shuffled_indices
+from torchpruner_tpu_torch.parallel.mesh import is_writer
 from torchpruner_tpu_torch.train.logger import CSVLogger
-from torchpruner_tpu_torch.train.loop import Trainer
+from torchpruner_tpu_torch.train.loop import trainer_from_config
 from torchpruner_tpu_torch.utils.config import ExperimentConfig
 from torchpruner_tpu_torch.utils.device import (
     resolve_device,
@@ -91,6 +92,10 @@ def run_train(cfg: ExperimentConfig, *, model=None, datasets=None,
     dev = resolve_device(device)
     if dev.type == "cuda":
         strict_fp32_matmul()
+    if cfg.mesh:
+        from torchpruner_tpu_torch.parallel.mesh import rank_device
+
+        dev = rank_device(dev)
     if cfg.run_dir:
         from torchpruner_tpu_torch.resilience.runner import (
             run_resilient_train,
@@ -102,6 +107,15 @@ def run_train(cfg: ExperimentConfig, *, model=None, datasets=None,
         from torchpruner_tpu_torch.resilience import chaos
 
         chaos.configure(cfg.chaos)
+    mesh = None
+    data_size = 1
+    if cfg.mesh:
+        # training over the configured mesh (FSDP / TP placement, ZeRO);
+        # an epoch's ragged tail the data axis cannot split is dropped
+        from torchpruner_tpu_torch.parallel import make_mesh, mesh_axes
+
+        mesh = make_mesh(cfg.mesh, device=dev)
+        data_size = mesh_axes(mesh).get("data", 1)
     model, (train, _val, test) = resolve_model_and_data(cfg, model, datasets)
     tx = make_optimizer(cfg,
                         steps_per_epoch=max(1, len(train) // cfg.batch_size))
@@ -114,22 +128,27 @@ def run_train(cfg: ExperimentConfig, *, model=None, datasets=None,
         if verbose:
             print(f"[{cfg.name}] resumed from {cfg.checkpoint_path} at "
                   f"epoch {start_epoch}", flush=True)
-    trainer = Trainer.create(model, tx, LOSS_REGISTRY[cfg.loss],
-                             seed=cfg.seed, params=params, state=state,
-                             compute_dtype=compute_dtype(cfg.compute_dtype),
-                             device=dev, remat=cfg.remat,
-                             accum_steps=cfg.accum_steps)
-    if opt_state is not None:
-        trainer.opt_state = opt_state
+    trainer = trainer_from_config(cfg, model, tx, LOSS_REGISTRY[cfg.loss],
+                                  device=dev, mesh=mesh, params=params,
+                                  state=state, opt_state=opt_state)
     test_batches = test.batches(cfg.eval_batch_size)
     history = []
-    with CSVLogger(cfg.log_path, experiment=cfg.name) as logger:
+    verbose = verbose and is_writer()
+    with CSVLogger(cfg.log_path, experiment=cfg.name,
+                   enabled=is_writer()) as logger:
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
             with obs.span("train", epoch=epoch):
                 # losses stay on the device until the epoch ends
-                losses = [trainer.step(x, y)
-                          for x, y in epoch_batches(train, cfg, epoch)]
+                losses = []
+                for x, y in epoch_batches(train, cfg, epoch):
+                    if data_size > 1 and x.shape[0] % (
+                            data_size * cfg.accum_steps):
+                        obs.inc("mesh_ragged_drops_total",
+                                help="tail batches dropped because they "
+                                     "don't divide the mesh's data axis")
+                        continue
+                    losses.append(trainer.step(x, y))
                 losses = [float(l) for l in losses]
             with obs.span("eval", epoch=epoch):
                 test_loss, test_acc = trainer.evaluate(test_batches)
@@ -151,8 +170,12 @@ def run_train(cfg: ExperimentConfig, *, model=None, datasets=None,
                     (cfg.checkpoint_every_epochs
                      and (epoch + 1) % cfg.checkpoint_every_epochs == 0)
                     or epoch + 1 == cfg.epochs):
-                save_checkpoint(cfg.checkpoint_path, trainer.model,
-                                trainer.params, trainer.state,
-                                trainer.opt_state,
-                                extra={"epoch": epoch + 1})
+                # a sharded trainer's pieces gathered on every rank,
+                # written by rank 0
+                params, opt_state = (trainer.full_params(),
+                                     trainer.full_opt_state())
+                if is_writer():
+                    save_checkpoint(cfg.checkpoint_path, trainer.model,
+                                    params, trainer.state, opt_state,
+                                    extra={"epoch": epoch + 1})
     return trainer, history

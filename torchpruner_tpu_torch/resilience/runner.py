@@ -35,9 +35,7 @@ Recovery paths on the same machinery:
 
 Divergences from the JAX package: a training run that has committed
 nothing yet rolls back to its seeded start (the JAX package raises), so
-a first step that does not fit degrades too; a single writer and a local
-preemption flag (``_is_writer`` / ``_preempt_agreed``; the multi-process
-agreement waits for the port's parallelism); no compilation-cache
+a first step that does not fit degrades too; no compilation-cache
 quarantine on resume (the port has no persistent compilation cache); a
 run directory the JAX package wrote is refused on resume (its rng is a
 JAX key and its optimizer state does not cross), though its manifest
@@ -107,16 +105,32 @@ def rng_from_list(saved, device) -> torch.Generator:
 
 
 def _is_writer() -> bool:
-    """Single process: always the writer (the multi-process gate waits
-    for the port's parallelism)."""
-    return True
+    """Rank 0 writes checkpoints, manifests and results; the other ranks
+    of a distributed run keep their manifest in step without writing."""
+    from torchpruner_tpu_torch.parallel.mesh import is_writer
+
+    return is_writer()
 
 
 def _preempt_agreed(pre: PreemptionHandler, at_boundary: bool = True
                     ) -> bool:
-    """The preemption poll: single process, the local flag at any step
-    (``at_boundary`` is the JAX package's multi-process gate, unused
-    here)."""
+    """Mesh-safe preemption poll.  Single process: the local flag, any
+    time.  Distributed: only at ``at_boundary`` points every rank
+    reaches together (checkpoint cadence, epoch and round ends), where
+    rank 0's flag is broadcast, so a SIGTERM that reached one rank stops
+    every rank at the same step; gating the broadcast on a rank's own
+    flag would send the signalled rank into a collective the others
+    skip."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        from torchpruner_tpu_torch.parallel.collectives import (
+            broadcast_flag,
+            default_device,
+        )
+
+        return at_boundary and broadcast_flag(pre.requested,
+                                              default_device())
     return pre.requested
 
 
@@ -167,29 +181,33 @@ def commit_checkpoint(run_dir: str, manifest: RunManifest, trainer, *,
                       status: str = "running") -> None:
     """The 3-step commit of the module docstring.  Timed into
     ``checkpoint_write_seconds``; the checkpoint write is retry-wrapped
-    (transient filesystem errors)."""
-    if not _is_writer():
-        return
+    (transient filesystem errors).  A sharded trainer's trees are
+    gathered on every rank (a collective) and rank 0 alone writes; every
+    rank's manifest advances, and the ranks meet once the files are
+    down."""
     from torchpruner_tpu_torch.checkpoint import save_checkpoint
 
+    params, opt_state = trainer.full_params(), trainer.full_opt_state()
     manifest.commits = getattr(manifest, "commits", 0) + 1
     name = f"ckpt-{manifest.commits:06d}-s{int(trainer.step_count):08d}"
     path = os.path.join(run_dir, name)
-    t0 = time.perf_counter()
-    with obs.span("checkpoint_write", ckpt=name):
-        retry_call(
-            save_checkpoint, path, trainer.model, trainer.params,
-            trainer.state, trainer.opt_state,
-            step=int(trainer.step_count),
-            extra={"rng": rng_to_list(trainer.rng), "epoch": epoch,
-                   "batch_cursor": batch_cursor},
-            policy=_CKPT_RETRY, label="checkpoint_write")
-        fsync_dir(run_dir)  # the new directory's entry, before the manifest
-    obs.observe("checkpoint_write_seconds", time.perf_counter() - t0,
-                help="wall seconds per committed checkpoint write")
-    if chaos.active():
-        # fault injection after the write: the digest must catch it
-        chaos.corrupt_checkpoint_bytes(path)
+    if _is_writer():
+        t0 = time.perf_counter()
+        with obs.span("checkpoint_write", ckpt=name):
+            retry_call(
+                save_checkpoint, path, trainer.model, params,
+                trainer.state, opt_state,
+                step=int(trainer.step_count),
+                extra={"rng": rng_to_list(trainer.rng), "epoch": epoch,
+                       "batch_cursor": batch_cursor},
+                policy=_CKPT_RETRY, label="checkpoint_write")
+            # the directory's entry, before the manifest
+            fsync_dir(run_dir)
+        obs.observe("checkpoint_write_seconds", time.perf_counter() - t0,
+                    help="wall seconds per committed checkpoint write")
+        if chaos.active():
+            # fault injection after the write: the digest must catch it
+            chaos.corrupt_checkpoint_bytes(path)
     manifest.checkpoint = name
     manifest.step = int(trainer.step_count)
     manifest.epoch = epoch
@@ -199,9 +217,19 @@ def commit_checkpoint(run_dir: str, manifest: RunManifest, trainer, *,
     if records is not None:
         manifest.records = records
     manifest.status = status
-    retry_call(manifest.save, run_dir, policy=_CKPT_RETRY,
-               label="manifest_write")
-    manifest.gc_checkpoints(run_dir)
+    if _is_writer():
+        retry_call(manifest.save, run_dir, policy=_CKPT_RETRY,
+                   label="manifest_write")
+        manifest.gc_checkpoints(run_dir)
+    _barrier()
+
+
+def _barrier() -> None:
+    """Every rank of a distributed run waits here (no-op alone)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def restore_committed(run_dir: str, manifest: RunManifest, tx, device):
@@ -311,6 +339,18 @@ def run_resilient_train(cfg, *, model=None, datasets=None,
     if cfg.chaos:
         chaos.configure(cfg.chaos)
     dev = resolve_device(device)
+    verbose = verbose and _is_writer()
+    mesh = None
+    data_size = 1
+    if cfg.mesh:
+        # the same commit protocol over a ShardedTrainer: checkpoints
+        # gather on save, restore re-places every tree
+        from torchpruner_tpu_torch.parallel import make_mesh, mesh_axes
+        from torchpruner_tpu_torch.parallel.mesh import rank_device
+
+        dev = rank_device(dev)
+        mesh = make_mesh(cfg.mesh, device=dev)
+        data_size = mesh_axes(mesh).get("data", 1)
     run_dir = os.path.abspath(cfg.run_dir)
     os.makedirs(run_dir, exist_ok=True)
     manifest = RunManifest.load_or_new(run_dir, kind="train",
@@ -328,7 +368,7 @@ def run_resilient_train(cfg, *, model=None, datasets=None,
         # shapes
         return trainer_from_config(
             cfg, model, scaled_optimizer(cfg, spe, manifest.lr_scale),
-            loss_fn, device=dev, params=params, state=state,
+            loss_fn, device=dev, mesh=mesh, params=params, state=state,
             opt_state=opt_state, accum_steps=accum,
             grad_norm=cfg.obs_grad_norm, guard=guard)
 
@@ -360,7 +400,8 @@ def run_resilient_train(cfg, *, model=None, datasets=None,
     else:
         trainer = build_trainer()
 
-    logger = CSVLogger(cfg.log_path, experiment=cfg.name)
+    logger = CSVLogger(cfg.log_path, experiment=cfg.name,
+                       enabled=_is_writer())
     test_batches = test.batches(cfg.eval_batch_size)
     history: List[dict] = [dict(r) for r in manifest.records]
     # ledger continuity: epochs committed before the kill rehydrate from
@@ -444,6 +485,18 @@ def run_resilient_train(cfg, *, model=None, datasets=None,
                                         help="tail batches dropped "
                                              "because they don't divide "
                                              "the degraded accum_steps")
+                                continue
+                            if data_size > 1 and \
+                                    x.shape[0] % (data_size * accum):
+                                # a ragged tail the data axis cannot
+                                # split: dropped (counted), the cursor
+                                # kept on the stream
+                                cursor += 1
+                                obs.inc(
+                                    "resilience_mesh_ragged_drops_total",
+                                    help="tail batches dropped because "
+                                         "they don't divide the mesh's "
+                                         "data axis")
                                 continue
                             losses.append(trainer.step(x, y))
                             cursor += 1
@@ -666,10 +719,10 @@ class SweepJournal:
             m: [{k: (np.asarray(v).tolist() if hasattr(v, "__array__")
                      else v) for k, v in r.items()} for r in runs]
             for m, runs in layer_results.items()}
+        self.manifest.completed.append(layer)
         if _is_writer():
             retry_call(atomic_write_json, self.results_path, self.saved,
                        policy=_CKPT_RETRY, label="sweep_results")
-            self.manifest.completed.append(layer)
             self.manifest.save(self.run_dir)
         if _preempt_agreed(self.pre, at_boundary=True):
             self.manifest.status = "preempted"

@@ -57,8 +57,13 @@ class CSVLogger:
     path: str
     experiment: str = "experiment"
     _step: int = 0
+    #: False on every rank of a distributed run but the writer (rank 0):
+    #: no file is opened and rows are dropped
+    enabled: bool = True
 
     def __post_init__(self):
+        if not self.enabled:
+            return
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         self._fields = list(CSV_FIELDS)
         header_needed = True
@@ -180,6 +185,8 @@ class CSVLogger:
     def _write(self, row: dict):
         from torchpruner_tpu_torch import obs
 
+        if not self.enabled:
+            return
         row.setdefault("span_id", obs.current_span_id() or "")
         self._writer.writerow(row)
         self._csv_f.flush()

@@ -353,17 +353,40 @@ class Trainer:
         return evaluate(self.model, self.params, self.state, data,
                         self.loss_fn)
 
+    def full_params(self):
+        """The full params (``ShardedTrainer`` gathers its pieces)."""
+        return self.params
+
+    def full_opt_state(self):
+        """The full optimizer state (``ShardedTrainer`` gathers)."""
+        return self.opt_state
+
 
 def trainer_from_config(cfg, model, tx, loss_fn, *, device=None,
-                        params=None, state=None, opt_state=None,
+                        mesh=None, params=None, state=None, opt_state=None,
                         accum_steps: Optional[int] = None,
-                        grad_norm: bool = False, guard=None) -> Trainer:
-    """The trainer factory the resilient runner shares (the JAX
-    package's ``trainer_from_config`` without its mesh path): compute
-    dtype, remat, MoE aux weight and seed from ``cfg``.  Restored
-    ``params`` / ``state`` / ``opt_state`` are adopted at their actual
-    (possibly pruned) shapes, never re-initialized.  ``accum_steps``
-    overrides ``cfg.accum_steps`` (a manifest's OOM-doubled value)."""
+                        grad_norm: bool = False, guard=None):
+    """The one trainer factory the drivers share: a
+    ``parallel.ShardedTrainer`` over ``mesh`` (placement per
+    ``cfg.partition``, ZeRO per ``cfg.zero``) when a mesh is given, else
+    the single-device :class:`Trainer`; compute dtype, remat, MoE aux
+    weight and seed from ``cfg``.  Restored ``params`` / ``state`` /
+    ``opt_state`` (full trees) are adopted at their actual (possibly
+    pruned) shapes, never re-initialized.  ``accum_steps`` overrides
+    ``cfg.accum_steps`` (a manifest's OOM-doubled value)."""
+    if mesh is not None:
+        from torchpruner_tpu_torch.parallel import ShardedTrainer
+
+        return ShardedTrainer.create(
+            model, tx, loss_fn, mesh, seed=cfg.seed,
+            partition=cfg.partition, zero=cfg.zero,
+            compute_dtype=torch.bfloat16
+            if cfg.compute_dtype == "bfloat16" else None,
+            remat=cfg.remat,
+            accum_steps=cfg.accum_steps if accum_steps is None
+            else accum_steps, moe_aux_weight=cfg.moe_aux_weight,
+            grad_norm=grad_norm, guard=guard, params=params, state=state,
+            opt_state=opt_state, device=device)
     t = Trainer.create(
         model, tx, loss_fn, seed=cfg.seed, params=params, state=state,
         compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16"

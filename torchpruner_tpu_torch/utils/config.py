@@ -270,7 +270,5 @@ class ExperimentConfig:
 
 #: (field, default, ROADMAP item) of the settings the port does not run
 _UNPORTED = (
-    ("mesh", {}, "ROADMAP A7 (parallelism)"),
-    ("zero", False, "ROADMAP A7 (parallelism)"),
     ("plot_dir", "", "ROADMAP A8b (the sweep's figures)"),
 )
