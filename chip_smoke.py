@@ -299,13 +299,15 @@ for phase 21's trace, and the card's memory to themselves.
     (``block12_mlp/``, ``block11_mlp/``) and to synthetic GLUE-SST2 splits
     written to a temporary ``TORCHPRUNER_TPU_DATA_DIR``, SGD with
     momentum 0.9: for a bf16 retrain 320 / 256 / 128 examples (10 steps a
-    target at B 32, two f32 scoring batches and one test batch of 128),
-    for an f32 retrain 64 / 128 / 32 (2 steps a target, one batch
-    each).  Two torchrun launches of the CLI (``--parallel-worker``: the
+    target at B 32, two f32 scoring batches and one test batch of 128;
+    the two-rank bf16 runs and their reference "plain_5" 160 / 256 /
+    128, 5 steps a target, which makes room for phase 31 in their
+    launch), for an f32 retrain 64 / 128 / 32 (2 steps a target, one
+    batch each).  Two torchrun launches of the CLI (``--parallel-worker``: the
     CLI in process, its losses, scores, drops, flash launches by kernel,
     dtype and shape, and the sharded trainer's held bytes against its
     memory plan recorded): (a) one rank over NCCL, the config without a mesh in
-    bf16 ("plain") and in f32 ("f32_plain"), then mesh ``{"data": 1}``
+    bf16 ("plain", "plain_5") and in f32 ("f32_plain"), then mesh ``{"data": 1}``
     with ``fsdp`` and with ``tp`` in bf16; (b) two ranks sharing the card
     over gloo (NCCL refuses two ranks on one device): in bf16
     ``{"data": 2}`` with ZeRO off and on, ``{"model": 2}`` with ``fsdp``
@@ -313,14 +315,16 @@ for phase 21's trace, and the card's memory to themselves.
     ``tp``.  Held: every run's held parameter and optimizer bytes equal
     its plan at every placement, ZeRO's optimizer bytes at most half the
     replicated run's, the flash kernels of its dtypes launched on every
-    rank, every retrain loss finite (20 bf16, 4 f32), the widths of the
+    rank, every retrain loss finite (20 bf16, 10 at 5 steps a target, 4
+    f32), the widths of the
     reference run, the first target's f32 scores (scored before any
     retraining) within 1e-5 relative of the reference's with the same
     drops, and the retrain shapes of the plan (B 16 on a data axis of 2,
     6 of 12 heads under tensor parallelism, else B 32 and 12 heads).  In
     bf16, the first retrain loss within 2**-7 relative of the plain
-    run's, and bit for bit (losses, drops, records): ``{"data": 1}`` both
-    ways and ``{"model": 2}`` FSDP against the plain run, ZeRO against
+    run's of its split, and bit for bit (losses, drops, records):
+    ``{"data": 1}`` both ways against "plain", ``{"model": 2}`` FSDP
+    against "plain_5", ZeRO against
     ``{"data": 2}`` without it; the later steps' drift (bf16 products
     over other row or head groupings) is recorded, not held.  In f32,
     where only the order of f32 sums differs, the data-parallel and
@@ -328,9 +332,37 @@ for phase 21's trace, and the card's memory to themselves.
     relative of f32_plain's, the second target's scores (after two
     sharded updates) within 1e-4 with the same drops.
 
+31. Sequence and pipeline parallelism (``parallel/ring.py``,
+    ``ulysses.py``, ``sp.py``, ``pipeline.py``, ``pp_spmd.py``) on
+    mfu_llama at full width (dim 1024, 8 blocks, 8 heads, Dh 128, FFN
+    4096, vocab 32000), B 8, S 1024, the weights of ``init_model`` at
+    seed 0 and one token batch, Adam at 1e-4.  In phase 30's two-rank
+    launch (gloo, the card shared), after its CLI runs: ``SPTrainer``
+    on ``{"data": 1, "seq": 2}``, ring and Ulysses, 3 bf16 steps each,
+    then 2 f32 steps each; ``pp_spmd_train_step`` on ``{"pp": 2}`` with
+    4 microbatches at V 1 and V 2, 3 bf16 steps each, and 2 f32 steps at
+    V 2.  Beside that launch, in phase 30's child: the plain ``Trainer``
+    (the reference: 3 bf16 and 3 f32 steps), ``PipelineParallel`` with 2
+    stages both on the card (4 microbatches, 3 f32 steps), and the
+    flash kernels at the slice's new shapes against their plain versions
+    (Ulysses: q (8, 1024, 4, 128); a pipeline stage: (2, 1024, 8, 128);
+    bf16 and f32, causal).  Held: every param and optimizer leaf and the
+    loss on the card; Ulysses launches B1-B3 of its dtype on every rank
+    at (8, 1024, 4, 128), one each a block and step; ring launches no
+    flash kernel; a pipeline rank launches B1-B3 at (2, 1024, 8, 128)
+    only, ``steps x microbatches x depth / stages`` each (bubble ticks
+    compute nothing), and ``PipelineParallel`` ``steps x microbatches x
+    depth``; a ``pp`` rank holds exactly the params of ``pre``, ``post``
+    and its own blocks (V 2: chunks ``v S + d``) and twice those bytes
+    of Adam moments; SP ranks hold bit-identical params after every
+    step; bf16 first losses within 2**-7 relative of the reference's
+    (the later steps' drift recorded); f32 losses within 1e-5 (SP) and
+    1e-4 (PP) relative; ``max_live_residuals[s] <= n_stages - s``.
+
 ``python3 chip_smoke.py --obs-slice`` runs phases 3, 7, 8, 27 and 28
 alone (the kernels built first); ``python3 chip_smoke.py
---resilience-slice`` runs phase 29 alone, ``--parallel-slice`` phase 30.
+--resilience-slice`` runs phase 29 alone, ``--parallel-slice`` phases 30
+and 31, ``--sp-pp-slice`` phase 31 alone.
 
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -4471,24 +4503,29 @@ def finish_resilience_child(started) -> dict:
 # ---------------------------------------------------------------- phase 30
 
 #: phase 30's targets, and its synthetic GLUE-SST2 splits (examples) by
-#: retrain dtype: bf16, 10 retrain steps a target at B 32, two scoring
-#: batches of 128 and one test batch; f32, 2 steps a target, one scoring
-#: batch of 128, one test batch of 32 (over gloo every activation a
-#: tensor-parallel evaluation reduces goes through the host)
+#: name, with the retrain dtype: "bf16", 10 retrain steps a target at B
+#: 32, two scoring batches of 128 and one test batch; "bf16_5", the same
+#: at 5 steps a target (the two-rank bf16 runs: two ranks sharing the
+#: card over gloo are host-bound, and phase 31 rides their launch);
+#: "f32", 2 steps a target, one scoring batch of 128, one test batch of
+#: 32 (over gloo every activation a tensor-parallel evaluation reduces
+#: goes through the host)
 P30_TARGETS = ("block12_mlp/", "block11_mlp/")
-P30_SPLITS = {"bfloat16": {"train": 320, "val": 256, "test": 128},
-              "float32": {"train": 64, "val": 128, "test": 32}}
-#: (tag, mesh, partition, zero, ranks, retrain dtype); "plain" and
-#: "f32_plain" (no mesh, one rank) are the references
+P30_SPLITS = {
+    "bf16": ("bfloat16", {"train": 320, "val": 256, "test": 128}),
+    "bf16_5": ("bfloat16", {"train": 160, "val": 256, "test": 128}),
+    "f32": ("float32", {"train": 64, "val": 128, "test": 32})}
+#: (tag, mesh, partition, zero, ranks, split); "plain", "plain_5" and
+#: "f32_plain" (no mesh, one rank) are the references of the splits
 P30_RUNS = (
-    ("data1_fsdp", {"data": 1}, "fsdp", False, 1, "bfloat16"),
-    ("data1_tp", {"data": 1}, "tp", False, 1, "bfloat16"),
-    ("data2", {"data": 2}, "fsdp", False, 2, "bfloat16"),
-    ("data2_zero", {"data": 2}, "fsdp", True, 2, "bfloat16"),
-    ("model2_fsdp", {"model": 2}, "fsdp", False, 2, "bfloat16"),
-    ("model2_tp", {"model": 2}, "tp", False, 2, "bfloat16"),
-    ("f32_data2", {"data": 2}, "fsdp", False, 2, "float32"),
-    ("f32_model2_tp", {"model": 2}, "tp", False, 2, "float32"),
+    ("data1_fsdp", {"data": 1}, "fsdp", False, 1, "bf16"),
+    ("data1_tp", {"data": 1}, "tp", False, 1, "bf16"),
+    ("data2", {"data": 2}, "fsdp", False, 2, "bf16_5"),
+    ("data2_zero", {"data": 2}, "fsdp", True, 2, "bf16_5"),
+    ("model2_fsdp", {"model": 2}, "fsdp", False, 2, "bf16_5"),
+    ("model2_tp", {"model": 2}, "tp", False, 2, "bf16_5"),
+    ("f32_data2", {"data": 2}, "fsdp", False, 2, "f32"),
+    ("f32_model2_tp", {"model": 2}, "tp", False, 2, "f32"),
 )
 #: relative tolerances against the reference run: an f32 run's every
 #: retrain loss; the f32 scores of the first target (before any update,
@@ -4537,9 +4574,11 @@ def parallel_worker(out_dir: str, runs) -> int:
             orig(name, ptrs, strides, q, causal)
             key = f"{name.replace('tp_flash_', '')}:" \
                   f"{str(q.dtype).split('.')[-1]}"
-            rec["launches"][key] = rec["launches"].get(key, 0) + 1
+            launches = rec.setdefault("launches", {})
+            launches[key] = launches.get(key, 0) + 1
             shape = f"{key}:B{q.shape[0]}:H{q.shape[2]}"
-            rec["shapes"][shape] = rec["shapes"].get(shape, 0) + 1
+            shapes = rec.setdefault("shapes", {})
+            shapes[shape] = shapes.get(shape, 0) + 1
         return f
 
     def stepper(orig):
@@ -4575,6 +4614,9 @@ def parallel_worker(out_dir: str, runs) -> int:
     patch(AttributionMetric, "run", scorer)
     with stack:
         for tag, path, data_dir in zip(runs[::3], runs[1::3], runs[2::3]):
+            if tag == "phase31":
+                sp_pp_worker(out_dir)
+                continue
             os.environ["TORCHPRUNER_TPU_DATA_DIR"] = data_dir
             rec.clear()
             rec.update(losses=[], scores=[], launches={}, shapes={},
@@ -4622,12 +4664,20 @@ def _p30_data(data_dir: str, splits) -> None:
                 np.asarray(ds.y))
 
 
-def _p30_launch(runs, ranks: int, tmp: str, env) -> dict:
+def _p30_launch(runs, ranks: int, tmp: str, env, meanwhile=None) -> dict:
     """One ``torchrun --standalone --nproc_per_node ranks`` of the
-    worker over ``runs`` (``[(tag, cfg, data_dir)]``); per tag, the
-    ranks' records and the run's CSV rows, and the launch's wall."""
+    worker over ``runs`` (``[(tag, cfg, data_dir)]``; the tag
+    ``"phase31"`` with no config runs phase 31's SP and PP runs); per
+    tag, the ranks' records and the run's CSV rows, the launch's wall,
+    and under ``"meanwhile"`` what ``meanwhile()`` returned, called in
+    this process while the launch runs."""
+    import tempfile
+
     argv = []
     for tag, cfg, data_dir in runs:
+        if cfg is None:
+            argv += [tag, "-", "-"]
+            continue
         path = os.path.join(tmp, f"{tag}.json")
         cfg.to_json(path)
         argv += [tag, path, data_dir]
@@ -4635,19 +4685,31 @@ def _p30_launch(runs, ranks: int, tmp: str, env) -> dict:
            "--nproc_per_node", str(ranks), os.path.abspath(__file__),
            "--parallel-worker", tmp, *argv]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
-                          text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"phase 30 {[r[0] for r in runs]}: exit {proc.returncode}\n"
-             f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
-    out = {"wall_s": wall}
+    with tempfile.TemporaryFile("w+") as so, \
+            tempfile.TemporaryFile("w+") as se:
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=so,
+                                stderr=se, text=True)
+        try:
+            side = meanwhile() if meanwhile is not None else None
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            so.seek(0)
+            se.seek(0)
+            fail(f"phase 30 {[r[0] for r in runs]}: exit {rc}\n"
+                 f"{so.read()[-3000:]}\n{se.read()[-5000:]}")
+    out = {"wall_s": wall, "meanwhile": side}
     for tag, cfg, _ in runs:
         recs = []
         for r in range(ranks):
             with open(os.path.join(tmp, f"{tag}.{r}.json")) as f:
                 recs.append(json.load(f))
-        out[tag] = {"ranks": recs, "rows": _csv_rows(cfg.log_path)}
+        out[tag] = {"ranks": recs,
+                    "rows": None if cfg is None else _csv_rows(cfg.log_path)}
     return out
 
 
@@ -4677,51 +4739,59 @@ def parallel_phase(dev, smi: str) -> dict:
     out = {"card": smi, "hbm_bytes": hbm, "runs": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_p30_") as tmp:
         data_dirs = {}
-        for dtype, splits in P30_SPLITS.items():
-            data_dirs[dtype] = os.path.join(tmp, f"data_{dtype}")
-            _p30_data(data_dirs[dtype], splits)
+        for split, (_, sizes) in P30_SPLITS.items():
+            data_dirs[split] = os.path.join(tmp, f"data_{split}")
+            _p30_data(data_dirs[split], sizes)
         # one CPU thread a rank: in the whole script phase 30 shares the
         # host with host-bound phases 16-20
         env = dict(os.environ, OMP_NUM_THREADS="1")
 
-        def run_for(tag, mesh, partition, zero, dtype):
+        def run_for(tag, mesh, partition, zero, split):
             # SGD with momentum: an optimizer state for ZeRO to shard
+            dtype, sizes = P30_SPLITS[split]
             cfg = dataclasses.replace(
                 base, finetune_epochs=1, target_filter=P30_TARGETS,
-                score_examples=P30_SPLITS[dtype]["val"], mesh=mesh,
+                score_examples=sizes["val"], mesh=mesh,
                 partition=partition, zero=zero, momentum=0.9,
                 compute_dtype=dtype, log_path=os.path.join(tmp, f"{tag}.csv"))
-            return tag, cfg, data_dirs[dtype]
+            return tag, cfg, data_dirs[split]
 
         def strip(rows):
             return [{k: v for k, v in r.items()
                      if k not in ("timestamp", "prune_time", "span_id")}
                     for r in rows]
 
-        runs = {1: [run_for("plain", {}, "fsdp", False, "bfloat16"),
-                    run_for("f32_plain", {}, "fsdp", False, "float32")],
-                2: []}
-        for tag, mesh, partition, zero, ranks, dtype in P30_RUNS:
-            runs[ranks].append(run_for(tag, mesh, partition, zero, dtype))
+        #: the reference run of each split
+        refs = {"bf16": "plain", "bf16_5": "plain_5", "f32": "f32_plain"}
+        runs = {1: [run_for(tag, {}, "fsdp", False, split)
+                    for split, tag in refs.items()], 2: []}
+        for tag, mesh, partition, zero, ranks, split in P30_RUNS:
+            runs[ranks].append(run_for(tag, mesh, partition, zero, split))
+        # phase 31's SP and PP runs ride the same two-rank launch
+        runs[2].append(("phase31", None, None))
         done = {}
         for ranks in (1, 2):
-            got = _p30_launch(runs[ranks], ranks, tmp, env)
+            # phase 31's runs in this process go beside the two-rank launch
+            got = _p30_launch(runs[ranks], ranks, tmp, env,
+                              meanwhile=(lambda: sp_pp_local(dev))
+                              if ranks == 2 else None)
+            p31_local = got.pop("meanwhile")
             out[f"launch_wall_s_{ranks}_rank"] = got.pop("wall_s")
             log(f"phase 30: {len(runs[ranks])} runs on {ranks} rank(s) in "
                 f"{out[f'launch_wall_s_{ranks}_rank']:.1f} s")
             done.update(got)
-        #: retrain steps and the flash keys every run launches, by dtype
-        n_steps = {"bfloat16": 20, "float32": 4}
+        #: retrain steps by split, and the flash keys every run launches,
+        #: by dtype
+        n_steps = {"bf16": 20, "bf16_5": 10, "f32": 4}
         keys = {"bfloat16": ("fwd:float32", "fwd:bfloat16", "dq:bfloat16",
                              "dkv:bfloat16"),
                 "float32": ("fwd:float32", "dq:float32", "dkv:float32")}
-        refs = {"bfloat16": "plain", "float32": "f32_plain"}
-        for dtype, tag in refs.items():
+        for split, tag in refs.items():
             r0 = done[tag]["ranks"][0]
-            if len(r0["losses"]) != n_steps[dtype] or not all(
+            if len(r0["losses"]) != n_steps[split] or not all(
                     math.isfinite(x) for x in r0["losses"]):
                 fail(f"phase 30 {tag}: losses {r0['losses']}")
-            for key in keys[dtype]:
+            for key in keys[P30_SPLITS[split][0]]:
                 if not r0["launches"].get(key):
                     fail(f"phase 30 {tag}: no {key} launch: "
                          f"{r0['launches']}")
@@ -4736,12 +4806,14 @@ def parallel_phase(dev, smi: str) -> dict:
         #: whole batch on gathered params), compute what the plain run
         #: computes; ZeRO changes where the update is held, not a sum
         same_as = {"data1_fsdp": "plain", "data1_tp": "plain",
-                   "model2_fsdp": "plain", "data2_zero": "data2"}
-        for tag, mesh, partition, zero, ranks, dtype in P30_RUNS:
-            run, ref = done[tag], done[refs[dtype]]
+                   "model2_fsdp": "plain_5", "data2_zero": "data2"}
+        for tag, mesh, partition, zero, ranks, split in P30_RUNS:
+            run, ref = done[tag], done[refs[split]]
             r0 = ref["ranks"][0]
+            dtype = P30_SPLITS[split][0]
             res = {"mesh": mesh, "partition": partition, "zero": zero,
-                   "ranks": ranks, "dtype": dtype, "per_rank": []}
+                   "ranks": ranks, "dtype": dtype, "split": split,
+                   "reference": refs[split], "per_rank": []}
             for r, rr in enumerate(run["ranks"]):
                 for key in keys[dtype]:
                     if not rr["launches"].get(key):
@@ -4750,7 +4822,7 @@ def parallel_phase(dev, smi: str) -> dict:
                     if (b["params"], b["opt"]) != (b["plan_params"],
                                                    b["plan_opt"]):
                         fail(f"phase 30 {tag} rank {r}: held bytes {b}")
-                if len(rr["losses"]) != n_steps[dtype] or not all(
+                if len(rr["losses"]) != n_steps[split] or not all(
                         math.isfinite(x) for x in rr["losses"]):
                     fail(f"phase 30 {tag} rank {r}: retrain losses "
                          f"{rr['losses']}")
@@ -4767,6 +4839,8 @@ def parallel_phase(dev, smi: str) -> dict:
                          for x, y in zip(rr["losses"], r0["losses"])]
                 res.setdefault("loss_rel_first_step", []).append(steps[0])
                 res.setdefault("loss_rel_max", []).append(max(steps))
+                # where a bf16 run's drift arises: rank 0's every step
+                res.setdefault("loss_rel_steps", steps)
                 # the first target is scored before any retraining, the
                 # second (f32 only) after the first target's updates
                 held = 1 if dtype == "bfloat16" else len(P30_TARGETS)
@@ -4820,6 +4894,342 @@ def parallel_phase(dev, smi: str) -> dict:
         out["zero_opt_bytes"] = {"replicated": full, "zero": held}
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase 30: {out['wall_s']:.1f} s ({smi})")
+    out["sp_pp"] = sp_pp_phase(dev, smi, done["phase31"]["ranks"],
+                               p31_local)
+    return out
+
+
+# ---------------------------------------------------------------- phase 31
+
+#: phase 31's batch (B, S), Adam's rate and the pipelines' microbatches
+P31_BATCH = (8, 1024)
+P31_LR = 1e-4
+P31_M = 4
+#: (tag, kind, ring / ulysses or V, dtype, steps) of the two-rank runs
+P31_RUNS = (
+    ("sp_ring_bf16", "sp", "ring", "bfloat16", 3),
+    ("sp_ulysses_bf16", "sp", "ulysses", "bfloat16", 3),
+    ("sp_ring_f32", "sp", "ring", "float32", 2),
+    ("sp_ulysses_f32", "sp", "ulysses", "float32", 2),
+    ("pp_v1_bf16", "pp", 1, "bfloat16", 3),
+    ("pp_v2_bf16", "pp", 2, "bfloat16", 3),
+    ("pp_v2_f32", "pp", 2, "float32", 2),
+)
+#: f32 losses against the reference's, relative: SP (only the order of
+#: f32 sums differs), PP (the JAX test's bound for PP against one device)
+P31_F32_RTOL = {"sp": 1e-5, "pp": 1e-4}
+#: the flash kernels at the slice's shapes: Ulysses (B, S, H / 2, Dh) and
+#: a pipeline stage (B / 4, S, H, Dh)
+P31_FLASH = (("ulysses_bf16", 8, 1024, 4, 128, "bfloat16", True),
+             ("ulysses_f32", 8, 1024, 4, 128, "float32", True),
+             ("pp_stage_bf16", 2, 1024, 8, 128, "bfloat16", True),
+             ("pp_stage_f32", 2, 1024, 8, 128, "float32", True))
+
+
+def p31_tokens():
+    import numpy as np
+
+    return np.random.default_rng(31).integers(
+        0, 32000, size=P31_BATCH).astype(np.int32)
+
+
+class _FlashShapes:
+    """Counts the flash launches by ``kernel:dtype:BxSxHxDh`` while
+    entered (wraps the wrappers' launch hook)."""
+
+    def __enter__(self):
+        from torchpruner_tpu_torch.ops import flash_attention as FA
+
+        self.counts, self._orig = {}, FA._launch
+
+        def launch(name, ptrs, strides, q, causal):
+            self._orig(name, ptrs, strides, q, causal)
+            key = (f"{name.replace('tp_flash_', '')}:"
+                   f"{str(q.dtype).split('.')[-1]}:"
+                   + "x".join(str(n) for n in q.shape))
+            self.counts[key] = self.counts.get(key, 0) + 1
+
+        FA._launch = launch
+        return self.counts
+
+    def __exit__(self, *exc):
+        from torchpruner_tpu_torch.ops import flash_attention as FA
+
+        FA._launch = self._orig
+
+
+def _replicas_equal(tree) -> bool:
+    """Every rank of the world holds ``tree`` bit for bit (rank 0's
+    bytes broadcast and compared; every rank calls)."""
+    import torch
+    import torch.distributed as dist
+
+    from torchpruner_tpu_torch.utils.tree import tree_leaves
+
+    mine = torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8)
+                      for t in tree_leaves(tree)
+                      if isinstance(t, torch.Tensor)])
+    ref = mine.clone()
+    dist.broadcast(ref, src=0)
+    same = torch.tensor([int(torch.equal(mine, ref))], device=mine.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    return bool(same.item())
+
+
+def sp_pp_worker(out_dir: str) -> None:
+    """One rank of phase 31's two-rank runs (module docstring); its
+    records go to ``OUT_DIR/phase31.<rank>.json``."""
+    import torch
+
+    from torchpruner_tpu_torch.core.segment import init_model
+    from torchpruner_tpu_torch.models import mfu_llama
+    from torchpruner_tpu_torch.parallel import (
+        SPTrainer,
+        make_mesh,
+        pp_spmd_train_step,
+        stage_params,
+    )
+    from torchpruner_tpu_torch.parallel.memory import held_bytes
+    from torchpruner_tpu_torch.parallel.mesh import rank, rank_device
+    from torchpruner_tpu_torch.train import optim
+    from torchpruner_tpu_torch.utils.device import strict_fp32_matmul
+    from torchpruner_tpu_torch.utils.losses import lm_cross_entropy_loss
+    from torchpruner_tpu_torch.utils.tree import tree_leaves
+
+    strict_fp32_matmul()
+    dev = rank_device("cuda")
+    model = mfu_llama()
+    tokens = p31_tokens()
+    meshes = {"sp": make_mesh({"data": 1, "seq": 2}),
+              "pp": make_mesh({"pp": 2})}
+    out = {}
+    for tag, kind, how, dtn, steps in P31_RUNS:
+        cd = None if dtn == "float32" else getattr(torch, dtn)
+        r = {"losses": []}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _FlashShapes() as shapes:
+            if kind == "sp":
+                t = SPTrainer.create(model, optim.adam(P31_LR),
+                                     meshes["sp"], seed=0, impl=how,
+                                     compute_dtype=cd)
+                r["same"] = []
+                for _ in range(steps):
+                    loss = t.step(tokens)
+                    r["losses"].append(float(loss))
+                    r["same"].append(_replicas_equal(t.params))
+                trees = (t.params, t.opt_state)
+                del t
+            else:
+                mesh = meshes["pp"]
+                p = stage_params(model, init_model(model, 0, device=dev)[0],
+                                 mesh=mesh, interleave=how)
+                tx = optim.adam(P31_LR)
+                s = tx.init(p)
+                step = pp_spmd_train_step(
+                    model, tx, lm_cross_entropy_loss, mesh=mesh,
+                    n_microbatches=P31_M, compute_dtype=cd,
+                    interleave=how)
+                r["layers"] = sorted(p)
+                r["param_bytes"], r["opt_bytes"] = held_bytes(p), \
+                    held_bytes(s)
+                for _ in range(steps):
+                    p, s, loss = step(p, s, tokens)
+                    r["losses"].append(float(loss))
+                trees = (p, s)
+                del p, s
+            torch.cuda.synchronize()
+        r["wall_s"] = time.perf_counter() - t0
+        r["on_card"] = loss.device.type == "cuda" and all(
+            x.device.type == "cuda" for x in tree_leaves(trees)
+            if isinstance(x, torch.Tensor))
+        r["shapes"] = shapes
+        out[tag] = r
+        del trees, loss
+        torch.cuda.empty_cache()
+        log(f"phase 31 rank {rank()} {tag}: losses {r['losses']} in "
+            f"{r['wall_s']:.1f} s, flash {shapes}")
+    with open(os.path.join(out_dir, f"phase31.{rank()}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _p31_reference(dev, model, dtn: str, steps: int) -> dict:
+    """The plain ``Trainer`` on one process: ``steps`` Adam steps."""
+    import torch
+
+    from torchpruner_tpu_torch.train import optim
+    from torchpruner_tpu_torch.train.loop import Trainer
+    from torchpruner_tpu_torch.utils.losses import lm_cross_entropy_loss
+
+    tokens = p31_tokens()
+    cd = None if dtn == "float32" else getattr(torch, dtn)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _FlashShapes() as shapes:
+        t = Trainer.create(model, optim.adam(P31_LR), lm_cross_entropy_loss,
+                           seed=0, compute_dtype=cd, device=dev)
+        losses = [float(t.step(tokens, tokens)) for _ in range(steps)]
+        torch.cuda.synchronize()
+    del t
+    torch.cuda.empty_cache()
+    return {"losses": losses, "shapes": shapes,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _p31_expected_layers(model, V: int, d: int, n_stages: int = 2):
+    """The top-level layers a ``pp`` rank must hold: the embedding, the
+    final norm and head, and block ``b`` (0-based) where its chunk
+    ``b // cb`` is ``d`` mod ``n_stages``."""
+    depth = 8
+    cb = depth // (n_stages * V)
+    own = [b for b in range(depth) if (b // cb) % n_stages == d]
+    names = ["tok_emb", "final_norm", "lm_head"]
+    names += [f"block{b + 1}_{part}" for b in own for part in ("attn",
+                                                               "ffn")]
+    return sorted(n for n in names if n in model.param_shapes())
+
+
+def _numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    return math.prod(tree)
+
+
+def sp_pp_local(dev) -> dict:
+    """Phase 31's part in one process: the flash kernels at the slice's
+    shapes, the plain ``Trainer`` reference and ``PipelineParallel``
+    (held against the reference here)."""
+    import torch
+
+    from torchpruner_tpu_torch.core.segment import init_model
+    from torchpruner_tpu_torch.models import mfu_llama
+    from torchpruner_tpu_torch.parallel import PipelineParallel
+    from torchpruner_tpu_torch.train import optim
+    from torchpruner_tpu_torch.utils.losses import lm_cross_entropy_loss
+    from torchpruner_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    model = mfu_llama()
+    depth, M = 8, P31_M
+    out = {"runs": {}}
+    log("phase 31: flash kernels at the Ulysses and pipeline-stage shapes")
+    out["flash"] = {c[0]: flash_case(dev, *c) for c in P31_FLASH}
+    ref = {"bfloat16": _p31_reference(dev, model, "bfloat16", 3),
+           "float32": _p31_reference(dev, model, "float32", 3)}
+    out["reference"] = ref
+    log(f"phase 31 reference: bf16 {ref['bfloat16']['losses']} f32 "
+        f"{ref['float32']['losses']}")
+    for dtn, r in ref.items():
+        if not all(math.isfinite(x) for x in r["losses"]):
+            fail(f"phase 31 reference {dtn}: losses {r['losses']}")
+
+    # PipelineParallel: 2 stages both on the card, 4 microbatches, f32
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _FlashShapes() as shapes:
+        pp = PipelineParallel.create(
+            model, 2, loss_fn=lm_cross_entropy_loss,
+            tx=optim.adam(P31_LR), devices=[dev, dev],
+            params=init_model(model, 0, device=dev)[0], n_microbatches=M)
+        tokens = p31_tokens()
+        losses = [pp.train_step(tokens, tokens) for _ in range(3)]
+        torch.cuda.synchronize()
+    stats = pp.last_step_stats
+    on_card = all(t.device.type == "cuda" for t in tree_leaves(
+        (pp.stage_params, pp.opt_state)) if isinstance(t, torch.Tensor))
+    res = {"losses": losses, "shapes": shapes,
+           "max_live_residuals": stats["max_live_residuals"],
+           "spans": pp.spans, "on_card": on_card,
+           "wall_s": time.perf_counter() - t0}
+    del pp
+    torch.cuda.empty_cache()
+    expect = {f"{k}:float32:2x1024x8x128": 3 * M * depth
+              for k in ("fwd", "dq", "dkv")}
+    if shapes != expect:
+        fail(f"phase 31 PipelineParallel: flash launches {shapes}, want "
+             f"{expect}")
+    if not on_card:
+        fail("phase 31 PipelineParallel: a leaf off the card")
+    for s, peak in enumerate(res["max_live_residuals"]):
+        if peak > 2 - s:
+            fail(f"phase 31 PipelineParallel: stage {s} held {peak} "
+                 f"residuals")
+    res["loss_rel"] = [abs(x - y) / abs(y) for x, y in
+                       zip(losses, ref["float32"]["losses"])]
+    if max(res["loss_rel"]) > P31_F32_RTOL["pp"]:
+        fail(f"phase 31 PipelineParallel: losses {losses} vs "
+             f"{ref['float32']['losses']}")
+    out["runs"]["pipeline_parallel"] = res
+    log(f"phase 31 PipelineParallel: {json.dumps(res)}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def sp_pp_phase(dev, smi: str, ranks, local=None) -> dict:
+    """Phase 31 (module docstring): the two-rank records in ``ranks``
+    held against the reference of ``local`` (:func:`sp_pp_local`'s
+    result; run here when None); every check."""
+    from torchpruner_tpu_torch.models import mfu_llama
+
+    t_phase = time.perf_counter()
+    if local is None:
+        local = sp_pp_local(dev)
+    model = mfu_llama()
+    depth, M, S = 8, P31_M, 2
+    ref = local["reference"]
+    out = {"card": smi, "flash": local["flash"], "reference": ref,
+           "runs": dict(local["runs"]), "local_wall_s": local["wall_s"]}
+    for tag, kind, how, dtn, steps in P31_RUNS:
+        want_l = ref[dtn]["losses"][:steps]
+        res = {"kind": kind, "how": how, "dtype": dtn, "per_rank": []}
+        for r, rr in enumerate(ranks):
+            got = rr[tag]
+            if len(got["losses"]) != steps or not all(
+                    math.isfinite(x) for x in got["losses"]):
+                fail(f"phase 31 {tag} rank {r}: losses {got['losses']}")
+            if not got["on_card"]:
+                fail(f"phase 31 {tag} rank {r}: a leaf off the card")
+            rel = [abs(x - y) / abs(y) for x, y in zip(got["losses"],
+                                                        want_l)]
+            if dtn == "float32" and max(rel) > P31_F32_RTOL[kind]:
+                fail(f"phase 31 {tag} rank {r}: f32 losses {got['losses']} "
+                     f"vs {want_l}")
+            if dtn == "bfloat16" and rel[0] > 2 ** -7:
+                fail(f"phase 31 {tag} rank {r}: first loss "
+                     f"{got['losses'][0]} vs {want_l[0]}")
+            # ring: no flash kernel; Ulysses: one launch of each a block
+            # and step; a pipeline rank: its depth / S blocks for each of
+            # the M microbatches a step (bubble ticks compute nothing)
+            if kind == "sp" and how == "ring":
+                want = {}
+            elif kind == "sp":
+                want = {f"{k}:{dtn}:8x1024x4x128": steps * depth
+                        for k in ("fwd", "dq", "dkv")}
+            else:
+                want = {f"{k}:{dtn}:2x1024x8x128": steps * M * depth // S
+                        for k in ("fwd", "dq", "dkv")}
+            if got["shapes"] != want:
+                fail(f"phase 31 {tag} rank {r}: flash launches "
+                     f"{got['shapes']}, want {want}")
+            if kind == "sp" and not all(got["same"]):
+                fail(f"phase 31 {tag} rank {r}: ranks' params differ after "
+                     f"a step: {got['same']}")
+            if kind == "pp":
+                names = _p31_expected_layers(model, how, r)
+                shapes_p = model.param_shapes()
+                want_b = 4 * sum(_numel(shapes_p[n]) for n in names)
+                if got["layers"] != names or got["param_bytes"] != want_b \
+                        or not 0 <= got["opt_bytes"] - 2 * want_b <= 64:
+                    fail(f"phase 31 {tag} rank {r}: holds {got['layers']} "
+                         f"{got['param_bytes']} / {got['opt_bytes']} bytes, "
+                         f"want {names} {want_b} / 2x")
+            res["per_rank"].append({**got, "loss_rel": rel})
+        out["runs"][tag] = res
+        log(f"phase 31 {tag}: loss rel "
+            f"{[p['loss_rel'] for p in res['per_rank']]}, walls "
+            f"{[p['wall_s'] for p in res['per_rank']]}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase 31: {out['wall_s']:.1f} s in this process ({smi})")
     return out
 
 
@@ -4939,9 +5349,21 @@ def main() -> int:
         print(json.dumps(out), flush=True)
         return 0
     if sys.argv[1:] in (["--parallel-slice"], ["--parallel-child"]):
-        # phase 30 alone, or as the whole script's child
+        # phases 30 and 31 alone, or as the whole script's child
         _build.build()
         out = parallel_phase(dev, smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s ({smi})")
+        print(json.dumps(out), flush=True)
+        return 0
+    if sys.argv[1:] == ["--sp-pp-slice"]:  # phase 31 alone
+        import tempfile
+
+        _build.build()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_p31_") as tmp:
+            got = _p30_launch([("phase31", None, None)], 2, tmp,
+                              dict(os.environ, OMP_NUM_THREADS="1"))
+            log(f"phase 31: two-rank launch {got['wall_s']:.1f} s")
+            out = sp_pp_phase(dev, smi, got["phase31"]["ranks"])
         log(f"total {time.perf_counter() - t_start:.1f} s ({smi})")
         print(json.dumps(out), flush=True)
         return 0
@@ -5003,9 +5425,10 @@ def main() -> int:
         "checkpoint beside phases 16-20, then (c) one real OOM alone")
     t29 = time.perf_counter()
     res_child = start_resilience_child()
-    log("phase 30: the distribution layer, in a child process beside "
+    log("phases 30-31: the distribution layer, in a child process beside "
         "phases 16-20: BERT-base prune runs under torchrun at world 1 "
-        "(NCCL) and 2 (gloo, two ranks on the card)")
+        "(NCCL) and 2 (gloo, two ranks on the card), then mfu_llama "
+        "sequence- and pipeline-parallel")
     par_child = start_parallel_child()
     log("phase 16: vgg16_digits32_layerwise, VGG16-bn full width: train, "
         "then the 8-method panel on conv1, conv13, fc1")
@@ -5245,7 +5668,10 @@ def main() -> int:
     # phase 29: the resilience slice (kill / resume, guard, OOM, corrupt)
     kernels[0]["resilience"] = res
     # phase 30: the distribution layer (per-rank launches of B1-B3)
+    sp_pp = par.pop("sp_pp")
     kernels[0]["parallel"] = par
+    # phase 31: sequence and pipeline parallelism
+    kernels[0]["sp_pp"] = sp_pp
     for k in kernels:
         if k["name"] in FLASH_KERNELS:
             short = {"flash_fwd": "fwd", "flash_dq": "dq",
@@ -5255,6 +5681,27 @@ def main() -> int:
                        if key.startswith(short + ":")}
                       for pr in run["per_rank"]]
                 for tag, run in par["runs"].items() if "per_rank" in run}
+            # phase 31: each rank's launches by run, and the kernel at the
+            # Ulysses and pipeline-stage shapes (timed beside phases
+            # 16-20 here; ``--sp-pp-slice`` times them alone)
+            k["launches_sp_pp_per_rank"] = {
+                tag: [{key: n for key, n in pr["shapes"].items()
+                       if key.startswith(short + ":")}
+                      for pr in run["per_rank"]]
+                for tag, run in sp_pp["runs"].items() if "per_rank" in run}
+            k["launches_pipeline_parallel"] = {
+                key: n for key, n in sp_pp["runs"]["pipeline_parallel"][
+                    "shapes"].items() if key.startswith(short + ":")}
+            k["sp_pp_shapes"] = {label: {
+                "ms": c["ms"][k["name"]], "bound_ms": c["bound"][k["name"]][0],
+                "bound_by": c["bound"][k["name"]][1],
+                "plain_ms": c["plain_fwd_ms"] if k["name"] == "flash_fwd"
+                else c["plain_bwd_ms"],
+                "library_ms": c["library_fwd_ms"] if k["name"] == "flash_fwd"
+                else c["library_bwd_ms"],
+                "max_abs_err": max(c["errors"][e]["max_abs_err"]
+                                   for e in outputs[k["name"]])}
+                for label, c in sp_pp["flash"].items()}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

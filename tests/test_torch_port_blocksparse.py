@@ -26,6 +26,7 @@ helper outputs are equal; 3-step trajectories atol 5e-4, rtol 1e-3 (the
 JAX test's bound); loop losses and accuracies 1e-4.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import dataclasses
 import os
 

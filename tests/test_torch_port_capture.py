@@ -29,6 +29,7 @@ losses, accuracies and AUCs to 1e-4 absolute, as the robustness tests
 hold them.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

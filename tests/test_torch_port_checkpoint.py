@@ -29,6 +29,7 @@ bfloat16 leaves without ``ml_dtypes``, ``run_train`` resumed from
 sweep restoring its model from ``checkpoint_path``.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import dataclasses
 import json
 import os

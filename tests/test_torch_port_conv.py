@@ -24,6 +24,7 @@ bf16 output to one bf16 rounding (2**-8 of its scale); max pooling,
 Flatten, surgery and the shuffle exactly.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ bf16 ulp (2**-8 relative) can separate them.  Batch invariance and
 stale-row masking are asserted bit for bit.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -15,6 +15,7 @@
 Everything here is exact (host numpy in both packages).
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import dataclasses
 import gzip
 import math

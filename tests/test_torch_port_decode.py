@@ -14,6 +14,7 @@ another order); bf16 caches store the output in bf16, so one bf16 ulp
 (2**-8 relative) may separate the two: 2**-7 of the output scale.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ run as the JAX tests run it on the CPU (Pallas interpret mode where the
 shape tiles, its unpack-then-matmul path where it does not).
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -26,6 +26,7 @@ without it; on the GPU machine run only the card's tests, with
 ``python -m pytest --noconftest tests/test_torch_port_flash.py -m cuda``.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import numpy as np
 import pytest
 import torch

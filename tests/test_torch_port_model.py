@@ -12,6 +12,7 @@ logit scale.  A greedy token may differ only where the JAX top-2 margin
 is below that tolerance.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import dataclasses
 
 import jax

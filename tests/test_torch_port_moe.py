@@ -24,6 +24,7 @@ output scale (the same math, sums in other orders); scores to 1e-4 of
 their scale; quantized trees are byte-equal.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import functools
 
 import jax

@@ -15,6 +15,7 @@ decoded alone, bit for bit, and the serving engine's tokens (f32, and
 int4 weights with a bf16 cache) equal a solo replay.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import dataclasses
 
 import jax.numpy as jnp

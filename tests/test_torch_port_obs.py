@@ -26,6 +26,7 @@ closes its span, no-session cost, no files from a non-zero process
 index, and a failing ``configure`` keeps the previous session.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import json
 import math
 import os

@@ -29,6 +29,7 @@ CPU.  Each package runs inside its own obs session.
   crashes.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import dataclasses
 import json
 import os

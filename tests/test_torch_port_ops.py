@@ -8,6 +8,7 @@ the CPU the port runs its plain versions (the CUDA kernels are compared
 with those on the card: tests/test_torch_port_cuda.py).
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import numpy as np
 import jax.numpy as jnp
 import pytest

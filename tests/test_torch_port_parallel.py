@@ -15,6 +15,7 @@ against the JAX package's, on the CPU and without spawning a process.
 Tolerances: none — these are integer shape and byte rules, held equal.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import dataclasses
 import types
 

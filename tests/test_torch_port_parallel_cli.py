@@ -22,6 +22,7 @@ mean loss increase, a difference of two f32 means some 50 times larger,
 whose sums the mesh groups by half-batches).
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import contextlib
 import dataclasses
 import io

@@ -23,6 +23,7 @@ Tolerances (those of ``test_torch_port_prune.py``): losses, params
 after SGD and gradients rtol 1e-5 of the output scale; scores rtol 1e-4.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import os
 import traceback
 
@@ -320,6 +321,54 @@ def test_coalesced_collectives_are_the_per_tensor_ones(tmp_path):
                 assert a.dtype == b.dtype and a.is_contiguous()
                 assert b.is_contiguous()
                 torch.testing.assert_close(b, a, rtol=0, atol=0)
+
+
+def _w_remat_bn(rank):
+    import threading
+
+    import torch.distributed as dist
+
+    from torchpruner_tpu_torch.core import layers as L
+    from torchpruner_tpu_torch.core.segment import SegmentedModel, init_model
+    from torchpruner_tpu_torch.parallel import collectives as C
+    from torchpruner_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    model = SegmentedModel((
+        L.Dense("fc1", 16),
+        L.Residual("block", body=(L.Dense("fc", 16), L.BatchNorm("bn"),
+                                  L.Activation("act", "relu"))),
+        L.Dense("out", 3)), (8,))
+    params, state = init_model(model, 0, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(8, 8)).astype(np.float32))[4 * rank:4 * (rank + 1)]
+    out = {}
+    for remat in (False, True):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        it = iter(leaves)
+        p = tree_map(lambda _t: next(it), params)
+        got = []
+        with C.batch_stats_over(dist.group.WORLD):
+            y, _ = model.apply(p, x, state=state, train=True, remat=remat)
+            loss = y.square().sum()
+            # a CUDA backward runs on autograd's device thread, which sees
+            # none of the caller's context variables: take the backward on
+            # a thread of its own likewise
+            th = threading.Thread(target=lambda: got.append(
+                torch.autograd.grad(loss, leaves)))
+            th.start()
+            th.join(60)
+        out[remat] = [g.numpy() for g in got[0]]
+    return out
+
+
+def test_remat_recompute_keeps_the_data_axis_statistics(tmp_path):
+    """A remat block's recompute in the backward takes BatchNorm's
+    moments over the data axis as its forward did, on whatever thread
+    the backward runs (a CUDA backward runs on autograd's device
+    thread): the gradients equal the ones without remat."""
+    for res in run_world(2, _w_remat_bn, tmp_path):
+        for a, b in zip(res[True], res[False]):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
 
 
 # ------------------------------------------------------------- scoring

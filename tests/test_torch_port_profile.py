@@ -23,6 +23,7 @@ This file imports no JAX, so it runs as it is on the GPU machine:
 ``python -m pytest --noconftest tests/test_torch_port_profile.py``.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import gzip
 import json
 import os

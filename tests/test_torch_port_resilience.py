@@ -32,6 +32,7 @@ The CLI kill-and-resume runs are in
 ``tests/test_torch_port_resilience_cli.py``.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import dataclasses
 import json
 import os

@@ -21,6 +21,7 @@ two CPU threads, so U and R reduce in the same order.
   ``CheckpointCorruptError`` and a non-zero exit.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import dataclasses
 import json
 import os

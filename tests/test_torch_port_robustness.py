@@ -33,6 +33,7 @@ Tolerances: losses, accuracies and AUCs agree to 1e-4 absolute, as the
 prune loop's test holds them; scores to rtol 1e-4 of their scale.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import dataclasses
 import json
 import math

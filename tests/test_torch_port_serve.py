@@ -8,6 +8,7 @@
   instead of running on the CPU.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import importlib
 import pkgutil
 import subprocess

@@ -22,6 +22,7 @@ reference file: token equality, refcounts never negative, zero hits on
 disjoint prompts, and a hard per-step prefill budget.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import io
 import json
 import threading

@@ -21,6 +21,7 @@ Inputs come from numpy with a seed; JAX weights are carried over by
 rows' scale (the same masked losses, sums in other orders).
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import jax
 import numpy as np
 import pytest

@@ -25,6 +25,7 @@ sequential steps in the port are bit-equal (the same operations in the
 same order); records of the prune loop to 1e-4, as its other tests.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import dataclasses
 import functools
 

@@ -19,6 +19,7 @@ agree to rtol 1e-5 of the output scale (the same math, sums in other
 orders); surgery is exact.
 """
 
+import _torch_threads  # noqa: F401  (caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

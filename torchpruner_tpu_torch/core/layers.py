@@ -205,8 +205,9 @@ class MultiHeadAttention:
     Prunable: the unit is the query head; its unit site is the
     pre-output-projection head context, exposed to taps in ``(B, S, Dh,
     H)`` layout (head axis last).  ``impl``: ``"auto"``/``"flash"`` (the
-    flash kernels on CUDA, their plain version on the CPU) or ``"xla"``
-    (the plain einsum core)."""
+    flash kernels on CUDA, their plain version on the CPU), ``"xla"``
+    (the plain einsum core), or the sequence-parallel cores ``"ring"`` /
+    ``"ulysses"`` (``parallel/sp.py``)."""
 
     name: str
     num_heads: int
@@ -1028,7 +1029,32 @@ def _attention(spec: MultiHeadAttention, params, x, taps, path,
                fixed_order):
     """The full-sequence attention rule: projections, RoPE, the GQA
     expansion, the attention core, the head-site taps, the output
-    projection."""
+    projection.  ``impl`` ``"ring"`` / ``"ulysses"`` is sequence
+    parallelism: ``x`` is this rank's sequence shard inside a step of
+    ``parallel/sp.py``'s trainer (the group of
+    ``collectives.sequence_parallel_over``), RoPE starts at the shard's
+    global offset and the core is the sequence-parallel exchange."""
+    sp = spec.impl in ("ring", "ulysses")
+    rope_offset, group = 0, None
+    if sp:
+        if taps is not None and not taps.empty():
+            raise NotImplementedError(
+                "attribution taps under sequence parallelism — score "
+                "with a single-device or DP/TP placement instead")
+        from torchpruner_tpu_torch.parallel import collectives as C
+
+        group = C.seq_group()
+        if group is None:
+            raise RuntimeError(
+                f"attention {spec.name!r} has impl={spec.impl!r} "
+                f"(sequence parallelism) but is running outside a "
+                f"process group with a 'seq' axis — use SPTrainer for "
+                f"training, or convert back with sp_model(model, 'auto') "
+                f"for single-device apply/scoring/generation")
+        if C.group_size(group) > 1:
+            import torch.distributed as dist
+
+            rope_offset = dist.get_rank(group) * x.shape[1]
     q = oscale(_dot(x, params["wq"], fixed_order), params["wq"])
     k = oscale(_dot(x, params["wk"], fixed_order), params["wk"])
     v = oscale(_dot(x, params["wv"], fixed_order), params["wv"])
@@ -1037,13 +1063,23 @@ def _attention(spec: MultiHeadAttention, params, x, taps, path,
         k = k + params["bk"]
         v = v + params["bv"]
     if spec.rope:
-        q = _rope(q, spec.rope_theta)
-        k = _rope(k, spec.rope_theta)
+        q = _rope(q, spec.rope_theta, offset=rope_offset)
+        k = _rope(k, spec.rope_theta, offset=rope_offset)
     if spec.kv_heads != spec.num_heads or spec.kv_group is not None:
         idx = torch.tensor(spec.head_kv_index(), device=k.device)
         k = k.index_select(2, idx)
         v = v.index_select(2, idx)
-    ctx = attention_core(q, k, v, causal=spec.causal, impl=spec.impl)
+    if sp:
+        from torchpruner_tpu_torch.parallel.ring import ring_attention_local
+        from torchpruner_tpu_torch.parallel.ulysses import (
+            ulysses_attention_local,
+        )
+
+        local = (ring_attention_local if spec.impl == "ring"
+                 else ulysses_attention_local)
+        ctx = local(q, k, v, axis=group, causal=spec.causal)
+    else:
+        ctx = attention_core(q, k, v, causal=spec.causal, impl=spec.impl)
     if taps is not None and not taps.empty():
         # head unit site: (B, S, Dh, H) — head axis last
         ctx = taps.at_site(path, ctx.movedim(2, 3)).movedim(3, 2)

@@ -10,6 +10,10 @@ Run on a machine with a GPU::
 
 It is how ``parallel/mesh.py backend_for`` was chosen: NCCL refuses two
 ranks on one device, gloo takes CUDA tensors for every collective used.
+It also probes the exchanges of sequence and pipeline parallelism:
+``all_to_all_single`` with even and with uneven splits, ``all_to_all``
+and a ``batch_isend_irecv`` cyclic shift (``parallel/collectives.py
+all_to_all`` / ``ppermute``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,13 @@ def _worker(rank: int, world: int, backend: str, store: str,
     import torch.distributed as dist
 
     res = {}
+
+    def save():
+        # after every probe: a probe that aborts the process (gloo's
+        # point-to-point on CUDA tensors can) leaves the results before it
+        with open(f"{out}.{rank}", "w") as f:
+            json.dump(res, f)
+
     try:
         torch.cuda.set_device(0)
         dist.init_process_group(
@@ -41,6 +52,7 @@ def _worker(rank: int, world: int, backend: str, store: str,
                 res[name] = "ok"
             except Exception as e:  # noqa: BLE001 - the probe's result
                 res[name] = f"{type(e).__name__}: {str(e)[:200]}"
+            save()
 
         n = world
         probe("all_reduce_f32", lambda: dist.all_reduce(
@@ -56,6 +68,41 @@ def _worker(rank: int, world: int, backend: str, store: str,
         probe("broadcast", lambda: dist.broadcast(
             torch.ones(4, device=dev), 0))
         probe("barrier", dist.barrier)
+        # the sequence- and pipeline-parallel exchanges (parallel/ring.py,
+        # ulysses.py, pp_spmd.py): all-to-all in both forms, and a cyclic
+        # shift rank i -> i+1 posted in both directions at once
+        probe("all_to_all_single", lambda: dist.all_to_all_single(
+            torch.empty(4 * n, device=dev),
+            torch.arange(4 * n, dtype=torch.float32, device=dev)))
+        probe("all_to_all", lambda: dist.all_to_all(
+            [torch.empty(4, device=dev) for _ in range(n)],
+            [torch.full((4,), float(r), device=dev) for r in range(n)]))
+
+        def shift():
+            got = torch.empty(8, device=dev)
+            ops = [dist.P2POp(dist.isend, torch.full((8,), float(rank),
+                                                     device=dev),
+                              (rank + 1) % n),
+                   dist.P2POp(dist.irecv, got, (rank - 1) % n)]
+            for w in dist.batch_isend_irecv(ops):
+                w.wait()
+            if int(got[0].item()) != (rank - 1) % n:
+                raise RuntimeError(f"received {got[0].item()}")
+
+        def uneven():
+            # collectives.shift: the whole buffer to rank + 1, nothing to
+            # the others, so the splits differ from rank to rank
+            send, recv = [0] * n, [0] * n
+            send[(rank + 1) % n] = recv[(rank - 1) % n] = 8
+            got = torch.empty(8, device=dev)
+            dist.all_to_all_single(
+                got, torch.full((8,), float(rank), device=dev),
+                output_split_sizes=recv, input_split_sizes=send)
+            if int(got[0].item()) != (rank - 1) % n:
+                raise RuntimeError(f"received {got[0].item()}")
+
+        if n > 1:
+            probe("all_to_all_single_uneven", uneven)
         try:
             from torch.distributed.device_mesh import init_device_mesh
 
@@ -63,11 +110,13 @@ def _worker(rank: int, world: int, backend: str, store: str,
                 "cuda", (n,), mesh_dim_names=("data",)))
         except Exception as e:  # noqa: BLE001 - the probe's result
             res["device_mesh"] = f"{type(e).__name__}: {str(e)[:200]}"
+        save()
+        if n > 1:  # last: under gloo it can abort the process
+            probe("batch_isend_irecv", shift)
         dist.destroy_process_group()
     except Exception as e:  # noqa: BLE001 - the probe's result
         res["init"] = f"{type(e).__name__}: {str(e)[:300]}"
-    with open(f"{out}.{rank}", "w") as f:
-        json.dump(res, f)
+    save()
 
 
 def main() -> int:
@@ -100,8 +149,9 @@ def main() -> int:
                     with open(f"{out}.{r}") as f:
                         line = f.read()
                 except OSError:
-                    line = f"no output; exit code {p.exitcode}"
-                print(backend, world, r, line, flush=True)
+                    line = "no output"
+                print(backend, world, r, line, f"exit code {p.exitcode}",
+                      flush=True)
     return 0
 
 

@@ -5,9 +5,11 @@ TP training with ZeRO weight-update sharding.
 
 The JAX package lets XLA insert the collectives from named shardings;
 here one process per device (``torchrun``) holds its pieces and the
-collectives are explicit (``parallel/collectives.py``).  Sequence and
-pipeline parallelism (``sp``, ``ring``, ``ulysses``, ``pipeline``,
-``pp_spmd``) are not ported yet (ROADMAP A7b).
+collectives are explicit (``parallel/collectives.py``).  Sequence
+parallelism: ``ring`` and ``ulysses`` attention and the ``sp`` trainer
+over a ``data x seq`` mesh; pipeline parallelism: ``pipeline`` (stages
+over local devices in one process, 1F1B) and ``pp_spmd`` (one process a
+stage, activations shifted over the ``pp`` group).
 """
 
 from torchpruner_tpu_torch.parallel.mesh import (
@@ -34,6 +36,28 @@ from torchpruner_tpu_torch.parallel.memory import (
 )
 from torchpruner_tpu_torch.parallel.scoring import DistributedScorer
 from torchpruner_tpu_torch.parallel.train import ShardedTrainer
+from torchpruner_tpu_torch.parallel.ring import (
+    ring_attention,
+    ring_attention_local,
+)
+from torchpruner_tpu_torch.parallel.ulysses import (
+    choose_sp_strategy,
+    sequence_parallel_attention,
+    ulysses_attention,
+    ulysses_attention_local,
+)
+from torchpruner_tpu_torch.parallel.pipeline import (
+    PipelineParallel,
+    balance_stages,
+)
+from torchpruner_tpu_torch.parallel.pp_spmd import (
+    pp_spmd_apply,
+    pp_spmd_train_step,
+    split_pipeline,
+    stack_block_params,
+    stage_params,
+)
+from torchpruner_tpu_torch.parallel.sp import SPTrainer, sp_model
 
 __all__ = [
     "initialize_distributed",
@@ -54,4 +78,19 @@ __all__ = [
     "MemoryBudget",
     "training_memory",
     "ShardedTrainer",
+    "ring_attention",
+    "ring_attention_local",
+    "choose_sp_strategy",
+    "sequence_parallel_attention",
+    "ulysses_attention",
+    "ulysses_attention_local",
+    "PipelineParallel",
+    "pp_spmd_apply",
+    "pp_spmd_train_step",
+    "split_pipeline",
+    "stack_block_params",
+    "stage_params",
+    "balance_stages",
+    "SPTrainer",
+    "sp_model",
 ]

@@ -17,20 +17,36 @@ one computes exactly what the single-device code computes.
 - :func:`batch_stats_over` names the data-axis group inside which
   BatchNorm's train-mode moments and the MoE balancing loss's routing
   shares are global (``core/layers.py`` reads it).
+- :func:`all_to_all` and :func:`ppermute` are the exchanges of sequence
+  and pipeline parallelism (``lax.all_to_all`` with ``tiled=True``, and
+  ``lax.ppermute`` as a cyclic shift), differentiable: the backward is
+  the inverse exchange.  Both go through one ``all_to_all_single``, a
+  collective, so two ranks cannot deadlock on a paired send and receive;
+  a shift gives it uneven splits, the whole buffer to the one peer.
+  gloo refuses CUDA tensors for the list form of ``all_to_all`` and for
+  point-to-point sends (``experiments/dist_probe.py``), and takes them
+  for ``all_to_all_single``.
+- :func:`sequence_parallel_over` names the ``seq`` group of the enclosing
+  sequence-parallel step (the attention rule's ring and Ulysses cores
+  read it).
 """
 
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import functools
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-_BATCH_GROUP: contextvars.ContextVar = contextvars.ContextVar(
-    "batch_stats_group", default=None)
+#: the data-axis group of the enclosing :func:`batch_stats_over` and the
+#: seq group of the enclosing :func:`sequence_parallel_over`: plain
+#: globals, not context variables, because the backward of a CUDA step
+#: (and a remat block's recompute in it) runs on autograd's device
+#: thread, which sees none of the caller's context variables
+_BATCH_GROUP = [None]
+_SEQ_GROUP = [None]
 
 
 def group_size(group) -> int:
@@ -38,21 +54,39 @@ def group_size(group) -> int:
 
 
 @contextlib.contextmanager
+def _scoped(slot, value):
+    prev = slot[0]
+    slot[0] = value
+    try:
+        yield
+    finally:
+        slot[0] = prev
+
+
 def batch_stats_over(group):
     """Within the block, batch statistics are all-reduced over ``group``
     (the data axis): the forward AND the backward of a sharded step
     run inside it (remat recomputes in the backward)."""
-    token = _BATCH_GROUP.set(group if group_size(group) > 1 else None)
-    try:
-        yield
-    finally:
-        _BATCH_GROUP.reset(token)
+    return _scoped(_BATCH_GROUP, group if group_size(group) > 1 else None)
 
 
 def batch_group():
     """The data-axis group of the enclosing :func:`batch_stats_over`, or
     None (local statistics)."""
-    return _BATCH_GROUP.get()
+    return _BATCH_GROUP[0]
+
+
+def sequence_parallel_over(group):
+    """Within the block, attention layers whose ``impl`` is ``"ring"`` or
+    ``"ulysses"`` run on the sequence shard of this rank of ``group``
+    (the forward and the backward of a sequence-parallel step)."""
+    return _scoped(_SEQ_GROUP, group)
+
+
+def seq_group():
+    """The group of the enclosing :func:`sequence_parallel_over`, or
+    None outside one."""
+    return _SEQ_GROUP[0]
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -116,6 +150,90 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFrom.apply(x, group)
 
 
+def _all_to_all(t: torch.Tensor, group, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    # row j of ``src`` goes to group rank j; row i of ``out`` came from i
+    n = group_size(group)
+    src = torch.stack(t.chunk(n, dim=split_dim)).contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, concat_dim, split_dim)
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), *ctx.args), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``
+    over ``group``: ``x`` is split into ``n`` chunks along ``split_dim``,
+    chunk ``r`` goes to group rank ``r``, and the chunks a rank receives
+    are concatenated along ``concat_dim`` in rank order.
+    Differentiable (the backward is the inverse exchange)."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split {n} ways")
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
+
+
+def shift(ts, group, offset: int = 1, wrap: bool = True):
+    """Group rank ``r``'s tensors ``ts`` sent to rank ``r + offset`` (mod
+    ``n`` with ``wrap``, else the edge rank sends nothing and the other
+    edge receives zeros); returns what this rank received, one
+    collective for all of ``ts`` (no gradient).  The collective's splits
+    are uneven: the whole buffer goes to the one peer and nothing to the
+    others, so a shift moves the bytes a send would at any ``n``."""
+    n = group_size(group)
+    if n == 1:
+        return [t if wrap else torch.zeros_like(t) for t in ts]
+    r = dist.get_rank(group)
+    flat = torch.cat([t.reshape(-1) for t in ts])
+    size = flat.numel()
+    send, recv = [0] * n, [0] * n
+    if wrap or 0 <= r + offset < n:
+        send[(r + offset) % n] = size
+    if wrap or 0 <= r - offset < n:
+        recv[(r - offset) % n] = size
+    got = flat.new_empty(sum(recv))
+    dist.all_to_all_single(got, flat[:sum(send)], output_split_sizes=recv,
+                           input_split_sizes=send, group=group)
+    if not sum(recv):
+        got = torch.zeros_like(flat)
+    out = got.split([t.numel() for t in ts])
+    return [o.view_as(t) for o, t in zip(out, ts)]
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *ts):
+        ctx.group = group
+        return tuple(shift([t.contiguous() for t in ts], group, 1))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        back = shift([g.contiguous() for g in gs], ctx.group, -1)
+        return (None,) + tuple(back)
+
+
+def ppermute(ts, group):
+    """``lax.ppermute`` over ``group`` with the cyclic permutation ``r ->
+    r + 1``: the tensors ``ts`` (one dtype) of rank ``r - 1``, all in one
+    exchange.  Differentiable: the backward shifts the gradients back,
+    ``r -> r - 1``."""
+    return list(_Shift.apply(group, *ts))
+
+
 def all_reduce_(x: torch.Tensor, group, op=None) -> torch.Tensor:
     """In-place sum (or ``op``) over ``group``; returns ``x``."""
     if group_size(group) > 1:
@@ -135,6 +253,51 @@ def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     # contiguous, as the full tensor would be: a product on a strided
     # operand can take another kernel, and round differently
     return out.movedim(0, dim).contiguous()
+
+
+def _piece(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    size = t.shape[dim] // group_size(group)
+    return t.narrow(dim, dist.get_rank(group) * size, size).contiguous()
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _piece(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x.contiguous(), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _piece(g, ctx.dim, ctx.group), None, None
+
+
+def scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's piece (group-rank order) of the replicated ``x``
+    along ``dim``; the backward all-gathers the pieces' gradients, so
+    every rank gets the gradient of the whole ``x``."""
+    if group_size(group) == 1:
+        return x
+    return _Scatter.apply(x, dim, group)
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The pieces of every rank concatenated along ``dim`` (replicated);
+    the backward keeps this rank's piece of the (replicated)
+    gradient."""
+    if group_size(group) == 1:
+        return x
+    return _Gather.apply(x, dim, group)
 
 
 #: the most bytes one coalesced collective moves (a larger tensor goes
