@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 
 1. Environment: the card's name and power limit (``nvidia-smi``); build
    the four CUDA sources of ``torchpruner_tpu_torch/csrc`` (one ``nvcc``
-   per source, all started together) and print the build time.
+   per source, all started together: the flash source, by far the
+   slowest, in a child that phases 2-5 do not wait for, phase 6 does)
+   and print the build times.
 2. Kernel vs plain: the dequant matmul (int4 and int8, M in {1, 4, 64,
    128, 300} and the prefill buckets {16, 48, 104} of phase 3's prompts,
    at the Llama-3-8B projection shapes; every row of every call equal bit
@@ -126,9 +128,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
     with its conv; the stem's 3x3 / 2 SAME max-pool (pads 0 / 1) on the
     card equal to the CPU's.
 
-18. Serve v2 at full width and depth: Llama-3-8B int4 (phase 3's model
-    and weights), 4 slots, max_len 512, pages of 16, chunks of 64 (cap
-    128 prefill tokens a step), a 64-page prefix pool; 12 shared-prefix
+18. Serve v2 at full width, 16 of 32 blocks: Llama-3-8B int4 (phase 3's
+    model cut to ``P18_DEPTH`` blocks, the same seeded weights), 4 slots,
+    max_len 512, pages of 16, chunks of 64 (cap 128 prefill tokens a
+    step), a 64-page prefix pool; 12 shared-prefix
     requests (two 256-token system prompts, suffixes 8 / 24 / 64, 32
     greedy tokens, an arrival every 2 steps), then the same traffic with
     sharing off: every request done, 0 mismatches against solo
@@ -141,7 +144,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
     with ``save_checkpoint`` (restored and compared leaf for leaf); B is
     A with each block's FFN pruned by a quarter through ``prune``
     (WeightNorm scores on the dequantized weights), int8 again; both
-    under a temporary directory, removed after phase 20; bytes, save
+    under a temporary directory, removed after phase 32; bytes, save
     and restore seconds.  Then ``serve llama3_ffn_taylor --checkpoint A
     --swap-checkpoint B --swap-after 8 --synthetic 8 --rate 1
     --shared-prefixes 2 --prefix-len 64 --prompt-lens 8,24 --verify``
@@ -253,10 +256,10 @@ for phase 21's trace, and the card's memory to themselves.
     ``grad_norm`` gauge is finite and > 0.
 29. Resilience, in a child process started before phase 16 (its own
     process group, killed at exit unless it finished): (a), (b) and (d)
-    run beside phases 16-20, which hold little of the card's memory and
-    are host-bound for the most part; the child then waits until phase
-    20 is done and runs (c) while the main process waits, the card's
-    memory free for the real OOM.  So phases 16-20's walls and (a)'s
+    run beside phases 16-20 and 32, which hold little of the card's
+    memory and are host-bound for the most part; the child then waits
+    until phase 32 is done and runs (c) while the main process waits, the
+    card's memory free for the real OOM.  So phases 16-20's walls and (a)'s
     commit and resume times in the whole script are taken beside each
     other; ``--resilience-slice`` times phase 29 alone.
     (a) Phase 8's configuration cut to
@@ -359,10 +362,38 @@ for phase 21's trace, and the card's memory to themselves.
     (the later steps' drift recorded); f32 losses within 1e-5 (SP) and
     1e-4 (PP) relative; ``max_live_residuals[s] <= n_stages - s``.
 
+32. The serving fleet (``torchpruner_tpu_torch/fleet/``), right after
+    phase 20 on phase 19's checkpoints (A: Llama-3-8B width, 4 blocks,
+    int8; B: each FFN pruned a quarter), several serving processes
+    sharing the card, the kernels built once by the fleet's router process;
+    (b) starts first and runs beside (a), so their times are taken side by
+    side.  (a) The failover drill: ``fleet llama3_ffn_taylor --checkpoint A
+    --replicas 2 --synthetic 18 --rate 3.0 --verify`` on shared-prefix
+    session traffic with prefix pages, ``kill -9`` of replica0 at the 5th
+    dispatch.  Held: exit 0, 18 of 18 completed, 0 lost, 0 verify
+    mismatches against the router process's solo ``generate()`` replays,
+    at least one failover and one redrive, one merged shard (the
+    survivor's), 18 cross-process traces with a redriven one and the TTFT
+    budget within 10 %, affinity and prefix hits in the merged report,
+    the survivor's decode attention launched once a block a decode step
+    and the dequant kernel launched, and ``obs incident`` on the fleet
+    directory exits 0.  (b) The scenario drill with the autoscaler: the
+    committed ``results/scenarios/flash_crowd_ci.json`` against one 1-slot
+    replica that may grow to two behind a 256-deep router queue
+    (``P32_SCENARIO``, ``P32_TUNING``), with B as the degradation ladder's
+    pruned checkpoint;
+    its verdict is the fleet CLI's own (exit 0: nothing lost, no
+    interactive request abandoned, a scale-up, a scale-down, a degrade
+    and its recovery, no supervisor error).  Recorded: start-up
+    and launch seconds, each drill's wall, TTFT and per-token p50 / p99
+    per tenant, each drained replica's peak allocated memory, the
+    highest rung and whether the pruned swap fired, the host's cores.
+
 ``python3 chip_smoke.py --obs-slice`` runs phases 3, 7, 8, 27 and 28
 alone (the kernels built first); ``python3 chip_smoke.py
 --resilience-slice`` runs phase 29 alone, ``--parallel-slice`` phases 30
-and 31, ``--sp-pp-slice`` phase 31 alone.
+and 31, ``--sp-pp-slice`` phase 31 alone, ``--fleet-slice`` phase 19's
+checkpoints and phase 32.
 
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -2171,6 +2202,11 @@ P18_TRAFFIC = dict(vocab=128256, n_prefixes=2, prefix_len=256,
                    suffix_lens=[8, 24, 64], max_new=[32], seed=0)
 P18_ENGINE = dict(n_slots=4, max_len=512, page_len=16, prefill_chunk=64,
                   prefill_token_cap=128)
+#: phase 18's depth: with phase 32 in, the whole script took 1295.3 s on
+#: an NVIDIA H100 80GB HBM3 at 700.00 W (over its 1200 s), and 16 of the
+#: 32 blocks is the one cut its budget allows (every check kept; PERF.md
+#: section 4)
+P18_DEPTH = 16
 #: the serve-v2 flags of phases 19-20; a bf16 KV cache keeps the
 #: activations bf16, so every projection takes the dequant kernel (an f32
 #: cache turns them f32 after the first attention, as in the JAX package)
@@ -2193,8 +2229,8 @@ def reset_serve_launches() -> None:
 
 def prefix_phase(dev) -> dict:
     """Phase 18: shared-prefix traffic through chunked prefill and prefix
-    pages on full-width, full-depth Llama-3-8B int4, then the same
-    traffic with sharing off."""
+    pages on full-width Llama-3-8B int4 at ``P18_DEPTH`` blocks, then the
+    same traffic with sharing off."""
     import torch
 
     from torchpruner_tpu_torch.experiments.llama8b_decode import (
@@ -2210,7 +2246,7 @@ def prefix_phase(dev) -> dict:
     from torchpruner_tpu_torch.serve.engine import kernel_launches
     from torchpruner_tpu_torch.serve.frontend import verify_against_solo
 
-    model = llama3_8b(depth=DEPTH)
+    model = llama3_8b(depth=P18_DEPTH)
     params, _ = quantized_random_params(model, bits=4, seed=0, device=dev)
     runs = {}
     for label, pages in (("on", 64), ("off", 0)):
@@ -2228,7 +2264,7 @@ def prefix_phase(dev) -> dict:
         runs[label] = {"engine": engine, "reqs": reqs, "summary": summary,
                        "wall_s": wall, "launches": kernel_launches()}
     on, off = runs["on"], runs["off"]
-    # one 64-row chunk at full depth (position 256, after a 16-page hit),
+    # one 64-row chunk at P18_DEPTH (position 256, after a 16-page hit),
     # host clock around synchronized calls, and its launches
     P = on["engine"].programs
     toks = torch.zeros((1, 64), dtype=torch.long, device=dev)
@@ -2270,7 +2306,7 @@ def prefix_phase(dev) -> dict:
             if n <= 0:
                 fail(f"phase 18 sharing {label} never launched {name}")
         if r["launches"]["decode_attention"] \
-                != DEPTH * r["summary"]["decode_steps"]:
+                != P18_DEPTH * r["summary"]["decode_steps"]:
             fail(f"phase 18 sharing {label}: "
                  f"{r['launches']['decode_attention']} decode attention "
                  f"launches for {r['summary']['decode_steps']} steps")
@@ -2301,6 +2337,41 @@ def checkpoint_phase(dev, tmp: str) -> dict:
     WeightNorm, re-quantized to int8) written under ``tmp``; then the CLI
     serves A and hot-swaps to B mid-run, every request verified against
     the checkpoint that served it."""
+    out = write_checkpoints(dev, tmp)
+    a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    cmd = [sys.executable, "-m", "torchpruner_tpu_torch", "serve",
+           "llama3_ffn_taylor", "--checkpoint", a, "--swap-checkpoint", b,
+           "--swap-after", "8", "--synthetic", "8", "--rate", "0",
+           "--stagger-steps", str(SWAP_STAGGER_TICKS),
+           "--shared-prefixes", "2", "--prefix-len", "64", "--prompt-lens",
+           "8,24", "--verify"] + CLI_V2
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    cli_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"phase 19 CLI exited {res.returncode}:\n{res.stdout}\n"
+             f"{res.stderr[-4000:]}")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    out.update({"cli_s": cli_s, "summary": summary})
+    log(f"checkpoint + swap: {json.dumps(out)}")
+    if summary.get("device") != "cuda" \
+            or summary.get("requests_completed") != 8 \
+            or summary.get("swaps") != 1 \
+            or summary.get("verify_mismatches") != 0 \
+            or summary.get("served_by", {}).get(a, 0) < 1 \
+            or summary.get("served_by", {}).get(b, 0) < 1:
+        fail(f"phase 19 CLI summary: {summary}")
+    for name, n in summary["kernel_launches"].items():
+        if n <= 0:
+            fail(f"phase 19: the CLI never launched {name}")
+    return out
+
+
+def write_checkpoints(dev, tmp: str) -> dict:
+    """Phase 19's checkpoints A and B under ``tmp`` (``tmp/a``,
+    ``tmp/b``), A restored and held equal to the tree it was saved from,
+    B's FFN widths checked; returns their sizes, times and digest."""
     import torch
 
     from torchpruner_tpu_torch.attributions.simple import (
@@ -2372,36 +2443,10 @@ def checkpoint_phase(dev, tmp: str) -> dict:
     torch.cuda.empty_cache()
     if set(widths.values()) != {14336 - 3584}:
         fail(f"phase 19: pruned FFN widths {widths}")
-    cmd = [sys.executable, "-m", "torchpruner_tpu_torch", "serve",
-           "llama3_ffn_taylor", "--checkpoint", a, "--swap-checkpoint", b,
-           "--swap-after", "8", "--synthetic", "8", "--rate", "0",
-           "--stagger-steps", str(SWAP_STAGGER_TICKS),
-           "--shared-prefixes", "2", "--prefix-len", "64", "--prompt-lens",
-           "8,24", "--verify"] + CLI_V2
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                         timeout=600)
-    cli_s = time.perf_counter() - t0
-    if res.returncode != 0:
-        fail(f"phase 19 CLI exited {res.returncode}:\n{res.stdout}\n"
-             f"{res.stderr[-4000:]}")
-    summary = json.loads(res.stdout.strip().splitlines()[-1])
-    out = {"bytes_a": _dir_bytes(a), "bytes_b": _dir_bytes(b),
-           "save_a_s": save_a, "restore_a_s": restore_a, "save_b_s": save_b,
-           "digest_a": meta["digest"], "ffn_widths_b": widths,
-           "cli_s": cli_s, "summary": summary}
-    log(f"checkpoint + swap: {json.dumps(out)}")
-    if summary.get("device") != "cuda" \
-            or summary.get("requests_completed") != 8 \
-            or summary.get("swaps") != 1 \
-            or summary.get("verify_mismatches") != 0 \
-            or summary.get("served_by", {}).get(a, 0) < 1 \
-            or summary.get("served_by", {}).get(b, 0) < 1:
-        fail(f"phase 19 CLI summary: {summary}")
-    for name, n in summary["kernel_launches"].items():
-        if n <= 0:
-            fail(f"phase 19: the CLI never launched {name}")
-    return out
+    return {"bytes_a": _dir_bytes(a), "bytes_b": _dir_bytes(b),
+            "save_a_s": save_a, "restore_a_s": restore_a,
+            "save_b_s": save_b, "digest_a": meta["digest"],
+            "ffn_widths_b": widths}
 
 
 def _http(port: int, method: str, path: str, body=None, timeout=300,
@@ -2534,6 +2579,216 @@ def http_phase(tmp: str) -> dict:
     for name, n in summary["kernel_launches"].items():
         if n <= 0:
             fail(f"phase 20: the server never launched {name}")
+    return out
+
+
+# -- phase 32 (the serving fleet) --------------------------------------------
+
+#: every replica's geometry in both drills: phase 19-20's serve-v2 flags,
+#: 128 prefill tokens a step
+P32_GEOMETRY = ["--max-len", "512", "--page-len", "16", "--prefix-pages",
+                "32", "--prefill-chunk", "64", "--prefill-cap", "128",
+                "--kv-dtype", "bfloat16"]
+#: (a): the JAX package's CI failover drill at the card's geometry
+P32_DRILL = ["--replicas", "2", "--slots", "2", "--synthetic", "18",
+             "--rate", "3.0", "--verify", "--prompt-lens", "8,16",
+             "--max-new", "8,12", "--shared-prefixes", "2", "--prefix-len",
+             "64", "--sessions", "3", "--chaos",
+             '{"kill_replica_at_step": 5}']
+#: (b): the committed scenario from one replica, and the fleet's own
+#: knobs.  A replica takes 13.6-19.1 s to launch on an NVIDIA H100 80GB
+#: HBM3 at 700.00 W, longer than the 8 s crowd, so a third replica lands
+#: after the backlog is gone and the ladder is never reached at
+#: ``--max-replicas 3`` whatever the slots, queue age and cooldown
+#: (PERF.md section 6, ``experiments/fleet_sim.py``); at 2, the JAX
+#: package's CI value, one slot a replica keeps the backlog long enough
+#: for the whole ladder.  A router queue of 256 sheds nothing at
+#: admission, so no retry wave comes back a minute later (Retry-After is
+#: the queue depth a live replica): the replay ends with the backlog
+P32_SCENARIO = ["--autoscale", "--replicas", "1", "--max-replicas", "2",
+                "--queue-bound", "256"]
+P32_TUNING = ["--slots", "1", "--scale-up-age-s", "0.2",
+              "--scale-cooldown-s", "0.5"]
+
+
+def _start_group(cmd):
+    """Start ``cmd`` in its own process group (a fleet's replicas with
+    it), its output into files; the group is killed at exit unless it
+    finished."""
+    import atexit
+    import signal
+    import tempfile
+
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=err,
+                            text=True, start_new_session=True)
+
+    def kill_group():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+
+    atexit.register(kill_group)
+    return proc, out, err, time.perf_counter(), kill_group
+
+
+def _finish_group(started, timeout: float):
+    """Wait for a :func:`_start_group` command, killing its group if it
+    overruns; returns ``(returncode, stdout, stderr, seconds)``."""
+    proc, out, err, t0, kill_group = started
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        kill_group()
+        proc.wait()
+    wall = time.perf_counter() - t0
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    if proc.returncode < 0 and wall >= timeout:
+        fail(f"{proc.args[3:5]} overran {timeout:.0f} s:\n"
+             f"{stdout[-3000:]}\n{stderr[-4000:]}")
+    return proc.returncode, stdout, stderr, wall
+
+
+def _replica_rows(fleet_dir: str, names) -> dict:
+    """Each named replica's drained summary line (its launches, its peak
+    allocated memory on the card), read from its log."""
+    from torchpruner_tpu_torch.fleet.report import replica_summary_line
+
+    rows = {}
+    for name in names:
+        s = replica_summary_line(os.path.join(fleet_dir, f"{name}.log"))
+        rows[name] = None if s is None else {
+            k: s.get(k) for k in ("requests_completed", "decode_steps",
+                                  "kernel_launches", "max_memory_allocated",
+                                  "swaps", "device", "requests_drained")}
+    return rows
+
+
+def _tenant_rows(summary: dict, metrics: dict) -> dict:
+    """Per tenant: the router's TTFT and e2e percentiles and the merged
+    replicas' per-token p50 / p99, seconds."""
+    return {t: {**{k: row.get(k) for k in ("completed", "shed",
+                                           "ttft_p50_s", "ttft_p99_s",
+                                           "e2e_p50_s", "e2e_p99_s")},
+                "token_p50_s": metrics.get(f"tenant_{t}_token_seconds_p50"),
+                "token_p99_s": metrics.get(f"tenant_{t}_token_seconds_p99")}
+            for t, row in (summary.get("tenants") or {}).items()}
+
+
+def fleet_phase(tmp: str, smi: str) -> dict:
+    """Phase 32: the failover drill (a) and, beside it, the autoscaled
+    scenario drill (b) through ``python -m torchpruner_tpu_torch fleet`` on
+    phase 19's checkpoints under ``tmp`` (see the module docstring)."""
+    import contextlib
+    import io
+
+    from torchpruner_tpu_torch.__main__ import main as port_main
+    from torchpruner_tpu_torch.obs.report import load_run
+
+    a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    fleet = [sys.executable, "-m", "torchpruner_tpu_torch", "fleet",
+             "llama3_ffn_taylor", "--checkpoint", a]
+    out = {"card": smi, "host_cores": os.cpu_count(),
+           "host_cores_usable": len(os.sched_getaffinity(0))}
+
+    # (b) starts first and runs beside (a): its verdict holds with
+    # launches of up to ~35 s and slower steps (experiments/fleet_sim.py),
+    # and (a) checks no time
+    sdir = os.path.join(tmp, "fleet_scenario")
+    scenario = os.path.join(HERE, "results", "scenarios",
+                            "flash_crowd_ci.json")
+    scenario_run = _start_group(
+        fleet + ["--scenario", scenario, "--degrade-checkpoint", b]
+        + P32_SCENARIO + P32_GEOMETRY + P32_TUNING + ["--fleet-dir", sdir])
+
+    # (a) the failover drill
+    fdir = os.path.join(tmp, "fleet_drill")
+    rc, stdout, stderr, wall = _finish_group(_start_group(
+        fleet + P32_DRILL + P32_GEOMETRY + ["--fleet-dir", fdir]), 900)
+    if rc != 0:
+        fail(f"phase 32 (a) exited {rc}:\n{stdout[-3000:]}\n"
+             f"{stderr[-6000:]}")
+    s = json.loads([l for l in stdout.splitlines() if l.startswith("{")][-1])
+    m = load_run(os.path.join(fdir, "obs"))["metrics"]
+    reps = _replica_rows(fdir, ["replica0", "replica1"])
+    # the CLI's ``obs incident`` on the fleet directory, in this process
+    with contextlib.redirect_stdout(io.StringIO()) as postmortem, \
+            contextlib.redirect_stderr(io.StringIO()) as incident_err:
+        incident_rc = port_main(["obs", "incident",
+                                 os.path.join(fdir, "obs")])
+    out["drill"] = {
+        "wall_s": wall, "summary": s, "replicas": reps,
+        "incident_exit": incident_rc,
+        "incident_lines": len(postmortem.getvalue().splitlines()),
+        "merged": {k: m.get(k) for k in (
+            "fleet_completed_total", "fleet_failover_total",
+            "fleet_redrive_total", "fleet_affinity_hits_total",
+            "serve_prefix_hits_total", "serve_ttft_seconds_p50",
+            "serve_ttft_seconds_p99", "serve_token_seconds_p50",
+            "serve_token_seconds_p99")}}
+    log(f"phase 32 (a): {json.dumps(out['drill'])}")
+    survivor = reps["replica1"]
+    checks = {
+        "killed": s.get("killed") == ["replica0"],
+        "18 accepted and completed": s.get("accepted") == 18
+        and s.get("completed") == 18,
+        "lost 0": s.get("lost") == 0,
+        "verify 0": s.get("verify_mismatches") == 0,
+        "failover and redrive": s.get("failovers", 0) >= 1
+        and s.get("redrives", 0) >= 1,
+        "one shard": s.get("shards_merged") == 1,
+        "traces": s.get("traces_assembled") == 18
+        and s.get("traces_cross_process") == 18
+        and s.get("traces_redriven_cross_process", 0) >= 1
+        and abs(s.get("ttft_recon_pct", 1e9)) <= 10,
+        "merged report": m.get("fleet_completed_total") == 18
+        and m.get("fleet_affinity_hits_total", 0) >= 1
+        and m.get("serve_prefix_hits_total", 0) > 0,
+        "survivor drained on the card": survivor is not None
+        and survivor["device"] == "cuda"
+        and survivor["requests_drained"] == 0,
+        "survivor's launches": survivor is not None
+        and survivor["kernel_launches"]["decode_attention"]
+        == 4 * survivor["decode_steps"] > 0
+        and survivor["kernel_launches"]["dequant_matmul"] > 0,
+        "obs incident": incident_rc == 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"phase 32 (a): {bad}\n{stderr[-4000:]}\n"
+             f"{incident_err.getvalue()[-2000:]}")
+
+    # (b) the scenario drill with the autoscaler
+    rc, stdout, stderr, wall = _finish_group(scenario_run, 900)
+    lines = [l for l in stdout.splitlines() if l.startswith("{")]
+    s = json.loads(lines[-1]) if lines else {}
+    m = load_run(os.path.join(sdir, "obs"))["metrics"] if lines else {}
+    auto = s.get("autoscale") or {}
+    rungs = [e.get("rung") for e in auto.get("events", [])
+             if e.get("action") == "degrade"]
+    names = sorted(s.get("replica_exit_codes") or {})
+    out["scenario"] = {
+        "wall_s": wall, "exit": rc, "settings": P32_SCENARIO + P32_TUNING,
+        "summary": {k: v for k, v in s.items() if k != "tenants"},
+        "tenants": _tenant_rows(s, m),
+        "replicas": _replica_rows(sdir, names),
+        "highest_rung": max(rungs, default="none",
+                            key=("none", "shed_batch", "tighten_admission",
+                                 "pruned_swap").index),
+        "pruned_swap": "pruned_swap" in rungs}
+    log(f"phase 32 (b): {json.dumps(out['scenario'])}")
+    if rc != 0:
+        fail(f"phase 32 (b) verdict: exit {rc}:\n"
+             + "\n".join(l for l in stderr.splitlines()
+                         if "FAILED" in l or "Error" in l)[-4000:])
+    for name, row in out["scenario"]["replicas"].items():
+        if row is None or row["device"] != "cuda":
+            fail(f"phase 32 (b): {name} left no drained summary: {row}")
+        if row["requests_completed"] and not (
+                row["kernel_launches"]["decode_attention"] > 0
+                and row["kernel_launches"]["dequant_matmul"] > 0):
+            fail(f"phase 32 (b): {name} served without the kernels: {row}")
     return out
 
 
@@ -4449,11 +4704,11 @@ def resilience_slice(dev, smi: str, before_oom=lambda: None) -> dict:
 
 def start_resilience_child():
     """Phase 29 in a child process, started before phase 16: (a), (b)
-    and (d) run beside phases 16-20 (host-bound serving, the sweeps and
-    the CLI runs, none of them near the card's memory); then the child
-    waits on its stdin, and :func:`finish_resilience_child` lets it run
-    (c) while this process waits, so the real OOM meets the card's
-    memory free.  The child leads its own process group, which is
+    and (d) run beside phases 16-20 and 32 (host-bound serving, the
+    sweeps and the CLI runs, none of them near the card's memory); then
+    the child waits on its stdin, and :func:`finish_resilience_child`
+    lets it run (c) while this process waits, so the real OOM meets the
+    card's memory free.  The child leads its own process group, which is
     killed at exit unless it finished: its CLI workers go with it."""
     import atexit
     import signal
@@ -5296,6 +5551,44 @@ def prefill_sums(dq) -> dict:
     return out
 
 
+def log_ptxas(info: dict) -> None:
+    """Each built kernel's registers and spills (``-Xptxas=-v``)."""
+    for name, v in info.items():
+        for line in v["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+
+def start_flash_build():
+    """``_build.build(["flash_attention"])`` in a child process (killed at
+    exit unless it finished); :func:`finish_flash_build` waits for it."""
+    import atexit
+
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import json; from torchpruner_tpu_torch.ops "
+         "import _build; print(json.dumps(_build.build(['flash_attention'])"
+         "))"], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def finish_flash_build(proc, t0: float) -> dict:
+    """The child's build info, once the library is in place; fails with the
+    compiler's output when it did not build."""
+    from torchpruner_tpu_torch.ops import _build
+
+    out, err = proc.communicate(timeout=max(60.0, 900.0 - (
+        time.perf_counter() - t0)))
+    if proc.returncode != 0:
+        fail(f"phase 1: flash_attention did not build:\n{out}\n{err}")
+    info = json.loads(out.strip().splitlines()[-1])
+    if not _build.build(["flash_attention"])["flash_attention"]["cached"]:
+        fail("phase 1: flash_attention's library is not where the child "
+             "built it")
+    return info
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     # tear CUPTI down at every profiler session's stop: kept set up, the
@@ -5367,6 +5660,19 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s ({smi})")
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] == ["--fleet-slice"]:  # phase 19's checkpoints, 32
+        import tempfile
+
+        _build.build()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+            ck = write_checkpoints(dev, tmp)
+            log(f"phase 19's checkpoints: {json.dumps(ck)}")
+            t0 = time.perf_counter()
+            out = fleet_phase(tmp, smi)
+            log(f"phase 32: {time.perf_counter() - t0:.1f} s ({smi})")
+        log(f"total {time.perf_counter() - t_start:.1f} s ({smi})")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:] == ["--obs-slice"]:  # phases 3, 7, 8, 27 and 28 alone
         _build.build()
         s4 = serve_phase(dev, bits=4, depth=DEPTH)
@@ -5379,14 +5685,18 @@ def main() -> int:
         return 0
 
     t0 = time.perf_counter()
-    info = _build.build()
+    # nvcc takes 58-63 s for csrc/flash_attention.cu and 10-24 s for each
+    # other source on the H100's machine (NVIDIA H100 80GB HBM3, 700.00
+    # W): it compiles in a child beside phases 2-5, whose serving path
+    # launches decode attention and the dequant matmul only, and phase 6
+    # waits for it
+    flash_build = start_flash_build()
+    info = _build.build([k for k in _build.KERNELS
+                         if k != "flash_attention"])
     each = ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in info.items())
     log(f"phase 1: built {sorted(info)} in {time.perf_counter() - t0:.2f} s "
-        f"({each})")
-    for name, v in info.items():
-        for line in v["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        f"({each}), flash_attention compiling beside phases 2-5")
+    log_ptxas(info)
 
     log("phase 2: kernels vs plain versions")
     dq = dequant_cases(dev)
@@ -5398,6 +5708,11 @@ def main() -> int:
     s8 = serve_phase(dev, bits=8, depth=4)
     log("phase 5: CLI serve --smoke --verify")
     cli_phase()
+    info = finish_flash_build(flash_build, t0)
+    log(f"phase 1: flash_attention built in "
+        f"{info['flash_attention']['seconds']:.2f} s, phases 1-5 "
+        f"{time.perf_counter() - t0:.2f} s")
+    log_ptxas(info)
     log("phase 6: flash attention kernels vs plain versions")
     fl = [flash_case(dev, *c) for c in FLASH_CASES]
     log("phase 7: --preset bert_glue_sensitivity, BERT-base full width")
@@ -5439,8 +5754,8 @@ def main() -> int:
     t0 = time.perf_counter()
     resnet_phase(dev)
     log(f"phase 17: {time.perf_counter() - t0:.1f} s")
-    log("phase 18: shared-prefix traffic, chunked prefill and prefix pages, "
-        "Llama-3-8B int4 full width and depth, sharing on and off")
+    log(f"phase 18: shared-prefix traffic, chunked prefill and prefix pages, "
+        f"Llama-3-8B int4 full width, {P18_DEPTH} blocks, sharing on and off")
     t0 = time.perf_counter()
     px = prefix_phase(dev)
     log(f"phase 18: {time.perf_counter() - t0:.1f} s")
@@ -5457,14 +5772,19 @@ def main() -> int:
         t0 = time.perf_counter()
         hp = http_phase(tmp)
         log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+        log("phase 32: the serving fleet on checkpoints A and B: the kill "
+            "-9 failover drill, then the autoscaled flash-crowd scenario")
+        t0 = time.perf_counter()
+        fl32 = fleet_phase(tmp, smi)
+        log(f"phase 32: {time.perf_counter() - t0:.1f} s ({smi})")
     t0 = time.perf_counter()
     par = finish_parallel_child(par_child)
     log(f"phase 30: {time.perf_counter() - t29:.1f} s from its start, "
-        f"{time.perf_counter() - t0:.1f} s after phase 20 ({smi})")
+        f"{time.perf_counter() - t0:.1f} s after phase 32 ({smi})")
     t0 = time.perf_counter()
     res = finish_resilience_child(res_child)
     log(f"phase 29: {time.perf_counter() - t29:.1f} s from its start, "
-        f"{time.perf_counter() - t0:.1f} s after phase 20 ({smi})")
+        f"{time.perf_counter() - t0:.1f} s after phase 32 ({smi})")
     t0 = time.perf_counter()
     log("phases 21-23: the MoE slice (Mixtral-8x7B), in a child process")
     moe = run_moe_child()
@@ -5536,6 +5856,13 @@ def main() -> int:
             "launches_checkpoint_swap_cli": ck["summary"]["kernel_launches"][
                 name],
             "launches_http_server": hp["summary"]["kernel_launches"][name],
+            # phase 32: the failover drill's survivor (replica1), and each
+            # replica of the autoscaled scenario
+            "launches_fleet": fl32["drill"]["replicas"]["replica1"][
+                "kernel_launches"][name],
+            "launches_fleet_scenario": {
+                rep: row["kernel_launches"][name] for rep, row in
+                fl32["scenario"]["replicas"].items()},
             # the MoE slice: Mixtral-8x7B int4 serving (21), the pruned
             # 2-block Mixtral's checkpoint through the CLI (23)
             "launches_mixtral_serve": moe["serve"]["launches"][name],
@@ -5660,6 +5987,7 @@ def main() -> int:
         })
     kernels[0]["serve_v2"] = {"prefix_sharing": px, "checkpoint_swap": ck,
                               "http": hp}
+    kernels[0]["fleet"] = fl32
     kernels[0]["moe"] = moe
     kernels[0]["training_v2"] = {"remat": rm, "accum_masked": am,
                                  "cached_sweep": cs}

@@ -253,7 +253,7 @@ def test_token_datasets_equal_bit_for_bit(name):
                        for a, b in zip(jb, pb))
 
 
-def test_preset_table_matches_jax():
+def test_preset_table_matches_jax(tmp_path):
     assert tuple(PPS.PRESETS) == JPS.preset_names()
     for name in PPS.PRESETS:
         for smoke in (False, True):
@@ -267,9 +267,14 @@ def test_preset_table_matches_jax():
         PPR.run_prune_retrain(
             PPS.get_preset("vgg16_digits32_layerwise", True), device="cpu")
     smoke = PPS.get_preset("bert_glue_sensitivity", True)
-    with pytest.raises(NotImplementedError, match="plot_dir"):
-        PPR.run_prune_retrain(dataclasses.replace(smoke, plot_dir="x"),
-                              device="cpu")
+    # plot_dir is the sweep's: the prune loop runs with it set and draws
+    # nothing, as the JAX loop does
+    figs = tmp_path / "figs"
+    history = PPR.run_prune_retrain(
+        dataclasses.replace(smoke, plot_dir=str(figs),
+                            log_path=str(tmp_path / "p.csv")),
+        device="cpu", verbose=False)
+    assert len(history) == 2 and not figs.exists()
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         PPR.run_prune_retrain(dataclasses.replace(smoke,
                                                   mesh={"data": 2}),

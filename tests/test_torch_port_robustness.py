@@ -37,6 +37,7 @@ import _torch_threads  # noqa: F401  (caps torch's threads)
 import dataclasses
 import json
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -309,15 +310,25 @@ def test_cli_runs_the_train_and_train_robustness_experiments(tmp_path,
     assert set(out) == {"shapley"} and math.isfinite(out["shapley"])
 
 
-def test_unported_settings_raise():
-    """``plot_dir`` is not ported; a mesh is, and one of 2 ranks is
-    refused in a world of one, naming both sizes."""
+def test_unported_settings_raise(tmp_path):
+    """Every setting is ported: with ``plot_dir`` training runs and draws
+    nothing, and the sweep writes its figures there, as in the JAX
+    package; a mesh of 2 ranks is refused in a world of one, naming both
+    sizes."""
     cfg = PPS.get_preset("vgg16_digits32_layerwise", smoke=True)
-    bad = dataclasses.replace(cfg, plot_dir="figs")
-    with pytest.raises(NotImplementedError, match="plot_dir"):
-        PTM.run_train(bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="plot_dir"):
-        PR.run_robustness_config(bad, device="cpu")
+    figs = tmp_path / "figs"
+    plotted = dataclasses.replace(cfg, plot_dir=str(figs),
+                                  log_path=str(tmp_path / "t.csv"))
+    assert plotted.unported() == []
+    trainer, history = PTM.run_train(plotted, device="cpu", verbose=False)
+    assert len(history) == 1 and not figs.exists()
+    PR.run_robustness_config(
+        dataclasses.replace(plotted, target_filter=("fc1",),
+                            method_kwargs={"sv_samples": 2}),
+        params=trainer.params, state=trainer.state, verbose=False,
+        device="cpu")
+    assert sorted(os.listdir(figs)) == ["auc_summary.png",
+                                        "robustness_fc1.png"]
     for over in ({"mesh": {"data": 2}, "zero": True},
                  {"mesh": {"data": 2}}):
         bad = dataclasses.replace(cfg, **over)

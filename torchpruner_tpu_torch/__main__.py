@@ -20,6 +20,12 @@
     serve <preset> [--smoke] [--cpu] --synthetic N [--verify] ...
         the continuous-batching engine on synthetic traffic
         (torchpruner_tpu_torch/serve/frontend.py)
+    fleet <preset> [--smoke] [--cpu] --synthetic N | --scenario JSON
+        | --http PORT ...
+        the multi-replica serving plane: N serve replicas behind a
+        health-checked router over a durable request journal, with the
+        kill -9 failover and autoscale drills
+        (torchpruner_tpu_torch/fleet/frontend.py)
     obs report DIR | diff A B [--gate G] | watch DIR | incident DIR
         | profile DIR
         render, compare and gate a run directory (obs/report.py); reads
@@ -71,12 +77,19 @@ def main(argv=None) -> int:
         from torchpruner_tpu_torch.serve.frontend import serve_main
 
         return serve_main(argv[1:])
+    if argv and argv[0] == "fleet":
+        # the multi-replica serving plane: router + request journal +
+        # N serve replicas + failover drills (fleet/frontend.py)
+        from torchpruner_tpu_torch.fleet.frontend import fleet_main
+
+        return fleet_main(argv[1:])
     p = argparse.ArgumentParser(
         prog="torchpruner_tpu_torch",
         description="structured pruning experiments on PyTorch/CUDA "
                     "(subcommands: serve — the continuous-batching engine; "
-                    "obs report/diff/watch/incident/profile — run-ledger "
-                    "tooling)")
+                    "fleet — the multi-replica serving plane and its "
+                    "failover drills; obs report/diff/watch/incident/"
+                    "profile — run-ledger tooling)")
     p.add_argument("target", nargs="?", default=None,
                    help="preset name or config JSON path (shorthand for "
                         "--preset / --config)")

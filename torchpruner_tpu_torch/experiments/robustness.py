@@ -25,7 +25,9 @@ results committed to ``sweep_results.json``, a preemption honoured at
 the next layer boundary), and the train-then-sweep protocol journals its
 two phases into ``train/`` and ``sweep/`` under it.  With ``cfg.mesh``
 (a ``data`` axis) the scoring rows and the walks split every batch over
-the ranks, and rank 0 writes the results; ``plot_dir`` (A8b) raises.
+the ranks, and rank 0 writes the results and the figures (``plot_dir``:
+per-layer ``robustness_<layer>.png`` and ``auc_summary.png``,
+``utils/plotting.py``).
 Without trained params, ``cfg.checkpoint_path`` names the training
 checkpoint to sweep
 (``checkpoint.py``, written by either package).
@@ -506,6 +508,26 @@ def run_robustness_config(cfg, *, model=None, datasets=None, params=None,
         _write_results(cfg.results_path, cfg.name, aucs, results)
         if verbose:
             print(f"[robustness] wrote results to {cfg.results_path}",
+                  flush=True)
+    if cfg.plot_dir and is_writer():
+        from torchpruner_tpu_torch.utils.plotting import (
+            plot_auc_summary,
+            plot_robustness_curves,
+        )
+
+        os.makedirs(cfg.plot_dir, exist_ok=True)
+        for layer in results:
+            plot_robustness_curves(
+                results, layer,
+                save_path=os.path.join(
+                    cfg.plot_dir, f"robustness_{layer.replace('/', '_')}.png"
+                ),
+            )
+        plot_auc_summary(
+            aucs, save_path=os.path.join(cfg.plot_dir, "auc_summary.png")
+        )
+        if verbose:
+            print(f"[robustness] wrote figures to {cfg.plot_dir}",
                   flush=True)
     return aucs
 

@@ -1,6 +1,5 @@
 """Automated root-cause correlation: triggers → ranked incidents.
-(A copy of ``torchpruner_tpu/obs/incident.py``; the fleet plane's
-run directories are not read: the port has no ``fleet/``.)
+(A copy of ``torchpruner_tpu/obs/incident.py``, imports renamed.)
 
 The telemetry plane measures everything (windowed time-series, burn-rate
 alerts, request traces, a ledger of every consequential action) but the
@@ -33,9 +32,9 @@ Offline, :func:`assemble_run_incidents` rebuilds the same incidents
 from a run dir's artifacts alone (ledger + time-series + reqtrace
 record) — the ``python -m torchpruner_tpu_torch obs incident DIR`` path,
 which works on a kill -9'd run because every input flushes per line.
-Fleet dirs (``metrics_ts_fleet.jsonl`` present) need the fleet plane's
-router-clock assembly, which the port does not have: ``obs incident``
-refuses them (exit 2).
+Fleet dirs (``metrics_ts_fleet.jsonl`` present) route through
+``fleet.report.assemble_fleet_incidents`` so the assembly happens on
+the router clock.
 
 Tuning: ``TORCHPRUNER_INCIDENT_LOOKBACK_S`` (default 120 s — matched to
 the slow burn window, so a fault old enough to still be burning the
@@ -720,12 +719,13 @@ def incident_main(args) -> int:
     lookback = args.lookback if args.lookback > 0 else None
     fleet = os.path.exists(os.path.join(run_dir, TS_FLEET_FILENAME))
     if fleet:
-        print(f"{run_dir}: a fleet run directory; its incidents need the "
-              "fleet plane's assembly, which this package does not have "
-              "(read it with python -m torchpruner_tpu obs incident)",
-              file=sys.stderr)
-        return 2
-    out = assemble_run_incidents(run_dir, lookback_s=lookback)
+        from torchpruner_tpu_torch.fleet.report import (
+            assemble_fleet_incidents,
+        )
+
+        out = assemble_fleet_incidents(run_dir, lookback_s=lookback)
+    else:
+        out = assemble_run_incidents(run_dir, lookback_s=lookback)
 
     ledgered = [r for r in out["records"]
                 if r.get("event") == "incident"]

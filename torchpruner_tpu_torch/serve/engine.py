@@ -74,7 +74,9 @@ the batch).
 Telemetry, at the JAX engine's call sites and under its names: spans
 ``serve_prefill``, ``serve_prefill_chunk``, ``serve_prefix_map`` /
 ``serve_prefix_publish`` and ``serve_swap_compile``; the ``serve_*`` and
-``tenant_*`` counters and histograms; request-trace stages (admission →
+``tenant_*`` counters and histograms (and, the port's own,
+``tenant_<name>_token_seconds``: a tenant's per-token latency, which the
+fleet's scenario drill reports per tenant); request-trace stages (admission →
 prefill → first_token → decode → complete); ``obs.profile_step`` after
 every decode step and ``obs.profile_tick`` / ``obs.timeseries_tick`` in
 the loop, which drive the capture windows; ``record_serve`` ledger
@@ -764,6 +766,9 @@ class ServeEngine:
             obs.observe("serve_token_seconds", gap,
                         help="per-token latency (gap between a "
                              "request's successive tokens)")
+            if req.tenant:
+                obs.observe(f"tenant_{req.tenant}_token_seconds", gap,
+                            help="this tenant's per-token latency")
             if self.slo is not None:
                 self.slo.on_token(gap)
             self._last_token_s[slot] = now

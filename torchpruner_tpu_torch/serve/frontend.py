@@ -609,8 +609,13 @@ def _run_http(engine, pre, args) -> int:
     finally:
         server.shutdown()
         t.join(timeout=5)
-    print(json.dumps(summary if summary is not None
-                     else engine.summary()), file=sys.stderr)
+    if summary is None:
+        summary = engine.summary()
+    if engine.device.type == "cuda":
+        # the replica's footprint on a card it may share (fleet replicas)
+        summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+            engine.device)
+    print(json.dumps(summary), file=sys.stderr)
     return 0
 
 

@@ -2,8 +2,8 @@
 ``torchpruner_tpu/utils/config.py``: the same dataclass, field for field,
 JSON round-trippable, so a config file runs in either package.
 
-The port does not run every field yet.  :meth:`ExperimentConfig.unported`
-names the settings of a config that the port cannot honour, with the
+The port runs every field.  :meth:`ExperimentConfig.unported` names the
+settings of a config that the port cannot honour (none today), with the
 ROADMAP item that ports each; the drivers raise ``NotImplementedError``
 on any of them instead of ignoring it.
 """
@@ -269,6 +269,4 @@ class ExperimentConfig:
 
 
 #: (field, default, ROADMAP item) of the settings the port does not run
-_UNPORTED = (
-    ("plot_dir", "", "ROADMAP A8b (the sweep's figures)"),
-)
+_UNPORTED: Tuple[Tuple[str, Any, str], ...] = ()
