@@ -389,11 +389,37 @@ for phase 21's trace, and the card's memory to themselves.
     per tenant, each drained replica's peak allocated memory, the
     highest rung and whether the pruned swap fired, the host's cores.
 
+33. Sparsity search and the static analysis (``search/``,
+    ``analysis/``), in a child process started with the MoE child
+    (phases 21-23) and reaped after phase 24: host-bound work and small
+    MLP steps beside phases that leave the host's cores free.  (a) The
+    ``digits_smoke`` grid written to a JSON spec with ``"smoke": false``:
+    ``search SPEC`` (the card's default ``--jobs 2``) prunes and retrains
+    the full 784-2024-2024-10 ``mnist_fc`` on ``mnist_flat``'s fallback
+    data in every trial.  Held: exit 0, 9 candidates, ``t08_over_budget``
+    excluded by ``cost`` and the rest feasible, ``t07_doomed_lr``
+    early-stopped, every other trial done with a frontier point carrying
+    its checkpoint digest and ledger run id, ``frontier.json`` consistent
+    with its digest, every trial run on ``cuda``, the driver's pid in no
+    ``nvidia-smi --query-compute-apps=pid`` sample while the workers run,
+    and the driver's own last word that torch made no CUDA context in it
+    (inside a container ``nvidia-smi`` may list every process as pid 1).
+    Recorded: each point's measured ``step_time_mean_s`` beside its
+    predicted step.  (b) The kill -9 drill: the same spec with ``--chaos
+    '{"kill_after_trials": 2}'`` exits -9, then a resume reproduces (a)'s
+    ``frontier_digest``; if it does not, a second uninterrupted campaign
+    says whether the card's arithmetic or the resume differs.  (c) The
+    lint CLI: ``--lint bert_glue_sensitivity`` at full width exits 0,
+    ``--lint`` with a corrupted ``--lint-plan`` exits 1 naming the path,
+    ``lint-host`` over the port's package exits 0.  (a), (b) and (c) run
+    side by side.  Its trials launch no repo kernel (the MLP runs on
+    cuBLAS).
+
 ``python3 chip_smoke.py --obs-slice`` runs phases 3, 7, 8, 27 and 28
 alone (the kernels built first); ``python3 chip_smoke.py
 --resilience-slice`` runs phase 29 alone, ``--parallel-slice`` phases 30
 and 31, ``--sp-pp-slice`` phase 31 alone, ``--fleet-slice`` phase 19's
-checkpoints and phase 32.
+checkpoints and phase 32, ``--search-slice`` phase 33.
 
 The last three stdout lines: the ``nvidia-smi`` name/power line, one JSON
 ``{"kernels": [...]}`` line, and ``{"ok": true, "device": {...}}``.
@@ -5525,6 +5551,286 @@ def finish_parallel_child(started) -> dict:
     return json.loads(stdout.strip().splitlines()[-1])
 
 
+# ---------------------------------------------------------------- phase 33
+
+#: phase 33's drill: the driver SIGKILLed after this many completions
+P33_KILL = {"kill_after_trials": 2}
+#: each campaign's limit (seconds); (a) took 195.3 s alone with the
+#: kernels' build in it (--search-slice)
+P33_TIMEOUT = 600
+
+
+def _p33_env():
+    # the trials' host work on two threads each: the MoE child beside
+    # them keeps the rest of the host's cores
+    return dict(os.environ, OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
+
+
+def _compute_pids() -> list:
+    """The pids ``nvidia-smi`` lists as holding a compute context, one
+    entry a context."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=20).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _campaign(spec_path: str, campaign_dir: str, *extra) -> dict:
+    """One ``search`` CLI run, watched: every second the pids
+    ``nvidia-smi`` lists with a compute context, held against the
+    driver's (the CLI's own process)."""
+    import threading
+
+    cmd = [sys.executable, "-m", "torchpruner_tpu_torch", "search",
+           spec_path, "--campaign-dir", campaign_dir, *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=_p33_env(), start_new_session=True)
+    out, seen, samples = {}, set(), 0
+    reader = threading.Thread(target=lambda: out.update(
+        zip(("stdout", "stderr"), proc.communicate())), daemon=True)
+    reader.start()
+    while proc.poll() is None and time.perf_counter() - t0 < P33_TIMEOUT:
+        seen |= set(_compute_pids())
+        samples += 1
+        time.sleep(1.0)
+    if proc.poll() is None:
+        import signal
+
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        fail(f"phase 33: {extra} overran {P33_TIMEOUT} s")
+    reader.join()
+    stdout = out.get("stdout", "")
+    return {"rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+            "driver_pid": proc.pid, "compute_pids_seen": sorted(seen),
+            "driver_in_compute_apps": proc.pid in seen, "samples": samples,
+            "driver_reports_no_context":
+                "driver CUDA context: none" in stdout,
+            "stdout": stdout, "stderr": out.get("stderr", "")}
+
+
+def _check_campaign(d: str, run: dict, label: str) -> dict:
+    """(a)'s checks on a finished campaign directory; returns its
+    frontier and its points' measured beside predicted step times."""
+    from torchpruner_tpu_torch.resilience.manifest import read_json
+    from torchpruner_tpu_torch.search.frontier import frontier_digest
+
+    if run["rc"] != 0:
+        fail(f"phase 33 {label}: search exited {run['rc']}:\n"
+             f"{run['stdout'][-3000:]}\n{run['stderr'][-3000:]}")
+    # nvidia-smi's compute apps, and the driver's own word at its end
+    # (torch.cuda.is_initialized: inside a container nvidia-smi may list
+    # every process as pid 1)
+    if run["driver_in_compute_apps"] or not run["driver_reports_no_context"]:
+        fail(f"phase 33 {label}: the campaign driver (pid "
+             f"{run['driver_pid']}) held a CUDA context")
+    m = read_json(os.path.join(d, "campaign.json"))
+    fr = read_json(os.path.join(d, "frontier.json"))
+    trials = m["trials"]
+    status = {t: st["status"] for t, st in trials.items()}
+    if len(trials) != 9:
+        fail(f"phase 33 {label}: {len(trials)} candidates, not 9")
+    over = trials["t08_over_budget"]["pricing"]
+    if status["t08_over_budget"] != "excluded" \
+            or over["excluded_by"] != "cost":
+        fail(f"phase 33 {label}: t08_over_budget not excluded by cost: "
+             f"{over}")
+    infeasible = [t for t, st in trials.items() if t != "t08_over_budget"
+                  and not st["pricing"]["feasible"]]
+    if infeasible:
+        fail(f"phase 33 {label}: priced infeasible: {infeasible}")
+    if status["t07_doomed_lr"] != "early_stopped":
+        fail(f"phase 33 {label}: t07_doomed_lr is "
+             f"{status['t07_doomed_lr']}, not early-stopped")
+    done = sorted(t for t, st in status.items()
+                  if t not in ("t07_doomed_lr", "t08_over_budget"))
+    if [status[t] for t in done] != ["done"] * 7:
+        fail(f"phase 33 {label}: statuses {status}")
+    points = {p["trial_id"]: p for p in fr["points"]}
+    if sorted(points) != done or not all(
+            points[t]["checkpoint_digest"] and points[t]["ledger_run_id"]
+            for t in done):
+        fail(f"phase 33 {label}: frontier points {sorted(points)} lack "
+             f"provenance")
+    if frontier_digest(fr) != fr["frontier_digest"]:
+        fail(f"phase 33 {label}: frontier.json disagrees with its digest")
+    devices = {t: read_json(os.path.join(d, "trials", t, "result.json"))[
+        "device"] for t in done}
+    if set(devices.values()) != {"cuda"}:
+        fail(f"phase 33 {label}: trials ran on {devices}")
+    steps = {t: {"measured_step_time_mean_s":
+                 points[t]["measured"]["step_time_mean_s"],
+                 "predicted_step_ms": points[t]["predicted_step_ms"],
+                 "accuracy": points[t]["accuracy"],
+                 "flops": points[t]["flops"],
+                 "non_dominated": points[t]["non_dominated"]}
+             for t in done}
+    return {"frontier": fr, "steps": steps}
+
+
+def _lint_runs(tmp: str) -> dict:
+    """Phase 33 (c): the lint CLI, host-only."""
+    from torchpruner_tpu_torch.core.graph import group_for
+    from torchpruner_tpu_torch.core.plan import plan_to_dict
+    from torchpruner_tpu_torch.core.pruner import plan_for_group
+    from torchpruner_tpu_torch.experiments.presets import MODEL_REGISTRY
+
+    model = MODEL_REGISTRY["bert_base"][0]()
+    plan = plan_for_group(model, group_for(model, "block12_mlp/fc1"))
+    bad = dataclasses.replace(plan, slices=(dataclasses.replace(
+        plan.slices[0], path=("block12_mlp", "fc9", "w")),)
+        + plan.slices[1:])
+    plan_path = os.path.join(tmp, "bad_plan.json")
+    with open(plan_path, "w") as f:
+        json.dump(plan_to_dict(bad), f)
+    runs = {}
+    for tag, argv, want in (
+            ("lint_preset", ["--lint", "bert_glue_sensitivity"], 0),
+            ("lint_bad_plan", ["--lint", "bert_glue_sensitivity",
+                               "--lint-plan", plan_path], 1),
+            ("lint_host", ["lint-host", "torchpruner_tpu_torch"], 0)):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "torchpruner_tpu_torch",
+                            *argv], cwd=HERE, capture_output=True,
+                           text=True, timeout=300)
+        runs[tag] = {"rc": r.returncode,
+                     "wall_s": time.perf_counter() - t0,
+                     "head": r.stdout.splitlines()[:1]}
+        if r.returncode != want:
+            fail(f"phase 33 (c) {tag} exited {r.returncode}, not {want}:"
+                 f"\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+        if tag == "lint_bad_plan" and not (
+                "plan/missing-path" in r.stdout
+                and "block12_mlp/fc9/w" in r.stdout):
+            fail(f"phase 33 (c): the corrupted plan's path is not named:"
+                 f"\n{r.stdout[-2000:]}")
+    return runs
+
+
+def _drill(spec_path: str, d: str) -> dict:
+    """Phase 33 (b): the campaign SIGKILLed, then resumed."""
+    k = _campaign(spec_path, d, "--chaos", json.dumps(P33_KILL))
+    if k["rc"] != -9:
+        fail(f"phase 33 (b): the killed campaign exited {k['rc']}:\n"
+             f"{k['stdout'][-2000:]}\n{k['stderr'][-2000:]}")
+    r = _campaign(spec_path, d)
+    return {"killed": k, "resumed": r}
+
+
+def search_phase(smi: str) -> dict:
+    """Phase 33: (a) the full-width campaign, (b) the kill -9 drill and
+    (c) the lint CLI, all three side by side (each campaign its own
+    driver and two workers); then (b)'s digest against (a)'s.  Runs in
+    a child of the whole script or alone (``--search-slice``)."""
+    import tempfile
+    import threading
+
+    from torchpruner_tpu_torch.ops import _build
+    from torchpruner_tpu_torch.search.grid import digits_smoke
+
+    _build.build()  # once, before two drivers would ask for it
+    out = {"card": smi}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p33_") as tmp:
+        spec = dataclasses.replace(digits_smoke(), smoke=False)
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec.to_dict(), f)
+        out["campaign_id"] = spec.campaign_id
+        got, walls = {}, {}
+
+        def run(key, fn, *args):
+            t = time.perf_counter()
+            got[key] = fn(*args)
+            walls[key] = time.perf_counter() - t
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=a) for a in (
+            ("a", _campaign, spec_path, os.path.join(tmp, "a")),
+            ("b", _drill, spec_path, os.path.join(tmp, "b")),
+            ("c", _lint_runs, tmp))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out["wall_s"] = time.perf_counter() - t0
+        missing = [k for k in "abc" if k not in got]
+        if missing:
+            fail(f"phase 33: part(s) {missing} did not finish")
+        a = got["a"]
+        ca = _check_campaign(os.path.join(tmp, "a"), a, "(a)")
+        fr = ca["frontier"]
+        out["a"] = {k: a[k] for k in ("wall_s", "driver_in_compute_apps",
+                                      "driver_reports_no_context",
+                                      "samples", "compute_pids_seen")}
+        out["a"].update(counts=fr["counts"], digest=fr["frontier_digest"],
+                        buckets=fr["buckets"], steps=ca["steps"])
+        log(f"phase 33 (a): {a['wall_s']:.1f} s, digest "
+            f"{fr['frontier_digest'][:12]}, counts {fr['counts']} "
+            f"({smi})")
+        for t, row in sorted(ca["steps"].items()):
+            log(f"  {t}: measured step "
+                f"{row['measured_step_time_mean_s']} s, predicted "
+                f"{row['predicted_step_ms']:.4f} ms, acc "
+                f"{row['accuracy']:.4f}, flops {row['flops']:.4g}")
+
+        k, r = got["b"]["killed"], got["b"]["resumed"]
+        cb = _check_campaign(os.path.join(tmp, "b"), r, "(b)")
+        same = cb["frontier"]["frontier_digest"] == fr["frontier_digest"]
+        out["b"] = {"killed_wall_s": k["wall_s"],
+                    "resume_wall_s": r["wall_s"],
+                    "digest": cb["frontier"]["frontier_digest"],
+                    "reproduced": same}
+        if not same:
+            # a second uninterrupted campaign tells the card's
+            # nondeterminism apart from a resume fault
+            a2 = _campaign(spec_path, os.path.join(tmp, "a2"))
+            c2 = _check_campaign(os.path.join(tmp, "a2"), a2, "(a2)")
+            rerun_same = c2["frontier"]["frontier_digest"] == \
+                fr["frontier_digest"]
+            out["b"]["uninterrupted_again"] = {
+                "wall_s": a2["wall_s"],
+                "digest": c2["frontier"]["frontier_digest"]}
+            out["b"]["cause"] = ("resume" if rerun_same
+                                 else "card nondeterminism")
+            log(f"phase 33 (b): resumed digest differs; cause: "
+                f"{out['b']['cause']}")
+            if rerun_same:
+                fail("phase 33 (b): the resumed campaign's frontier "
+                     "differs from two equal uninterrupted ones")
+        log(f"phase 33 (b): killed after {P33_KILL} in {k['wall_s']:.1f} s "
+            f"(rc -9), resumed in {r['wall_s']:.1f} s, digest reproduced: "
+            f"{same} ({smi})")
+        out["c"] = got["c"]
+        log(f"phase 33 (c): {walls['c']:.1f} s {json.dumps(out['c'])}")
+        log(f"phase 33: (a), (b) and (c) side by side {out['wall_s']:.1f} s "
+            f"({smi})")
+    return out
+
+
+def start_search_child():
+    """Phase 33 in a child process (its own process group, killed at
+    exit unless it finished)."""
+    return _start_group([sys.executable, os.path.abspath(__file__),
+                         "--search-child"])
+
+
+def finish_search_child(started) -> dict:
+    rc, stdout, stderr, wall = _finish_group(started, timeout=900)
+    for line in stdout.strip().splitlines()[:-1]:
+        log(f"  {line}")
+    if rc != 0:
+        fail(f"phase 33 exited {rc}:\n{stdout[-4000:]}\n{stderr[-4000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    out["child_wall_s"] = wall
+    return out
+
+
 def per_step(cases, key, weight):
     return sum(c[key] * weight(c) for c in cases)
 
@@ -5673,6 +5979,12 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s ({smi})")
         print(json.dumps(out), flush=True)
         return 0
+    if sys.argv[1:] in (["--search-slice"], ["--search-child"]):
+        # phase 33 alone, or as the whole script's child
+        out = search_phase(smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s ({smi})")
+        print(json.dumps(out), flush=True)
+        return 0
     if sys.argv[1:] == ["--obs-slice"]:  # phases 3, 7, 8, 27 and 28 alone
         _build.build()
         s4 = serve_phase(dev, bits=4, depth=DEPTH)
@@ -5785,6 +6097,10 @@ def main() -> int:
     res = finish_resilience_child(res_child)
     log(f"phase 29: {time.perf_counter() - t29:.1f} s from its start, "
         f"{time.perf_counter() - t0:.1f} s after phase 32 ({smi})")
+    log("phase 33: sparsity search (the full-width digits_smoke campaign, "
+        "its kill -9 drill) and the lint CLI, in a child process beside "
+        "phases 21-24")
+    search_child = start_search_child()
     t0 = time.perf_counter()
     log("phases 21-23: the MoE slice (Mixtral-8x7B), in a child process")
     moe = run_moe_child()
@@ -5794,6 +6110,10 @@ def main() -> int:
     t0 = time.perf_counter()
     rm = run_remat_child()
     log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    p33 = finish_search_child(search_child)
+    log(f"phase 33: {p33['child_wall_s']:.1f} s in all, "
+        f"{time.perf_counter() - t0:.1f} s after phase 24 ({smi})")
     log("phase 25: accumulated masked retraining (accum_steps 2), BERT-base "
         "full width")
     t0 = time.perf_counter()
@@ -6000,6 +6320,8 @@ def main() -> int:
     kernels[0]["parallel"] = par
     # phase 31: sequence and pipeline parallelism
     kernels[0]["sp_pp"] = sp_pp
+    # phase 33: sparsity search and the lint CLI (no repo kernel)
+    kernels[0]["search"] = p33
     for k in kernels:
         if k["name"] in FLASH_KERNELS:
             short = {"flash_fwd": "fwd", "flash_dq": "dq",

@@ -17,6 +17,11 @@
                                         telemetry (below)
     --zero                              ZeRO weight-update sharding over
                                         the config mesh's data axis
+    --lint [PRESET_OR_JSON] [--lint-plan PATH] [--smoke]
+                                        the static analyzer (plan and
+                                        sharding lint over meta trees, the
+                                        host lint): print the findings,
+                                        exit 1 on an error finding
     serve <preset> [--smoke] [--cpu] --synthetic N [--verify] ...
         the continuous-batching engine on synthetic traffic
         (torchpruner_tpu_torch/serve/frontend.py)
@@ -26,6 +31,13 @@
         health-checked router over a durable request journal, with the
         kill -9 failover and autoscale drills
         (torchpruner_tpu_torch/fleet/frontend.py)
+    search <campaign> [--cpu] [--jobs N] [--campaign-dir DIR] ...
+        the Pareto sparsity-search campaign driver: pre-priced
+        concurrent prune-retrain trials, dominance early-stop, a
+        resumable frontier.json (torchpruner_tpu_torch/search/driver.py)
+    lint-host [paths ...] [--waivers FILE] [--json OUT]
+        the host-side concurrency / durability lint alone, no preset
+        (torchpruner_tpu_torch/analysis/host_lint.py)
     obs report DIR | diff A B [--gate G] | watch DIR | incident DIR
         | profile DIR
         render, compare and gate a run directory (obs/report.py); reads
@@ -56,6 +68,12 @@ A config with a ``mesh`` runs with one process per device under
 --config PATH`` (``parallel/``): the mesh's size must equal N.  Rank 0
 alone writes the outputs, prints the summary line and keeps the obs
 session; ``--zero`` sets ``cfg.zero``.
+
+``--lint`` needs no device: a plan (``--lint-plan``, the JSON of
+``core.plan.plan_to_dict``, either package's) is checked against the
+config's model instead of the graph-derived groups.  The JAX package's
+``--plan`` (its placement planner) reads XLA programs and is not
+ported: given it, the CLI says so and exits 2.
 """
 
 from __future__ import annotations
@@ -83,13 +101,26 @@ def main(argv=None) -> int:
         from torchpruner_tpu_torch.fleet.frontend import fleet_main
 
         return fleet_main(argv[1:])
+    if argv and argv[0] == "lint-host":
+        # the host-side concurrency / durability scan needs no preset
+        # and no model: CI runs it over the whole package
+        from torchpruner_tpu_torch.analysis.host_lint import host_lint_main
+
+        return host_lint_main(argv[1:])
+    if argv and argv[0] == "search":
+        # the Pareto sparsity-search campaign driver (search/driver.py)
+        from torchpruner_tpu_torch.search.driver import search_main
+
+        return search_main(argv[1:])
     p = argparse.ArgumentParser(
         prog="torchpruner_tpu_torch",
         description="structured pruning experiments on PyTorch/CUDA "
                     "(subcommands: serve — the continuous-batching engine; "
                     "fleet — the multi-replica serving plane and its "
-                    "failover drills; obs report/diff/watch/incident/"
-                    "profile — run-ledger tooling)")
+                    "failover drills; search — the Pareto sparsity-search "
+                    "campaign driver; lint-host — the host-side "
+                    "concurrency/durability lint; obs report/diff/watch/"
+                    "incident/profile — run-ledger tooling)")
     p.add_argument("target", nargs="?", default=None,
                    help="preset name or config JSON path (shorthand for "
                         "--preset / --config)")
@@ -138,12 +169,32 @@ def main(argv=None) -> int:
                         "sharded, gradients reduce-scattered, params "
                         "all-gathered after the update — needs a mesh "
                         "with a 'data' axis")
+    p.add_argument("--lint", metavar="PRESET_OR_JSON", nargs="?",
+                   const="", default=None,
+                   help="run the static analyzer (plan and sharding lint "
+                        "over meta trees, host lint) over a preset name or "
+                        "config JSON path — or over --preset/--config when "
+                        "given bare — print the findings, and exit 1 on an "
+                        "error-severity finding")
+    p.add_argument("--lint-plan", metavar="PATH",
+                   help="with --lint: validate this JSON-serialized "
+                        "PrunePlan (core.plan.plan_to_dict) against the "
+                        "config's model instead of the graph-derived groups")
+    p.add_argument("--plan", choices=("auto", "report"), default=None,
+                   help="the JAX package's placement planner: not ported "
+                        "(it reads XLA programs); refused with exit 2")
     p.add_argument("--chaos", metavar="JSON_OR_PATH",
                    help="deterministic fault injection (resilience.chaos), "
                         "e.g. '{\"nan_at_step\": 5, \"kill_at_step\": 12}' "
                         "— for recovery-path testing; also via "
                         "TORCHPRUNER_CHAOS env")
     args = p.parse_args(argv)
+    if args.plan is not None:
+        p.error("--plan is not ported: the placement planner prices "
+                "candidates from compiled XLA programs, which the port "
+                "does not build (ROADMAP §C)")
+    if args.lint_plan and args.lint is None:
+        p.error("--lint-plan only makes sense together with --lint")
     if args.obs_dir and args.no_obs:
         p.error("--obs-dir and --no-obs are mutually exclusive")
     if args.profile_every is not None and not args.obs_dir:
@@ -165,17 +216,25 @@ def main(argv=None) -> int:
         for name, fn in PRESETS.items():
             print(f"{name:26s} {fn.__doc__.splitlines()[0]}")
         return 0
-    if args.config:
+    if args.lint:  # --lint <preset-name-or-config-path> names its target
+        if args.lint.endswith(".json"):
+            cfg = ExperimentConfig.from_json(args.lint)
+        else:
+            cfg = get_preset(args.lint, smoke=args.smoke)
+    elif args.config:
         cfg = ExperimentConfig.from_json(args.config)
     elif args.preset:
         cfg = get_preset(args.preset, smoke=args.smoke)
     else:
-        p.error("one of --preset / --config / --list is required")
+        p.error("one of --preset / --config / --list / --lint PRESET is "
+                "required")
     if args.zero:
         if "data" not in (cfg.mesh or {}):
             p.error("--zero needs a config mesh with a 'data' axis "
                     "(e.g. \"mesh\": {\"data\": 4, \"model\": 2})")
         cfg.zero = True
+    if args.lint is not None:
+        return _lint(cfg, args.lint_plan)
     if args.resume:
         cfg.run_dir = args.resume
     if args.checkpoint_every is not None:
@@ -240,6 +299,22 @@ def main(argv=None) -> int:
     if joined:
         dist.destroy_process_group()
     return 0
+
+
+def _lint(cfg, plan_path=None) -> int:
+    """``--lint``: the analyzer's report over ``cfg`` (and the plan in
+    ``plan_path``); 0 when it holds no error finding, else 1."""
+    from torchpruner_tpu_torch.analysis import lint_config
+
+    plans = None
+    if plan_path:
+        from torchpruner_tpu_torch.core.plan import plan_from_dict
+
+        with open(plan_path) as f:
+            plans = [plan_from_dict(json.load(f))]
+    report = lint_config(cfg, plans=plans)
+    print(report.format())
+    return 0 if report.ok else 1
 
 
 def run_experiment(cfg, device=None) -> dict:

@@ -11,10 +11,13 @@ Counterpart of ``torchpruner_tpu/core/plan.py``:
 - :func:`apply_plan` executes the slices functionally (``index_select``)
   over nested-dict trees: params, the model state (BatchNorm running
   statistics, ``collection="state"``), and any optimizer state whose
-  leaves mirror the params tree.
+  leaves mirror the params tree.  It first runs the plan-lint pass
+  (``analysis/plan_lint.py``) over the given trees and raises
+  :class:`PlanError` before a tensor is touched.
 
 The axes mean the same thing as in the JAX package, so a plan applies
-to either package's trees.
+to either package's trees, and :func:`plan_to_dict` /
+:func:`plan_from_dict` write and read the JAX package's JSON schema.
 """
 
 from __future__ import annotations
@@ -26,6 +29,21 @@ import numpy as np
 import torch
 
 Path = Tuple[Any, ...]  # keys into a nested-dict tree
+
+
+class PlanError(ValueError):
+    """A plan does not fit the trees it is being applied to.
+
+    Raised by :func:`apply_plan`'s pre-flight — the plan-lint pass
+    (``analysis/plan_lint.py``) run over the actual trees — so the
+    message names the offending tree path, axis and check.
+    ``findings`` carries the structured records."""
+
+    def __init__(self, findings):
+        self.findings = tuple(findings)
+        super().__init__(
+            "plan does not fit the provided trees:\n"
+            + "\n".join("  " + f.format() for f in self.findings))
 
 
 @dataclass(frozen=True)
@@ -134,7 +152,21 @@ def apply_plan(plan: PrunePlan, drop: Sequence[int], params, state=None,
                opt_state=None):
     """Execute a plan: slice every listed tensor, plus every optimizer
     state leaf that mirrors a sliced param (momentum, Adam moments).
-    Returns ``(params', state', opt_state')``."""
+    Returns ``(params', state', opt_state')``.
+
+    Pre-flight: the plan-lint pass runs over the given trees first (it
+    reads shapes only: no launch, no device synchronization), and any
+    error-severity finding raises :class:`PlanError` naming the path,
+    axis and check — before a single tensor is touched.  Severities
+    follow ``analysis.severity_config``: a check downgraded below error
+    (or ignored) there no longer raises here either."""
+    from torchpruner_tpu_torch.analysis.findings import active_severity
+    from torchpruner_tpu_torch.analysis.plan_lint import lint_plan
+
+    problems = [f for f in lint_plan(plan, params, state)
+                if active_severity(f.check, f.severity) == "error"]
+    if problems:
+        raise PlanError(problems)
     keep = keep_indices(plan.n_units, drop)
     # param path -> (axis, expanded keep, old shape), for the optimizer
     param_slices: Dict[Tuple[str, ...], Tuple[int, np.ndarray,
@@ -142,20 +174,12 @@ def apply_plan(plan: PrunePlan, drop: Sequence[int], params, state=None,
     new_params, new_state = params, state
     for s in plan.slices:
         tree = new_params if s.collection == "params" else new_state
+        if tree is None:
+            continue  # optional slice (lint guarantees non-optional exist)
         try:
-            arr = _get_path(tree, s.path) if tree is not None else None
+            arr = _get_path(tree, s.path)
         except (KeyError, IndexError, TypeError):
-            arr = None
-        if arr is None:
-            if s.optional:
-                continue
-            raise KeyError(f"plan slice {'/'.join(map(str, s.path))} "
-                           f"({s.collection}) not found")
-        if arr.shape[s.axis] != plan.n_units * s.fan_out:
-            raise ValueError(
-                f"plan slice {'/'.join(map(str, s.path))}: axis {s.axis} "
-                f"has {arr.shape[s.axis]} entries, the plan expects "
-                f"{plan.n_units} x fan_out {s.fan_out}")
+            continue  # e.g. bias absent (use_bias=False): optional
         idx = expand_keep(keep, plan.n_units, s.fan_out)
         sliced = _take(arr, idx, s.axis)
         if s.collection == "params":
@@ -168,6 +192,42 @@ def apply_plan(plan: PrunePlan, drop: Sequence[int], params, state=None,
     if opt_state is not None:
         new_opt_state = _slice_opt_state(opt_state, param_slices)
     return new_params, new_state, new_opt_state
+
+
+def plan_to_dict(plan: PrunePlan) -> dict:
+    """JSON-safe dict form of a plan (CLI ``--lint-plan`` files), the JAX
+    package's schema."""
+    return {
+        "n_units": plan.n_units,
+        "slices": [
+            {
+                "path": list(s.path),
+                "axis": s.axis,
+                "fan_out": s.fan_out,
+                "collection": s.collection,
+                "optional": s.optional,
+            }
+            for s in plan.slices
+        ],
+    }
+
+
+def plan_from_dict(d: dict) -> PrunePlan:
+    """Inverse of :func:`plan_to_dict`; tree path keys come back as the
+    JSON types (strings / ints)."""
+    return PrunePlan(
+        n_units=int(d["n_units"]),
+        slices=tuple(
+            ParamSlice(
+                path=tuple(s["path"]),
+                axis=int(s["axis"]),
+                fan_out=int(s.get("fan_out", 1)),
+                collection=s.get("collection", "params"),
+                optional=bool(s.get("optional", False)),
+            )
+            for s in d["slices"]
+        ),
+    )
 
 
 def _slice_opt_state(opt_state, param_slices, path=()):

@@ -219,9 +219,14 @@ class ContinuousProfiler:
         self._prof = None     # the open window's torch.profiler session
         #: threads compressing closed windows' traces (joined by close)
         self._compressing: List[threading.Thread] = []
-        #: guards arming against the window state: the request stays
-        #: armed until its window is open, so a second request made
-        #: while the (slow) first start runs is refused
+        #: guards the window state (``_want_window``, ``_open``,
+        #: ``_failed``, ``windows``) between the loop thread and the
+        #: threads that arm a window (``POST /profile``) or close the
+        #: session: a request stays armed until its window is open, so a
+        #: second request made while the (slow) first start runs is
+        #: refused, and a closing window takes its slot in ``windows``
+        #: in the same step that clears ``_open``, so a request made
+        #: while it stops sees the cap it will reach
         self._arm_lock = threading.Lock()
 
     # -- the step hook (hot path) -------------------------------------------
@@ -230,11 +235,14 @@ class ContinuousProfiler:
         """One recorded step.  Opens/advances/closes windows at step
         boundaries; between windows it is one increment + compare."""
         self._steps_seen += 1
-        if self._open is not None:
-            self._open["steps"] += 1
-            self._open["step_seconds"] += float(dt_s or 0.0)
-            self._open["step_times"].append(round(float(dt_s or 0.0), 9))
-            if self._open["steps"] >= self._open["target_steps"]:
+        # the open window's record is the loop thread's own until it
+        # closes: other threads only test ``_open`` against None
+        w = self._open
+        if w is not None:
+            w["steps"] += 1
+            w["step_seconds"] += float(dt_s or 0.0)
+            w["step_times"].append(round(float(dt_s or 0.0), 9))
+            if w["steps"] >= w["target_steps"]:
                 self._stop_window()
             return
         if self._want_window:
@@ -289,10 +297,11 @@ class ContinuousProfiler:
         return self.tracer.span(name, **meta)
 
     def _start_window(self, on_demand: bool) -> None:
-        if self._failed or len(self.windows) >= self.max_windows:
-            self._want_window = False
-            return
-        index = len(self.windows)
+        with self._arm_lock:
+            if self._failed or len(self.windows) >= self.max_windows:
+                self._want_window = False
+                return
+            index = len(self.windows)
         wdir = os.path.join(self.profile_dir, f"window_{index:03d}")
         t0 = time.perf_counter()
         try:
@@ -322,19 +331,24 @@ class ContinuousProfiler:
         self._emit_marker("profile_window_begin", opened)
 
     def _stop_window(self) -> None:
-        w, self._open = self._open, None
-        if w is None:
-            return
+        # one step under the lock: a close racing the loop stops the
+        # window once, and the window holds its slot from here on (its
+        # record fills in below)
+        with self._arm_lock:
+            w, self._open = self._open, None
+            if w is None:
+                return
+            self.windows.append(w)
         prof, self._prof = self._prof, None
         base = w.pop("launch_base")
         w.pop("target_steps", None)
         w.update({"events": 0, "device_events": 0, "kernel_events": {}})
         if w.pop("thread") != threading.get_ident():
             # the session is another thread's: it cannot be stopped here
-            self._failed = True
+            with self._arm_lock:
+                self._failed = True
             w["torn"] = True
             w["wall_s"] = round(time.perf_counter() - w.pop("t_mono"), 6)
-            self.windows.append(w)
             self._emit_marker("profile_window_end", w)
             return
         now = plain = None
@@ -374,7 +388,6 @@ class ContinuousProfiler:
             self.empty_windows += 1
             if self.registry is not None:
                 self.registry.counter(EMPTY_WINDOWS_COUNTER).inc()
-        self.windows.append(w)
         if plain is not None:
             t = threading.Thread(target=self._finish, args=(w, plain),
                                  name=f"profile_window_{w['index']}")

@@ -322,10 +322,15 @@ def shard_params(tree, mesh, axis: str = "model", min_size: int = 2**14):
     """Place a full params-like tree on the mesh under the FSDP rule:
     ``(local tree, spec tree)``, each leaf this rank's piece.  Arrays
     large enough to shard whose every dim fails the divisibility check
-    fall back to replication, with one warning line listing them."""
+    fall back to replication, with one warning line listing them (the
+    analyzer's ``sharding/replicated-fallback``; its severity config
+    silences the line with ``"ignore"``)."""
+    from torchpruner_tpu_torch.analysis.findings import active_severity
+
     specs = fsdp_sharding(tree, mesh, axis, min_size)
     fallbacks = _replication_fallbacks(tree, specs, mesh, axis, min_size)
-    if fallbacks:
+    if fallbacks and active_severity("sharding/replicated-fallback",
+                                     "warning") != "ignore":
         from torchpruner_tpu_torch.train.logger import log
 
         log.warning(

@@ -842,10 +842,12 @@ class ServeEngine:
                     prefill_chunk=self.prefill_chunk)
             if stream is not None:
                 stream.synchronize()
-            self._staged = staged
+            with self._swap_lock:  # handed to the loop thread
+                self._staged = staged
         except Exception as e:  # surfaced at the next step boundary
             self._swap_error = e
-            self._pending_swap = None
+            with self._swap_lock:
+                self._pending_swap = None
 
     def maybe_swap(self) -> bool:
         """Advance the swap state machine at a step boundary: report a
@@ -867,7 +869,10 @@ class ServeEngine:
                 # launch that reads them must have retired
                 torch.cuda.current_stream(self.device).synchronize()
             self.programs = new
-            self._staged, self._pending_swap = None, None
+            # under the lock request_swap tests it with: a request made
+            # on an HTTP thread sees the staging state whole
+            with self._swap_lock:
+                self._staged, self._pending_swap = None, None
             self.swaps_total += 1
             self.decode_kernel = _decode_kernel_active(
                 new.model, self.max_len, new.cache_dtype, self.device)

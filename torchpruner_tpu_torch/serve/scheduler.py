@@ -132,7 +132,7 @@ class Scheduler:
                 obs.inc("serve_rejected_throttle_total",
                         help="submissions shed by a tenant's token "
                              "bucket (rate throttling)")
-                self._tenant_shed(request.tenant, "throttle")
+                self._tenant_shed_locked(request.tenant, "throttle")
                 return request
             if self.queue_bound and self._depth_locked() >= self.queue_bound:
                 request.state = SHED
@@ -142,7 +142,7 @@ class Scheduler:
                 obs.inc("serve_rejected_backpressure_total",
                         help="submissions shed by the queue bound "
                              "(503 + Retry-After backpressure)")
-                self._tenant_shed(request.tenant, "backpressure")
+                self._tenant_shed_locked(request.tenant, "backpressure")
                 return request
             request.state = QUEUED
             self._queues.setdefault(pol.priority, deque()).append(request)
@@ -151,10 +151,11 @@ class Scheduler:
             obs.inc("serve_requests_total", help="requests submitted")
         return request
 
-    def _tenant_shed(self, tenant: Optional[str], reason: str) -> None:
+    def _tenant_shed_locked(self, tenant: Optional[str],
+                            reason: str) -> None:
         """Count a shed by reason, and per tenant (the JAX package's
-        serve_rejected_* / tenant_*_shed_* counters); called under the
-        queue lock."""
+        serve_rejected_* / tenant_*_shed_* counters); every caller holds
+        the queue lock (the ``_locked`` suffix says so)."""
         self.rejected[reason] = self.rejected.get(reason, 0) + 1
         if tenant:
             key = f"{tenant}:{reason}"
@@ -279,7 +280,7 @@ class Scheduler:
                     obs.inc("serve_rejected_quota_total",
                             help="admissions shed because the tenant "
                                  "would exceed its KV-page quota")
-                    self._tenant_shed(head.tenant, "quota")
+                    self._tenant_shed_locked(head.tenant, "quota")
                     continue
                 lease = self.allocator.allocate(
                     head.id, head.total_len, tenant=head.tenant)

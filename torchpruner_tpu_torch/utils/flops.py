@@ -155,3 +155,115 @@ def roofline_position(flops: Optional[float], bytes_moved: Optional[float],
                         if achieved_b and peak_bw else None),
         "bound": bound,
     }
+
+
+#: Order-of-magnitude host constants (FLOP/s, bytes/s, bytes/s of
+#: interconnect) a chip-less pricing run uses — the JAX package's
+#: ``CPU_COST_DEFAULTS``, copied, so a campaign's decisions are
+#: deterministic on any host.  The rates are env-overridable
+#: (TORCHPRUNER_COST_CPU_FLOPS / _BW); nothing here reads ``ici``.
+CPU_COST_DEFAULTS = {"flops": 5e10, "hbm": 2e10, "ici": 1e10}
+
+#: Deterministic stand-in device memory for a chip-less host (the JAX
+#: package's ``CPU_HBM_CAPACITY_BYTES``): big enough that smoke configs
+#: are never spuriously infeasible, small enough that a planted budget
+#: (TORCHPRUNER_PLAN_HBM_BYTES) can undercut it in tests.
+CPU_HBM_CAPACITY_BYTES = 8 * 2 ** 30
+
+#: env override for the per-device memory a pricing run budgets against
+PLAN_HBM_ENV = "TORCHPRUNER_PLAN_HBM_BYTES"
+
+
+def _env_float(name: str, default: float) -> float:
+    import os
+
+    v = os.environ.get(name)
+    return float(v) if v else default
+
+
+def hbm_capacity(device=None) -> float:
+    """Per-device memory in bytes that a pricing gate budgets against.
+    ``TORCHPRUNER_PLAN_HBM_BYTES`` overrides everything.  With no device
+    given it is :data:`CPU_HBM_CAPACITY_BYTES`, as the JAX package's is
+    in its chip-less campaign driver; only a CUDA device passed in
+    explicitly reads the card (``parallel.memory.hbm_bytes``)."""
+    import os
+
+    env = os.environ.get(PLAN_HBM_ENV)
+    if env:
+        return float(env)
+    if device is not None and torch.device(device).type == "cuda":
+        from torchpruner_tpu_torch.parallel.memory import hbm_bytes
+
+        return float(hbm_bytes(torch.device(device)))
+    return float(CPU_HBM_CAPACITY_BYTES)
+
+
+def predicted_hbm_bytes_per_chip(
+    model,
+    mesh_axes: dict,
+    *,
+    partition: str = "fsdp",
+    zero: bool = False,
+    tx=None,
+    batch_per_chip: int = 1,
+    compute_dtype=None,
+    remat: bool = False,
+    params=None,
+    min_shard_size: int = 2 ** 14,
+) -> int:
+    """Predicted per-rank memory watermark (bytes) for training
+    ``model`` at a placement — params + grads + optimizer slots (at
+    their ZeRO placement when ``zero``) + the coarse activation
+    estimate, all from ``parallel.memory.training_memory`` over
+    ``meta`` trees and a ``{axis: size}`` mesh (no device, no
+    materialized parameter).  ``mesh_axes`` may be empty (one device).
+    The JAX package's function, over the port's placement rules."""
+    from torchpruner_tpu_torch.parallel.memory import training_memory
+    from torchpruner_tpu_torch.parallel.sharding import (
+        fsdp_sharding,
+        tp_sharding,
+    )
+
+    axes = dict(mesh_axes or {"data": 1})
+    if "data" not in axes:
+        axes["data"] = 1
+    if params is None:
+        from torchpruner_tpu_torch.analysis.plan_lint import abstract_trees
+
+        params, _ = abstract_trees(model)
+    if partition == "tp" and "model" in axes:
+        sh = tp_sharding(model, params, axes, min_size=min_shard_size)
+    else:
+        sh = fsdp_sharding(params, axes, min_size=min_shard_size)
+    budget = training_memory(
+        model, sh, axes, tx=tx, batch_per_chip=max(1, batch_per_chip),
+        compute_dtype=compute_dtype, remat=remat, params=params,
+        zero=zero,
+    )
+    return int(budget.total_bytes)
+
+
+def train_step_roofline(forward_flops: float, step_bytes: float) -> dict:
+    """A train step's roofline from the port's own counts, at the
+    chip-less :data:`CPU_COST_DEFAULTS` (env overrides
+    TORCHPRUNER_COST_CPU_FLOPS / _BW): compute time is ``3 x
+    forward_flops`` (forward + backward) over the FLOP rate, memory time
+    the bytes the step plans (``training_memory``'s total) over the
+    bandwidth, and the prediction the larger of the two.  Returns
+    ``{step_ms, compute_ms, memory_ms, bound, comm_ms, device_kind}`` —
+    ``bound`` is ``"compute"`` or ``"hbm"``; ``comm_ms`` is None (no
+    collective program is read)."""
+    flops = _env_float("TORCHPRUNER_COST_CPU_FLOPS",
+                       CPU_COST_DEFAULTS["flops"])
+    hbm = _env_float("TORCHPRUNER_COST_CPU_BW", CPU_COST_DEFAULTS["hbm"])
+    compute_ms = 3.0 * float(forward_flops) / flops * 1e3
+    memory_ms = float(step_bytes) / hbm * 1e3
+    return {
+        "step_ms": max(compute_ms, memory_ms),
+        "compute_ms": compute_ms,
+        "memory_ms": memory_ms,
+        "bound": "compute" if compute_ms >= memory_ms else "hbm",
+        "comm_ms": None,
+        "device_kind": "cpu-default cost constants",
+    }
